@@ -1,0 +1,119 @@
+"""Build and load the port's CUDA kernels.
+
+Every `kss_icp_torch/csrc/*.cu` is compiled by nvcc, at first use, into one
+shared library with a plain C interface under `kss_icp_torch/_build/`, and
+loaded with ctypes. The library's file name carries a hash of the sources and
+flags, so an edit to any source rebuilds it. nvcc is found through
+`CUDA_HOME`, then `PATH`, then PyTorch's own CUDA_HOME lookup. A
+failed build raises with nvcc's output. Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # No FMA contraction: every distance rounds as the plain version's
+    # separate multiply and add do, so argmin/argmax picks agree.
+    "-fmad=false", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argtypes (pointers, ints, then the stream).
+SIGNATURES = {
+    "kss_nn1": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "kss_fps": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "kss_field_ave": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+}
+
+
+class BuildError(RuntimeError):
+    pass
+
+
+def find_nvcc() -> str:
+    root = os.environ.get("CUDA_HOME")
+    if root and (Path(root) / "bin" / "nvcc").exists():
+        return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise BuildError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, str, float]:
+    """Compile the library if its hash is not built yet.
+
+    Returns (library path, nvcc's output, build seconds; 0 when cached)."""
+    lib = BUILD / f"libkss_kernels_{source_hash()}.so"
+    log = lib.with_suffix(".log")
+    if lib.exists():
+        return lib, log.read_text() if log.exists() else "", 0.0
+    BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    # Build under a temporary name, then rename: a concurrent build never
+    # loads a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    output = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise BuildError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{output}")
+    log.write_text(output)
+    os.replace(tmp, lib)
+    return lib, output, seconds
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.kss_error_string.argtypes = [ctypes.c_int]
+    lib.kss_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = library().kss_error_string(code)
+        raise RuntimeError(f"{name}: CUDA error {code}: {msg.decode() if msg else '?'}")

@@ -1,0 +1,105 @@
+"""Coarse alignment: exhaustive Euler rotation-grid search in pre-shape space.
+
+Port of kss_icp_tpu/models/coarse.py (initRegistration_Rotation and
+initRegistration_kernel, initRegistrationKSS.hpp:222-296,:481-522). The
+field is scored by the `field_ave` kernel; local minima come from a 3-D
+min-pool whose -inf padding equals the reference's clamped-edge cube.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from kss_icp_torch.core.transforms import euler_xyz_matrix
+from kss_icp_torch.ops.coarse_cuda import field_ave
+
+BIG = 1e30
+
+
+class CoarseResult(NamedTuple):
+    field: torch.Tensor             # (steps, steps, steps) mean-NN-distance error
+    best_angles: torch.Tensor       # (3,) Euler angles of the global minimum
+    candidate_angles: torch.Tensor  # (K, 3) local-minimum angles, ascending error
+    candidate_mask: torch.Tensor    # (K,) validity (False once minima run out)
+    candidate_errors: torch.Tensor  # (K,) field values at the candidates
+
+
+def grid_angles(steps: int, span: float, device="cpu") -> torch.Tensor:
+    """Per-axis sweep values i*span/steps, i in [0, steps)."""
+    return torch.arange(steps, dtype=torch.float32, device=device) * (span / steps)
+
+
+def rotation_grid(steps: int, span: float, device="cpu") -> torch.Tensor:
+    """All (steps^3, 3) Euler-angle triples in row-major (i, j, k) order."""
+    a = grid_angles(steps, span, device)
+    ii, jj, kk = torch.meshgrid(a, a, a, indexing="ij")
+    return torch.stack([ii.reshape(-1), jj.reshape(-1), kk.reshape(-1)], dim=-1)
+
+
+def score_rotation_field(
+    source: torch.Tensor,
+    source_mask: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    *,
+    steps: int,
+    span: float = 6.3,
+    error_metric: str = "ave",
+) -> torch.Tensor:
+    """(steps, steps, steps) field: field[i, j, k] is the mean 1-NN distance of
+    Rz(k)·Ry(j)·Rx(i)·source to the target. Only the main-path "ave" metric
+    is ported; the others raise."""
+    if error_metric != "ave":
+        raise NotImplementedError(
+            f"coarse_error_metric={error_metric!r} is not ported yet (ROADMAP.md queue 1, items 11 and 13)")
+    rots = euler_xyz_matrix(rotation_grid(steps, span, source.device))
+    return field_ave(source, source_mask, target, target_mask, rots).reshape(steps, steps, steps)
+
+
+def local_minima_mask(field: torch.Tensor, radius: int) -> torch.Tensor:
+    """True where field[i,j,k] <= every value in the clamped (2r+1)^3 cube."""
+    w = 2 * radius + 1
+    pooled = -F.max_pool3d(-field[None, None], kernel_size=w, stride=1, padding=radius)[0, 0]
+    return field <= pooled
+
+
+def coarse_align(
+    source: torch.Tensor,
+    source_mask: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    *,
+    steps: int,
+    span: float = 6.3,
+    radius: int = 2,
+    max_candidates: int = 32,
+    error_metric: str = "ave",
+) -> CoarseResult:
+    """Score the grid, extract local minima, rank candidates by error.
+
+    Candidate 0 is the global minimum. Ties keep index order, as
+    jax.lax.top_k does (a stable sort, not torch.topk)."""
+    field = score_rotation_field(source, source_mask, target, target_mask,
+                                 steps=steps, span=span, error_metric=error_metric)
+    is_min = local_minima_mask(field, radius)
+    masked = torch.where(is_min, field, torch.full_like(field, BIG)).reshape(-1)
+    neg_vals, order = torch.sort(-masked, descending=True, stable=True)
+    flat_idx = order[:max_candidates]
+    cand_errors = -neg_vals[:max_candidates]
+    cand_mask = cand_errors < BIG / 2
+
+    unit = span / steps
+    ijk = torch.stack([flat_idx // (steps * steps), (flat_idx // steps) % steps, flat_idx % steps], dim=-1)
+    cand_angles = ijk.to(field.dtype) * unit
+    best_flat = torch.argmin(field.reshape(-1))
+    best = torch.stack([best_flat // (steps * steps), (best_flat // steps) % steps, best_flat % steps])
+    return CoarseResult(
+        field=field,
+        best_angles=best.to(field.dtype) * unit,
+        candidate_angles=cand_angles,
+        candidate_mask=cand_mask,
+        candidate_errors=cand_errors,
+    )

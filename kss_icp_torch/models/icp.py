@@ -1,0 +1,154 @@
+"""Batched point-to-point ICP with Kabsch/SVD updates.
+
+Port of kss_icp_tpu/models/icp.py (pcl::IterativeClosestPoint as configured
+by KSS_ICP.hpp:155-162). JAX runs one `lax.while_loop` per lane under
+`vmap`, which executes in lockstep: the loop goes on while any lane is
+active, and a finished lane keeps its state. Here that is a Python loop over
+iterations with all lanes batched, `torch.where` freezing the finished lanes,
+and one host sync per iteration for the "any lane active" test. Per-lane
+`iterations` and `converged` equal the reference's.
+
+Correspondences come from the `nn1` kernel (one launch per iteration for all
+lanes). Point-to-plane, trimmed ICP, the Umeyama scale and the sharded
+point axis are not ported yet (ROADMAP.md queue 1, items 11 and 13).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from kss_icp_torch.core.transforms import matmul3, matvec3, rotate_points
+from kss_icp_torch.ops.nn_cuda import nn1
+
+
+class ICPParams(NamedTuple):
+    max_iterations: int
+    max_correspondence_distance: float
+    transformation_epsilon: float   # squared translation-delta gate
+    rotation_epsilon: float         # 1 - cos(angle-delta) gate
+    euclidean_fitness_epsilon: float  # correspondence-MSE delta gate
+    relative_mse: bool              # True = relative delta (PCL parity)
+
+    @classmethod
+    def from_config(cls, cfg) -> "ICPParams":
+        return cls(
+            max_iterations=int(cfg.max_icp_iterations),
+            max_correspondence_distance=float(cfg.max_correspondence_distance),
+            transformation_epsilon=float(cfg.transformation_epsilon),
+            rotation_epsilon=float(cfg.rotation_epsilon),
+            euclidean_fitness_epsilon=float(cfg.euclidean_fitness_epsilon),
+            relative_mse=cfg.fitness_epsilon_mode == "relative",
+        )
+
+
+class ICPResult(NamedTuple):
+    rotation: torch.Tensor     # (L, 3, 3) accumulated rigid rotation
+    translation: torch.Tensor  # (L, 3)
+    fitness: torch.Tensor      # (L,) mean squared NN distance over valid points
+    iterations: torch.Tensor   # (L,) int32
+    converged: torch.Tensor    # (L,) bool
+    scale: torch.Tensor        # (L,) accumulated scale (stays at its init)
+
+
+def kabsch(source: torch.Tensor, target: torch.Tensor, weights: torch.Tensor):
+    """Weighted rigid Kabsch over lanes: argmin_R,t sum w ||R s + t - t'||².
+
+    source, target (L, N, 3); weights (L, N). Returns (R (L, 3, 3), t (L, 3)),
+    with the determinant correction so that R is a proper rotation."""
+    dtype = source.dtype
+    wsum = weights.sum(dim=-1).clamp_min(torch.finfo(dtype).tiny)
+    w = weights[..., None]
+    cs = (w * source).sum(dim=-2) / wsum[..., None]
+    ct = (w * target).sum(dim=-2) / wsum[..., None]
+    s0 = source - cs[..., None, :]
+    t0 = target - ct[..., None, :]
+    h = (w[..., None] * s0[..., :, None] * t0[..., None, :]).sum(dim=-3) / wsum[..., None, None]
+    u, _, vh = torch.linalg.svd(h)
+    v, ut = vh.transpose(-1, -2), u.transpose(-1, -2)
+    det = torch.linalg.det(matmul3(v, ut))
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    r = matmul3(v * d[..., None, :], ut)
+    return r, ct - matvec3(r, cs)
+
+
+def _where(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    return torch.where(active.reshape(active.shape + (1,) * (new.dim() - 1)), new, old)
+
+
+def icp(
+    source: torch.Tensor,
+    source_mask: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    params: ICPParams,
+    init_rotation: Optional[torch.Tensor] = None,
+    init_translation: Optional[torch.Tensor] = None,
+    init_scale: Optional[torch.Tensor] = None,
+) -> ICPResult:
+    """Run ICP on L lanes from identity (or a warm start) against one target.
+
+    source (L, N, 3); source_mask (N,) or (L, N); target (T, 3), target_mask
+    (T,); init_* (L, 3, 3), (L, 3), (L,). Returns the rigid transform of each
+    lane, source -> target, with PCL's convergence tests and getFitnessScore
+    fitness."""
+    lanes = source.shape[0]
+    dtype, device = source.dtype, source.device
+    smask = source_mask.expand(source.shape[:2])
+    tgt, tmask = target[None].contiguous(), target_mask[None].contiguous()
+    big = torch.finfo(dtype).max / 4
+    max_d2 = torch.tensor(params.max_correspondence_distance, dtype=dtype) ** 2
+    tiny = torch.finfo(dtype).tiny
+
+    rot = (torch.eye(3, dtype=dtype, device=device).expand(lanes, 3, 3).clone()
+           if init_rotation is None else init_rotation)
+    trans = torch.zeros((lanes, 3), dtype=dtype, device=device) if init_translation is None else init_translation
+    scale = torch.ones((lanes,), dtype=dtype, device=device) if init_scale is None else init_scale
+    corr_mse = torch.full((lanes,), big, dtype=dtype, device=device)
+    iteration = torch.zeros((lanes,), dtype=torch.int32, device=device)
+    converged = torch.zeros((lanes,), dtype=torch.bool, device=device)
+
+    def positions(r, t, s):
+        return (s[:, None, None] * rotate_points(r, source) + t[:, None, :]).contiguous()
+
+    while True:
+        active = (iteration < params.max_iterations) & ~converged
+        if not bool(active.any()):
+            break
+        cur = positions(rot, trans, scale)
+        d2, idx = nn1(cur, tgt, tmask)
+        keep = smask & (d2 <= max_d2)
+        w = keep.to(dtype)
+        corr = target[idx.long()]
+        dr, dt = kabsch(cur, corr, w)
+        new_r = matmul3(dr, rot)
+        new_t = matvec3(dr, trans) + dt
+
+        # Convergence MSE from the matched pairs in exact f32 (icp.py:293-301).
+        wsum = w.sum(dim=-1).clamp_min(1.0)
+        diff = cur - corr
+        d2_exact = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+        new_mse = (d2_exact * w).sum(dim=-1) / wsum
+
+        trans_delta2 = dt[:, 0] * dt[:, 0] + dt[:, 1] * dt[:, 1] + dt[:, 2] * dt[:, 2]
+        cos_angle = (dr[:, 0, 0] + dr[:, 1, 1] + dr[:, 2, 2] - 1.0) / 2.0
+        transform_small = (trans_delta2 < params.transformation_epsilon) & (
+            (1.0 - cos_angle) < params.rotation_epsilon)
+        mse_delta = (new_mse - corr_mse).abs()
+        if params.relative_mse:
+            mse_delta = mse_delta / new_mse.clamp_min(tiny)
+        mse_small = mse_delta < params.euclidean_fitness_epsilon
+        new_conv = (iteration > 0) & (transform_small | mse_small)
+
+        rot = _where(active, new_r, rot)
+        trans = _where(active, new_t, trans)
+        corr_mse = _where(active, new_mse, corr_mse)
+        converged = _where(active, new_conv, converged)
+        iteration = _where(active, iteration + 1, iteration)
+
+    d2, _ = nn1(positions(rot, trans, scale), tgt, tmask)
+    w = smask.to(dtype)
+    fitness = (d2 * w).sum(dim=-1) / w.sum(dim=-1).clamp_min(1.0)
+    return ICPResult(rotation=rot, translation=trans, fitness=fitness,
+                     iterations=iteration, converged=converged, scale=scale)

@@ -1,0 +1,77 @@
+"""Plain PyTorch 1-NN ops: the CPU path and the reference of the CUDA kernels.
+
+Port of the contracts in kss_icp_tpu/ops/nn.py and ops/nn_pallas.py. Every
+distance that feeds a min or an argmin is computed in exact float32
+difference form, in the kernels' order, ((dx² + dy²) + dz²) + bias, where
+bias is 0 for a valid reference row and 1e30 for a masked one — never the
+‖a‖²+‖b‖²−2ab expansion. Ties go to the first index. The query axis is
+chunked so that a (Q, R) block never exceeds `_BLOCK_ELEMS` elements.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+BIG = 1e30
+_BLOCK_ELEMS = 1 << 24
+
+
+def _ref_bias(ref_mask: torch.Tensor) -> torch.Tensor:
+    """0 for valid reference rows, 1e30 for masked ones (float32)."""
+    big = torch.tensor(BIG, dtype=torch.float32, device=ref_mask.device)
+    return torch.where(ref_mask, torch.zeros_like(big), big)
+
+
+def _min_rel(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw running min of ((dx²+dy²)+dz²)+bias and its first argmin.
+
+    query (..., Q, 3), ref (..., R, 3), ref_mask (..., R); leading dims
+    broadcast. Returns ((..., Q) float32, (..., Q) int64)."""
+    bias = _ref_bias(ref_mask)[..., None, :]
+    rx, ry, rz = (ref[..., None, :, k] for k in range(3))
+    q_n, r_n = query.shape[-2], ref.shape[-2]
+    lead = torch.broadcast_shapes(query.shape[:-2], ref.shape[:-2])
+    rows = max(1, _BLOCK_ELEMS // max(1, r_n * max(1, lead.numel())))
+    mins, args = [], []
+    for q0 in range(0, q_n, rows):
+        q = query[..., q0:q0 + rows, :]
+        dx = q[..., :, None, 0] - rx
+        dy = q[..., :, None, 1] - ry
+        dz = q[..., :, None, 2] - rz
+        rel = dx * dx + dy * dy + dz * dz + bias
+        arg = torch.argmin(rel, dim=-1)
+        mins.append(torch.take_along_dim(rel, arg[..., None], dim=-1)[..., 0])
+        args.append(arg)
+    return torch.cat(mins, dim=-1), torch.cat(args, dim=-1)
+
+
+def nearest_neighbor(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1-NN of each query point among valid reference points.
+
+    Returns (sq_distances (..., Q) float32, indices (..., Q) int32). A fully
+    masked reference gives 1e30 (nn_pallas.py:138-141)."""
+    m, arg = _min_rel(query, ref, ref_mask)
+    d2 = torch.where(m >= BIG / 2, torch.full_like(m, BIG), m.clamp_min(0.0))
+    return d2, arg.to(torch.int32)
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of values over the valid entries of the last axis (0 if none)."""
+    w = mask.to(values.dtype)
+    return (values * w).sum(dim=-1) / w.sum(dim=-1).clamp_min(1.0)
+
+
+def masked_mean_nn_distance(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> torch.Tensor:
+    """Mean 1-NN distance over valid query points — the "ave" rotation-field
+    error (initRegistrationKSS.hpp:430-450) and the field kernel's contract:
+    sqrt(max(min, 0)) of the raw biased min, weighted by the query mask."""
+    m, _ = _min_rel(query, ref, ref_mask)
+    return masked_mean(torch.sqrt(m.clamp_min(0.0)), query_mask)
+
+
+def masked_mean_nn_sqdist(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> torch.Tensor:
+    """Mean squared 1-NN distance — PCL's getFitnessScore contract."""
+    d2, _ = nearest_neighbor(query, ref, ref_mask)
+    return masked_mean(d2, query_mask)

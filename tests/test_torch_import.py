@@ -1,0 +1,129 @@
+"""The port imports without jax, keeps the JAX package's config, refuses the
+knobs it does not implement, and its CPU path launches no kernel."""
+
+import ast
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import kss_icp_torch.config as tcfg
+from kss_icp_torch.models import kss_icp as tk
+from kss_icp_torch.ops.coarse_cuda import field_ave
+from kss_icp_torch.ops.nn_cuda import nn1
+from kss_icp_torch.ops.resample_cuda import fps
+from kss_icp_tpu import config as jcfg
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_imports_with_jax_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['kss_icp_tpu'] = None\n"
+            "import kss_icp_torch, kss_icp_torch.models.kss_icp, kss_icp_torch.metrics\n"
+            "import kss_icp_torch.ops, kss_icp_torch.models, kss_icp_torch.core\n"
+            "print(sorted(kss_icp_torch.__all__))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    import kss_icp_tpu
+    assert out.stdout.strip() == str(sorted(kss_icp_tpu.__all__))
+
+
+def test_no_source_file_imports_jax():
+    files = sorted((REPO / "kss_icp_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            bad += [f"{f.name}: {n}" for n in names if n.split(".")[0] in ("jax", "jaxlib", "kss_icp_tpu")]
+    assert not bad
+
+
+def test_config_fields_and_defaults_match_jax():
+    j = [(f.name, f.default) for f in dataclasses.fields(jcfg.KSSICPConfig)]
+    t = [(f.name, f.default) for f in dataclasses.fields(tcfg.KSSICPConfig)]
+    assert t == j
+    assert dataclasses.asdict(tcfg.DEFAULT_CONFIG) == dataclasses.asdict(jcfg.DEFAULT_CONFIG)
+
+
+@pytest.mark.parametrize("knobs", [{}, dict(max_candidates=6, coarse_points=512, coarse_target_points=512,
+                                           refine_candidates=2, refine_tier_iterations=12,
+                                           refine_max_iterations=16),
+                                   dict(rotation_chunk=128, refine_candidates=1, escalate_pose_tiebreak=0.3)])
+def test_derived_configs_match_jax(knobs):
+    j = jcfg.KSSICPConfig(**knobs)
+    t = tcfg.from_reference(j)
+    assert t == tcfg.KSSICPConfig(**knobs)
+    assert dataclasses.asdict(t.escalation_config()) == dataclasses.asdict(j.escalation_config())
+    assert dataclasses.asdict(t.overlap_config()) == dataclasses.asdict(j.overlap_config())
+    assert dataclasses.asdict(t.escalation_config().overlap_config()) == dataclasses.asdict(
+        j.escalation_config().overlap_config())
+    assert [t.resample_count(a, b) for a, b in ((757, 3951), (5000, 9000), (3, 1))] == [
+        j.resample_count(a, b) for a, b in ((757, 3951), (5000, 9000), (3, 1))]
+    assert t.padded_size(3068) == j.padded_size(3068) and t.num_rotations == j.num_rotations
+
+
+def test_from_reference_takes_a_dict_and_refuses_unknown_fields():
+    d = dataclasses.asdict(jcfg.KSSICPConfig(neighborhood_fracs=(0.25, 0.5)))
+    assert tcfg.from_reference(d).neighborhood_fracs == (0.25, 0.5)
+    with pytest.raises(TypeError):
+        tcfg.from_reference(dict(d, no_such_knob=1))
+
+
+_NO_ESC = tcfg.KSSICPConfig(rotation_steps=2, max_candidates=2, max_resample_points=32, resample_pad=64,
+                            max_icp_iterations=2, auto_escalate=False)
+# (knobs, read by register_resampled too?)
+UNPORTED = [
+    (dict(auto_escalate=True), False),
+    (dict(overlap_mode=True), False),
+    (dict(refine_polish_iterations=4, refine_max_iterations=8), False),
+    (dict(resampler="aivs"), False),
+    (dict(neighborhood_fracs=(0.25,)), True),
+    (dict(pose_tiebreak_margin=0.12), True),
+    (dict(icp_variant="point_to_plane"), True),
+    (dict(coarse_error_metric="trim"), True),
+    (dict(coarse_error_metric="max"), True),
+    (dict(icp_trim_fraction=0.7), True),
+    (dict(icp_estimate_scale=True), True),
+]
+
+
+@pytest.mark.parametrize("knobs, in_core", UNPORTED, ids=[",".join(k) for k, _ in UNPORTED])
+def test_unported_knobs_raise(rng, knobs, in_core):
+    cfg = dataclasses.replace(_NO_ESC, **knobs)
+    pts = rng.uniform(-1, 1, size=(40, 3)).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tk.register_pair(pts, pts, cfg, device="cpu")
+    if in_core:
+        x = torch.as_tensor(pts)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tk.register_resampled(x, torch.ones(40, dtype=torch.bool), x, torch.ones(40, dtype=torch.bool), cfg)
+
+
+def test_cuda_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    pts = np.zeros((40, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tk.register_pair(pts, pts, _NO_ESC)
+
+
+def test_cpu_wrappers_launch_no_kernel(rng):
+    before = (nn1.launches, fps.launches, field_ave.launches)
+    pts = torch.as_tensor(rng.uniform(-1, 1, size=(2, 50, 3)).astype(np.float32))
+    mask = torch.ones((2, 50), dtype=torch.bool)
+    nn1(pts, pts, mask)
+    fps(pts, mask, 10)
+    field_ave(pts[0], mask[0], pts[1], mask[1], torch.eye(3)[None])
+    assert (nn1.launches, fps.launches, field_ave.launches) == before

@@ -1,0 +1,100 @@
+"""The port's farthest-point sampling (kss_icp_torch/ops/resample.py,
+ops/resample_cuda.py) against the JAX FPS: the Pallas kernel in interpret
+mode and the XLA loop, index for index, and resample_batch against JAX's.
+The FPS kernel itself is tested on the card in tests/test_torch_card.py."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from helpers import random_cloud
+from kss_icp_torch.config import from_reference
+from kss_icp_torch.models import kss_icp as tk
+from kss_icp_torch.ops.resample import farthest_point_sampling as t_fps
+from kss_icp_torch.ops.resample_cuda import fps
+from kss_icp_tpu.config import KSSICPConfig
+from kss_icp_tpu.models import kss_icp as jk
+from kss_icp_tpu.ops.resample import farthest_point_sampling
+from kss_icp_tpu.ops.resample_pallas import fps_batch_pallas
+
+torch.set_num_threads(1)
+
+
+def _clouds(rng, b, p, short=None):
+    pts = np.stack([random_cloud(rng, p) for _ in range(b)]).astype(np.float32)
+    mask = np.ones((b, p), bool)
+    for row, n in (short or {}).items():
+        mask[row, n:] = False
+    return pts, mask
+
+
+def _xla_batch(points, mask, s):
+    f = jax.vmap(lambda p, m: farthest_point_sampling(p, m, s))
+    return f(jnp.asarray(points), jnp.asarray(mask))
+
+
+@pytest.mark.parametrize("b, p, s, short", [
+    (3, 400, 150, {1: 320}),   # tests/test_resample_pallas.py:18-28
+    (2, 64, 100, {0: 40}),     # fewer valid points than samples (:31-46)
+    (1, 512, 32, None),
+])
+def test_plain_matches_pallas_kernel(rng, b, p, s, short):
+    pts, mask = _clouds(rng, b, p, short)
+    idx_j, sm_j = fps_batch_pallas(jnp.asarray(pts), jnp.asarray(mask), s, interpret=True)
+    idx, sm = fps(torch.as_tensor(pts), torch.as_tensor(mask), s)
+    np.testing.assert_array_equal(sm.numpy(), np.asarray(sm_j))
+    # Picks past the valid count repeat index 0 in both; compare every row whole.
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+
+
+def test_plain_matches_xla_loop(rng):
+    pts, mask = _clouds(rng, 3, 400, {2: 257})
+    idx_j, sm_j = _xla_batch(pts, mask, 150)
+    idx, sm = t_fps(torch.as_tensor(pts), torch.as_tensor(mask), 150)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(sm.numpy(), np.asarray(sm_j))
+
+
+def test_all_invalid_cloud_picks_index_zero(rng):
+    pts, mask = _clouds(rng, 1, 64, {0: 0})
+    idx_j, sm_j = _xla_batch(pts, mask, 8)
+    idx, sm = fps(torch.as_tensor(pts), torch.as_tensor(mask), 8)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+    assert not sm.any()
+
+
+_CFG = KSSICPConfig(max_resample_points=96, resample_pad=128, auto_escalate=False)
+
+
+def test_resample_batch_matches_jax(rng):
+    pts, mask = _clouds(rng, 2, 256, {1: 190})
+    pn = np.array([96, 80])
+    rp_j, rm_j = jk.resample_batch(jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(pn), _CFG)
+    rp, rm = tk.resample_batch(torch.as_tensor(pts), torch.as_tensor(mask), torch.as_tensor(pn),
+                               from_reference(_CFG))
+    np.testing.assert_array_equal(rm.numpy(), np.asarray(rm_j))
+    np.testing.assert_array_equal(rp.numpy(), np.asarray(rp_j))
+
+
+def test_resample_pairs_matches_jax(rng):
+    src, smask = _clouds(rng, 2, 256, {0: 200})
+    tgt, tmask = _clouds(rng, 2, 256, {1: 222})
+    pn = np.array([90, 64])
+    (sp_j, sm_j), (tp_j, tm_j) = jk.resample_pairs(
+        jnp.asarray(src), jnp.asarray(smask), jnp.asarray(tgt), jnp.asarray(tmask), jnp.asarray(pn), _CFG)
+    (sp, sm), (tp, tm) = tk.resample_pairs(
+        torch.as_tensor(src), torch.as_tensor(smask), torch.as_tensor(tgt), torch.as_tensor(tmask),
+        torch.as_tensor(pn), from_reference(_CFG))
+    for got, want in ((sp, sp_j), (sm, sm_j), (tp, tp_j), (tm, tm_j)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_aivs_resampler_is_not_ported(rng):
+    pts, mask = _clouds(rng, 1, 64)
+    cfg = dataclasses.replace(from_reference(_CFG), resampler="aivs")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tk.resample_batch(torch.as_tensor(pts), torch.as_tensor(mask), torch.tensor([32]), cfg)
