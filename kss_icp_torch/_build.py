@@ -2,10 +2,11 @@
 
 Every `kss_icp_torch/csrc/*.cu` is compiled by nvcc, at first use, into one
 shared library with a plain C interface under `kss_icp_torch/_build/`, and
-loaded with ctypes. The library's file name carries a hash of the sources and
-flags, so an edit to any source rebuilds it. nvcc is found through
-`CUDA_HOME`, then `PATH`, then PyTorch's own CUDA_HOME lookup. A
-failed build raises with nvcc's output. Nothing here runs at import.
+loaded with ctypes: one nvcc process per source, all started together, then
+one link. The library's file name carries a hash of the sources and flags, so
+an edit to any source rebuilds it. nvcc is found through `CUDA_HOME`, then
+`PATH`, then PyTorch's own CUDA_HOME lookup. A failed build raises with
+nvcc's output. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # No FMA contraction: every distance rounds as the plain version's
     # separate multiply and add do, so argmin/argmax picks agree.
     "-fmad=false", "-Xptxas", "-v",
@@ -38,6 +39,7 @@ SIGNATURES = {
     "kss_nn1": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "kss_fps": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
     "kss_field_ave": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "kss_field_dot": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -81,21 +83,42 @@ def build() -> tuple[Path, str, float]:
         return lib, log.read_text() if log.exists() else "", 0.0
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    # Build under a temporary name, then rename: a concurrent build never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    output = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise BuildError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{output}")
-    log.write_text(output)
-    os.replace(tmp, lib)
-    return lib, output, seconds
+    # Build in a temporary directory, then rename the library into place: a
+    # concurrent build never loads a half-written one.
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sorted(CSRC.glob("*.cu"))]
+        output = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / f"{o.stem}.cu")]
+                           for o in objs], tmp)
+        so = Path(tmp) / lib.name
+        output += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                             "-o", str(so), *map(str, objs)]], tmp)
+        log.write_text(output)
+        os.replace(so, lib)
+    return lib, output, time.perf_counter() - t0
+
+
+def _run_all(cmds: list[list[str]], logdir: str) -> str:
+    """Run the commands at once, each writing to a file in `logdir`, and wait
+    for all of them; raise with the output of the first that failed, else
+    return their joined output."""
+    logs = [Path(logdir) / f"nvcc_{i}.txt" for i in range(len(cmds))]
+    procs = []
+    try:
+        for cmd, log in zip(cmds, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT))
+        codes = [proc.wait(timeout=600) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    outputs = [log.read_text() for log in logs]
+    for cmd, code, output in zip(cmds, codes, outputs):
+        if code != 0:
+            raise BuildError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{output}")
+    return "".join(outputs)
 
 
 @functools.lru_cache(maxsize=1)

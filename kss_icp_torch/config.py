@@ -8,9 +8,11 @@ field lists and defaults to each other.
 Knobs that only pick a TPU backend or a matmul precision are accepted and
 ignored, because the port computes every distance in exact float32:
 `fps_backend`, `icp_nn_backend`, `refine_nn_backend`, `coarse_backend`,
-`coarse_method`, `rotation_chunk`, `nn_query_chunk`, `screen_precision`,
-`icp_precision` and `coarse_precision`. (The plain versions bound their
-memory by chunking the query axis on their own, ops/nn.py.)
+`rotation_chunk`, `nn_query_chunk`, `screen_precision` and `icp_precision`.
+(The plain versions bound their memory by chunking the query axis on their
+own, ops/nn.py.) `coarse_method` picks the field kernel ("vpu": `field_ave`,
+exact differences; "dot": `field_dot`, the augmented dot product) and
+`coarse_precision` the dot's precision, as in the JAX package.
 """
 
 from __future__ import annotations

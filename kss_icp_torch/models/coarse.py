@@ -2,8 +2,9 @@
 
 Port of kss_icp_tpu/models/coarse.py (initRegistration_Rotation and
 initRegistration_kernel, initRegistrationKSS.hpp:222-296,:481-522). The
-field is scored by the `field_ave` kernel; local minima come from a 3-D
-min-pool whose -inf padding equals the reference's clamped-edge cube.
+field is scored by the `field_ave` kernel (method "vpu") or the `field_dot`
+kernel (method "dot"); local minima come from a 3-D min-pool whose -inf
+padding equals the reference's clamped-edge cube.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from kss_icp_torch.core.transforms import euler_xyz_matrix
-from kss_icp_torch.ops.coarse_cuda import field_ave
+from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot
 
 BIG = 1e30
 
@@ -48,15 +49,26 @@ def score_rotation_field(
     steps: int,
     span: float = 6.3,
     error_metric: str = "ave",
+    method: str = "vpu",
+    precision: str = "highest",
 ) -> torch.Tensor:
     """(steps, steps, steps) field: field[i, j, k] is the mean 1-NN distance of
     Rz(k)·Ry(j)·Rx(i)·source to the target. Only the main-path "ave" metric
-    is ported; the others raise."""
+    is ported; the others raise. method "vpu" scores with exact float32
+    differences (`field_ave`, which ignores precision, as the TPU kernel
+    does); "dot" through the augmented dot product at `precision`
+    (`field_dot`)."""
     if error_metric != "ave":
         raise NotImplementedError(
             f"coarse_error_metric={error_metric!r} is not ported yet (ROADMAP.md queue 1, items 11 and 13)")
+    if method not in ("vpu", "dot"):
+        raise ValueError(f"coarse method must be 'vpu' or 'dot', got {method!r}")
     rots = euler_xyz_matrix(rotation_grid(steps, span, source.device))
-    return field_ave(source, source_mask, target, target_mask, rots).reshape(steps, steps, steps)
+    if method == "dot":
+        scores = field_dot(source, source_mask, target, target_mask, rots, precision)
+    else:
+        scores = field_ave(source, source_mask, target, target_mask, rots)
+    return scores.reshape(steps, steps, steps)
 
 
 def local_minima_mask(field: torch.Tensor, radius: int) -> torch.Tensor:
@@ -77,13 +89,15 @@ def coarse_align(
     radius: int = 2,
     max_candidates: int = 32,
     error_metric: str = "ave",
+    method: str = "vpu",
+    precision: str = "highest",
 ) -> CoarseResult:
     """Score the grid, extract local minima, rank candidates by error.
 
     Candidate 0 is the global minimum. Ties keep index order, as
     jax.lax.top_k does (a stable sort, not torch.topk)."""
-    field = score_rotation_field(source, source_mask, target, target_mask,
-                                 steps=steps, span=span, error_metric=error_metric)
+    field = score_rotation_field(source, source_mask, target, target_mask, steps=steps, span=span,
+                                 error_metric=error_metric, method=method, precision=precision)
     is_min = local_minima_mask(field, radius)
     masked = torch.where(is_min, field, torch.full_like(field, BIG)).reshape(-1)
     neg_vals, order = torch.sort(-masked, descending=True, stable=True)

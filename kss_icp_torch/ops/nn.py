@@ -75,3 +75,32 @@ def masked_mean_nn_sqdist(query: torch.Tensor, query_mask: torch.Tensor, ref: to
     """Mean squared 1-NN distance — PCL's getFitnessScore contract."""
     d2, _ = nearest_neighbor(query, ref, ref_mask)
     return masked_mean(d2, query_mask)
+
+
+# _trim_count's 1e-3 guard absorbs the float32 rounding of q * n_valid only
+# while n_valid * 1.2e-7 < 1e-3, that is below 8192 valid points.
+QUANTILE_MAX_WIDTH = 8192
+
+
+def _trim_count(nvalid: torch.Tensor, q: float) -> torch.Tensor:
+    """ceil(q * nvalid) in float32 with a 1e-3 guard, so that an exact-integer
+    product that rounds up by an ulp (0.7 * 1000 -> 700.00006) keeps its rank
+    (kss_icp_tpu/ops/nn.py:134-141)."""
+    return torch.ceil(q * nvalid.to(torch.float32) - 1e-3).to(torch.int32)
+
+
+def masked_quantile_threshold(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
+    """The q-quantile of the valid values along the last axis: the value at
+    rank ceil(q * n_valid), clipped to [1, max(n_valid, 1)], of the ascending
+    stable sort with invalid entries set to 1e30 (kss_icp_tpu/ops/nn.py:144-157).
+
+    Raises ValueError for a last axis of 8192 or more, where the rank's
+    rounding guard no longer holds."""
+    if values.shape[-1] >= QUANTILE_MAX_WIDTH:
+        raise ValueError(f"masked_quantile_threshold takes fewer than {QUANTILE_MAX_WIDTH} values "
+                         f"per row (the rank's rounding guard), got {values.shape[-1]}")
+    vm = torch.where(mask, values, torch.full_like(values, BIG))
+    vs = torch.sort(vm, dim=-1, stable=True).values
+    nvalid = mask.sum(dim=-1, dtype=torch.int32)
+    k = torch.minimum(_trim_count(nvalid, q).clamp_min(1), nvalid.clamp_min(1))
+    return torch.take_along_dim(vs, (k - 1).long()[..., None], dim=-1)[..., 0]

@@ -1,18 +1,29 @@
-"""Record the JAX package's answers on the 25 remesh fixture pairs.
+"""Record the JAX package's answers, the reference the PyTorch port is held to.
 
-Runs `kss_icp_tpu.register_pair` on the CPU with auto_escalate=False (the
-slice the PyTorch port implements) at two configs, DEFAULT_CONFIG and
-bench.bench_config(), applies the transform to the full-resolution source
-and measures it with `registration_measure`. Writes, per pair, the chosen
-candidate, ICP fitness, ICP iteration count, the hit-cap flag, the
-similarity transform and the full-resolution RMSE to
-fixtures/torch_port_expected.json — the reference that chip_smoke.py and
-tests/test_torch_expected.py hold the port to (RMSE within JAX + 0.006).
+Two records, each a JSON file under fixtures/:
 
-    JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--out PATH]
+* default: `kss_icp_tpu.register_pair` on the CPU with auto_escalate=False
+  on the 25 remesh fixture pairs, at DEFAULT_CONFIG and at
+  bench.bench_config(), written to fixtures/torch_port_expected.json;
+* `--escalation`: escalation on with overlap_escalate=False (the overlap
+  tier is not ported yet) on the remesh 25 at DEFAULT_CONFIG and at
+  bench_config(), and on the category, deform and scale boards of
+  kss_icp_tpu/challenge.py (48 pairs) at DEFAULT_CONFIG, written to
+  fixtures/torch_port_expected_escalation.json.
 
-About 16 s per pair at DEFAULT_CONFIG and 8 s at the bench config on an
-8-core x86 CPU.
+Per pair: the chosen candidate, ICP fitness, ICP iteration count, the
+hit-cap flag, the similarity transform and the full-resolution RMSE; with
+`--escalation` also whether the pair was flagged for the 16^3 re-solve
+(`escalated`), whether the re-solve won keep-better (`escalation_won`),
+whether the uncapped finisher ran (`finisher`), and on the boards the pose
+error against the ground truth (`pose_rmse`) and its pass/fail at the
+board's threshold. chip_smoke.py and tests/test_torch_expected.py hold the
+port to these records.
+
+    JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation] [--limit N] [--out PATH]
+
+About 16 s per remesh pair at DEFAULT_CONFIG and 8 s at the bench config on
+an 8-core x86 CPU with escalation off.
 """
 
 from __future__ import annotations
@@ -27,41 +38,87 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
+FIXTURES = REPO / "fixtures"
+BOARDS = ("category", "deform", "scale")
+
+ESCALATION_NOTE = (
+    "JAX on the CPU scores the rotation field on its XLA path whatever coarse_method says "
+    "(kss_icp_tpu/models/coarse.py:65-68,106), so these records serve the port's "
+    "coarse_method='vpu' and 'dot' runs alike.")
+
+
+class _Counts:
+    """Wraps the JAX escalation hooks of register_pair to see which branch ran."""
+
+    def __init__(self, kss, escalate):
+        self.kss, self.escalate = kss, escalate
+        self.orig_rerun, self.orig_polish = escalate.escalate_rerun, kss.polish_resampled
+        self.reset()
+
+    def reset(self):
+        self.flagged = self.won = self.finished = 0
+
+    def __enter__(self):
+        def rerun(*a, **kw):
+            out = self.orig_rerun(*a, **kw)
+            self.flagged += out[3]
+            self.won += len(out[2])
+            return out
+
+        def polish(*a, **kw):
+            self.finished += 1
+            return self.orig_polish(*a, **kw)
+
+        self.escalate.escalate_rerun = rerun
+        self.kss.polish_resampled = polish
+        return self
+
+    def __exit__(self, *exc):
+        self.escalate.escalate_rerun = self.orig_rerun
+        self.kss.polish_resampled = self.orig_polish
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", type=Path,
-                    default=REPO / "fixtures" / "torch_port_expected.json")
+    ap.add_argument("--escalation", action="store_true",
+                    help="record escalation on (overlap_escalate=False), boards included")
+    ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--limit", type=int, default=0,
-                    help="only the first N pairs (0 = all 25)")
+                    help="only the first N pairs of each corpus (0 = all)")
     args = ap.parse_args()
+    out_path = args.out or FIXTURES / ("torch_port_expected_escalation.json" if args.escalation
+                                       else "torch_port_expected.json")
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, str(REPO))
+    from kss_icp_tpu import escalate
+    from kss_icp_tpu.challenge import category_corpus, deform_corpus, scale_corpus, transform_rmse
     from kss_icp_tpu.config import DEFAULT_CONFIG
     from kss_icp_tpu.core.transforms import apply_similarity
     from kss_icp_tpu.metrics import registration_measure
-    from kss_icp_tpu.models.kss_icp import register_pair
+    from kss_icp_tpu.models import kss_icp as kss
     from kss_icp_tpu.stress import remesh_corpus
 
     from bench import bench_config
 
-    corpus = remesh_corpus()
-    if args.limit:
-        corpus = corpus[: args.limit]
+    def limit(corpus):
+        return corpus[: args.limit] if args.limit else corpus
 
-    def run(cfg):
+    counts = _Counts(kss, escalate)
+
+    def run(cfg, corpus, threshold=None):
         pairs = []
-        for name, src, tgt, _ in corpus:
+        for name, src, tgt, gt in limit(corpus):
             t0 = time.perf_counter()
-            res = register_pair(src, tgt, cfg)
+            counts.reset()
+            with counts:
+                res = kss.register_pair(src, tgt, cfg)
             aligned = np.asarray(apply_similarity(res.transform, src))
             rmse = registration_measure(aligned, tgt)["rmse"]
             tr = res.transform
-            pairs.append({
+            rec = {
                 "name": name,
                 "n_source": int(src.shape[0]),
                 "n_target": int(tgt.shape[0]),
@@ -73,25 +130,54 @@ def main() -> int:
                 "rotation": np.asarray(tr.rotation, np.float64).tolist(),
                 "translation": np.asarray(tr.translation, np.float64).tolist(),
                 "rmse": float(rmse),
-            })
-            p = pairs[-1]
-            print(f"{name}: cand={p['chosen_candidate']} fit={p['fitness']:.6g} "
-                  f"iters={p['icp_iterations']} rmse={rmse:.6f} "
+            }
+            if args.escalation:
+                rec.update(escalated=counts.flagged > 0, escalation_won=counts.won > 0,
+                           finisher=counts.finished > 0)
+            if threshold is not None:
+                pose = transform_rmse(aligned, src, gt)
+                rec.update(pose_rmse=float(pose), passed=bool(pose <= threshold))
+            pairs.append(rec)
+            extra = "".join(f" {k}={rec[k]}" for k in ("escalated", "escalation_won", "finisher",
+                                                         "pose_rmse") if k in rec)
+            print(f"{name}: cand={rec['chosen_candidate']} fit={rec['fitness']:.6g} "
+                  f"iters={rec['icp_iterations']} rmse={rmse:.6f}{extra} "
                   f"({time.perf_counter() - t0:.1f} s)", file=sys.stderr, flush=True)
         return pairs
 
-    bench = dataclasses.replace(bench_config(), auto_escalate=False)
+    remesh = remesh_corpus()
+    bench = bench_config()
     knobs = {f.name: getattr(bench, f.name) for f in dataclasses.fields(bench)
              if getattr(bench, f.name) != getattr(DEFAULT_CONFIG, f.name)}
-    out = {
-        "platform": "jax " + jax.__version__ + " on cpu",
-        "rmse_band": 0.006,
-        "config": "DEFAULT_CONFIG with auto_escalate=False",
-        "pairs": run(dataclasses.replace(DEFAULT_CONFIG, auto_escalate=False)),
-        "bench_config": {"knobs": knobs, "pairs": run(bench)},
-    }
-    args.out.write_text(json.dumps(out, indent=1) + "\n")
-    print(f"wrote {len(corpus)} pairs x 2 configs to {args.out}", file=sys.stderr)
+    platform = "jax " + jax.__version__ + " on cpu"
+    if not args.escalation:
+        no_esc = dict(auto_escalate=False)
+        out = {
+            "platform": platform,
+            "rmse_band": 0.006,
+            "config": "DEFAULT_CONFIG with auto_escalate=False",
+            "pairs": run(dataclasses.replace(DEFAULT_CONFIG, **no_esc), remesh),
+            "bench_config": {"knobs": dict(knobs, **no_esc),
+                             "pairs": run(dataclasses.replace(bench, **no_esc), remesh)},
+        }
+    else:
+        esc = dict(overlap_escalate=False)
+        base = dataclasses.replace(DEFAULT_CONFIG, **esc)
+        boards = {"category": (category_corpus(), 0.20), "deform": (deform_corpus(), 0.12),
+                  "scale": (scale_corpus(), 0.20)}
+        out = {
+            "platform": platform,
+            "note": ESCALATION_NOTE,
+            "rmse_band": 0.006,
+            "config": "DEFAULT_CONFIG with overlap_escalate=False (escalation on)",
+            "pairs": run(base, remesh),
+            "bench_config": {"knobs": dict(knobs, **esc),
+                             "pairs": run(dataclasses.replace(bench, **esc), remesh)},
+            "boards": {b: {"threshold": thr, "pairs": run(base, corpus, thr)}
+                       for b, (corpus, thr) in boards.items()},
+        }
+    out_path.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {out_path}", file=sys.stderr)
     return 0
 
 

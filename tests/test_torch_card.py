@@ -9,8 +9,8 @@ card has no jax; tests/conftest.py imports jax, so run it there with
 The recorded values come from the JAX Pallas kernels in interpret mode on
 the CPU (kss_icp_tpu/ops/nn_pallas.py::nearest_neighbor_vpu,
 ops/resample_pallas.py::fps_batch_pallas, ops/coarse_pallas.py::
-rotation_scores_pallas) on the inputs built below; the plain versions are
-held to them here on the CPU as well."""
+rotation_scores_pallas with method "vpu" and "dot") on the inputs built
+below; the plain versions are held to them here on the CPU as well."""
 
 import json
 from pathlib import Path
@@ -25,7 +25,7 @@ from kss_icp_torch.config import KSSICPConfig
 from kss_icp_torch.core.transforms import euler_xyz_matrix
 from kss_icp_torch.models import coarse
 from kss_icp_torch.models.icp import ICPParams, icp
-from kss_icp_torch.ops.coarse_cuda import field_ave, field_ave_plain
+from kss_icp_torch.ops.coarse_cuda import field_ave, field_ave_plain, field_dot, field_dot_plain
 from kss_icp_torch.ops.nn_cuda import nn1, nn1_plain
 from kss_icp_torch.ops.resample import farthest_point_sampling
 from kss_icp_torch.ops.resample_cuda import fps
@@ -44,6 +44,8 @@ JAX_FPS_IDX = [145, 277, 351, 184, 282, 135, 403, 101, 348, 99, 57, 301, 394, 12
                305, 197, 154, 71, 303, 397, 41, 275]
 # rotation_scores_pallas(interpret=True, method="vpu") on _field_case().
 JAX_FIELD = [0.08787406, 0.2258687, 0.08588043, 0.2288799, 0.2302824, 0.08509021, 0.227922, 0.08788089]
+# rotation_scores_pallas(interpret=True, method="dot", precision="highest") on _field_case().
+JAX_FIELD_DOT = [0.08787389, 0.2258687, 0.08588044, 0.22888, 0.23028247, 0.08509029, 0.22792202, 0.08788095]
 
 
 def _t(x, device="cpu"):
@@ -157,6 +159,38 @@ def test_field_kernel_matches_plain_and_jax(cuda_device):
     assert torch.equal(got, field_ave(*args))  # no atomics: repeated runs agree bit for bit
 
 
+def test_plain_field_dot_matches_recorded_jax_values():
+    np.testing.assert_allclose(field_dot(*_field_case()).numpy(), JAX_FIELD_DOT, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_field_dot_kernel_matches_plain_and_jax(cuda_device, precision):
+    args = _field_case(cuda_device)
+    before = field_dot.launches
+    got = field_dot(*args, precision=precision)
+    assert field_dot.launches == before + 1
+    torch.testing.assert_close(got, field_dot_plain(*args, precision=precision), rtol=2e-5, atol=0.0)
+    assert torch.equal(got, field_dot(*args, precision=precision))  # no atomics: bit for bit
+    if precision == "highest":
+        np.testing.assert_allclose(got.cpu().numpy(), JAX_FIELD_DOT, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_field_dot_kernel_matches_plain_at_width(cuda_device, precision):
+    """The escalation grid's shape (C=4096 at P=T=512 there; 1000 rotations
+    here) with masked source and target rows and a ragged last tile."""
+    rng = np.random.default_rng(21)
+    src, tgt = _t(random_cloud(rng, 512).astype(np.float32), cuda_device), _t(
+        random_cloud(rng, 1300).astype(np.float32), cuda_device)
+    smask = torch.arange(512, device=cuda_device) < 500
+    tmask = torch.arange(1300, device=cuda_device) < 1234
+    rots = euler_xyz_matrix(coarse.rotation_grid(10, 6.3, cuda_device))
+    got = field_dot(src, smask, tgt, tmask, rots, precision)
+    torch.testing.assert_close(got, field_dot_plain(src, smask, tgt, tmask, rots, precision), rtol=2e-5, atol=0.0)
+
+
 @pytest.mark.cuda
 def test_icp_on_the_card_matches_cpu(cuda_device):
     rng = np.random.default_rng(3)
@@ -192,6 +226,28 @@ def test_pipeline_on_the_card_matches_cpu_and_launches_every_kernel(cuda_device)
                 rmse.append(kt.registration_measure(aligned, tgt, device=device)["rmse"])
             assert abs(rmse[0] - rmse[1]) <= 1e-4, (rec["name"], rmse)
     assert nn1.launches > 0 and fps.launches > 0 and field_ave.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["vpu", "dot"])
+def test_escalated_pair_on_the_card_matches_cpu(cuda_device, method):
+    cfg = KSSICPConfig(rotation_steps=4, max_candidates=4, max_resample_points=128, resample_pad=128,
+                       max_icp_iterations=8, screen_points=64, refine_candidates=2, overlap_escalate=False,
+                       escalate_threshold=1e-9, escalate_rotation_steps=6, escalate_max_candidates=6,
+                       escalate_coarse_points=64, escalate_coarse_target_points=64, coarse_method=method)
+    meta = json.loads((FIXTURES / "remesh_transfer.json").read_text())
+    with np.load(FIXTURES / "remesh_transfer.npz") as z:
+        src, tgt = z[meta[7]["name"] + "_src"], z[meta[7]["name"] + "_tgt"]
+    field = field_dot if method == "dot" else field_ave
+    field.launches = 0
+    rmse = []
+    for device in ("cpu", cuda_device):
+        res = kt.register_pair(src, tgt, cfg, device=device)
+        aligned = kt.apply_similarity(res.transform, _t(src, device))
+        rmse.append(kt.registration_measure(aligned, tgt, device=device)["rmse"])
+        assert res.coarse.field.shape in ((4, 4, 4), (6, 6, 6))
+    assert abs(rmse[0] - rmse[1]) <= 1e-4, rmse
+    assert field.launches == 2  # the base grid and the escalation grid
 
 
 @pytest.mark.cuda

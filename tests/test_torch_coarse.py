@@ -1,10 +1,12 @@
 """The port's coarse search (kss_icp_torch/models/coarse.py, ops/coarse_cuda.py)
-against JAX: the "ave" field against the Pallas field kernel in interpret
-mode, and the local-minima mask and candidate ranking against
-kss_icp_tpu/models/coarse.py on identical fields, ties included. The field
-kernel itself is tested on the card in tests/test_torch_card.py."""
+against JAX: the "ave" field of both methods against the Pallas field kernels
+in interpret mode, the bf16 "default" dot against a numpy reference, and the
+local-minima mask and candidate ranking against kss_icp_tpu/models/coarse.py
+on identical fields, ties included. The field kernels themselves are tested
+on the card in tests/test_torch_card.py."""
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -12,7 +14,7 @@ import torch
 from helpers import random_cloud
 from kss_icp_torch.core.transforms import euler_xyz_matrix as t_euler
 from kss_icp_torch.models import coarse as tc
-from kss_icp_torch.ops.coarse_cuda import field_ave
+from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot
 from kss_icp_tpu.core.transforms import euler_xyz_matrix
 from kss_icp_tpu.models import coarse as jc
 from kss_icp_tpu.ops.coarse_pallas import rotation_scores_pallas
@@ -20,7 +22,7 @@ from kss_icp_tpu.ops.coarse_pallas import rotation_scores_pallas
 torch.set_num_threads(1)
 
 
-def _field_case(rng, p=130, t=100, steps=3, t_valid=None, s_valid=None):
+def _clouds(rng, p=130, t=100, steps=3, t_valid=None, s_valid=None):
     src = random_cloud(rng, p).astype(np.float32)
     tgt = random_cloud(rng, t).astype(np.float32)
     smask = np.ones((p,), bool)
@@ -30,17 +32,70 @@ def _field_case(rng, p=130, t=100, steps=3, t_valid=None, s_valid=None):
     if s_valid is not None:
         smask[s_valid:] = False
         src[s_valid:] = 1e6  # garbage in the masked tail must not count
-    angles = np.array(jc.rotation_grid(steps, 6.3, jnp.float32))
+    return src, smask, tgt, tmask, np.array(jc.rotation_grid(steps, 6.3, jnp.float32))
+
+
+def _field_case(rng, method="vpu", precision="highest", **kw):
+    src, smask, tgt, tmask, angles = _clouds(rng, **kw)
     want = rotation_scores_pallas(jnp.asarray(src), jnp.asarray(smask), jnp.asarray(tgt), jnp.asarray(tmask),
-                                  euler_xyz_matrix(jnp.asarray(angles)), tile_q=128, interpret=True)
-    got = field_ave(*(torch.as_tensor(x) for x in (src, smask, tgt, tmask)), t_euler(torch.as_tensor(angles)))
+                                  euler_xyz_matrix(jnp.asarray(angles)), tile_q=128, interpret=True,
+                                  method=method, precision=precision)
+    args = tuple(torch.as_tensor(x) for x in (src, smask, tgt, tmask)) + (t_euler(torch.as_tensor(angles)),)
+    got = field_ave(*args) if method == "vpu" else field_dot(*args, precision=precision)
     return got.numpy(), np.asarray(want)
 
 
-@pytest.mark.parametrize("kw", [{}, {"t_valid": 40}, {"p": 256, "t": 128, "steps": 2, "s_valid": 77}])
+FIELD_CASES = [{}, {"t_valid": 40}, {"p": 256, "t": 128, "steps": 2, "s_valid": 77}]
+
+
+@pytest.mark.parametrize("kw", FIELD_CASES)
 def test_field_matches_pallas_vpu_kernel(rng, kw):
     got, want = _field_case(rng, **kw)
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("kw", FIELD_CASES)
+def test_field_dot_matches_pallas_dot_kernel(rng, kw, precision):
+    got, want = _field_case(rng, method="dot", precision=precision, **kw)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+
+
+def _bf16_dot_field(src, smask, tgt, tmask, rots):
+    """numpy reference of the "default" dot: rotated source and augmented
+    target rounded to bfloat16, exact products, float32 sums in the kernel's
+    order, |q|² from the unrotated float32 source."""
+    f32 = np.float32
+    rotated = (rots[:, None, :, 0] * src[None, :, 0, None] + rots[:, None, :, 1] * src[None, :, 1, None]) \
+        + rots[:, None, :, 2] * src[None, :, 2, None]  # (C, P, 3), rotate_points' order
+    t2 = np.where(tmask, (tgt[:, 0] * tgt[:, 0] + tgt[:, 1] * tgt[:, 1]) + tgt[:, 2] * tgt[:, 2], f32(1e30))
+    ra = np.concatenate([(f32(-2.0) * tgt) * tmask[:, None].astype(f32), t2[:, None]], axis=1)
+    q = rotated.astype(ml_dtypes.bfloat16).astype(f32)
+    a = ra.astype(ml_dtypes.bfloat16).astype(f32)
+    rel = ((q[:, :, None, 0] * a[:, 0] + q[:, :, None, 1] * a[:, 1]) + q[:, :, None, 2] * a[:, 2]) + a[:, 3]
+    q2 = (src[:, 0] * src[:, 0] + src[:, 1] * src[:, 1]) + src[:, 2] * src[:, 2]
+    d = np.sqrt(np.maximum(rel.min(axis=-1) + q2, f32(0)))
+    return (d.astype(np.float64) * smask).sum(axis=-1) / max(smask.sum(), 1)
+
+
+@pytest.mark.parametrize("kw", FIELD_CASES)
+def test_field_dot_default_is_one_bf16_pass(rng, kw):
+    src, smask, tgt, tmask, angles = _clouds(rng, **kw)
+    rots = t_euler(torch.as_tensor(angles))
+    args = tuple(torch.as_tensor(x) for x in (src, smask, tgt, tmask)) + (rots,)
+    got = field_dot(*args, precision="default").numpy()
+    want = _bf16_dot_field(src, smask, tgt, tmask, rots.numpy())
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+    exact = field_dot(*args, precision="highest").numpy()
+    assert np.abs(got - exact).max() > 1e-5 * np.abs(exact).max()  # the rounding is really there
+
+
+def test_field_dot_refuses_unknown_precision_and_method():
+    x, m = torch.zeros((4, 3)), torch.ones((4,), dtype=torch.bool)
+    with pytest.raises(ValueError, match="precision"):
+        field_dot(x, m, x, m, torch.eye(3)[None], precision="tf32")
+    with pytest.raises(ValueError, match="method"):
+        tc.score_rotation_field(x, m, x, m, steps=2, method="mxu")
 
 
 def test_rotation_grid_and_matrices_match_jax():
@@ -87,6 +142,22 @@ def test_coarse_align_from_points_matches_jax(rng):
     want = jc.coarse_align(jnp.asarray(src), jnp.asarray(sm), jnp.asarray(tgt), jnp.asarray(tm),
                            steps=4, max_candidates=4, backend="xla", precision="highest")
     got = tc.coarse_align(*(torch.as_tensor(x) for x in (src, sm, tgt, tm)), steps=4, max_candidates=4)
+    np.testing.assert_allclose(got.field.numpy(), np.asarray(want.field), rtol=2e-5, atol=2e-6)
+    np.testing.assert_array_equal(got.candidate_mask.numpy(), np.asarray(want.candidate_mask))
+    np.testing.assert_allclose(got.candidate_angles.numpy(), np.asarray(want.candidate_angles), rtol=1e-6)
+
+
+def test_coarse_align_dot_method_matches_jax(rng):
+    """coarse_method="dot" end to end through coarse_align. JAX on the CPU
+    scores on its XLA path whatever the method (models/coarse.py:65-68,106)."""
+    src = random_cloud(rng, 200).astype(np.float32)
+    tgt = random_cloud(rng, 180).astype(np.float32)
+    sm, tm = np.ones(200, bool), np.ones(180, bool)
+    tm[170:] = False
+    want = jc.coarse_align(jnp.asarray(src), jnp.asarray(sm), jnp.asarray(tgt), jnp.asarray(tm),
+                           steps=4, max_candidates=4, method="dot", precision="highest")
+    got = tc.coarse_align(*(torch.as_tensor(x) for x in (src, sm, tgt, tm)), steps=4, max_candidates=4,
+                          method="dot", precision="high")
     np.testing.assert_allclose(got.field.numpy(), np.asarray(want.field), rtol=2e-5, atol=2e-6)
     np.testing.assert_array_equal(got.candidate_mask.numpy(), np.asarray(want.candidate_mask))
     np.testing.assert_allclose(got.candidate_angles.numpy(), np.asarray(want.candidate_angles), rtol=1e-6)

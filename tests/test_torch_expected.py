@@ -1,10 +1,14 @@
-"""The port on the CPU against the JAX package's recorded answers on the 25
-remesh fixture pairs (fixtures/torch_port_expected.json, written by
-scripts/torch_port_expected.py): per-pair RMSE within the JAX value + 0.006
-at DEFAULT_CONFIG and at the bench config, both with escalation off.
+"""The port on the CPU against the JAX package's recorded answers
+(scripts/torch_port_expected.py): on the 25 remesh fixture pairs, per-pair
+RMSE within the JAX value + 0.006 at DEFAULT_CONFIG and at the bench config
+with escalation off (fixtures/torch_port_expected.json) and on
+(fixtures/torch_port_expected_escalation.json, overlap_escalate=False, the
+"dot" field too); on the category, deform and scale boards, the pass/fail
+of every pair by pose error as JAX's, se/7 (the recorded cross-platform
+knife edge) excepted.
 
 About 25 s per pair at DEFAULT_CONFIG on a few CPU threads, so it stays out
-of the tier-1 run; chip_smoke.py makes the same check on the card."""
+of the tier-1 run; chip_smoke.py makes the same checks on the card."""
 
 import dataclasses
 import json
@@ -15,6 +19,7 @@ import pytest
 import torch
 
 import kss_icp_torch as kt
+from kss_icp_torch.challenge import BOARDS, transform_rmse
 from kss_icp_torch.config import DEFAULT_CONFIG
 
 FIXTURES = Path(__file__).resolve().parents[1] / "fixtures"
@@ -24,6 +29,14 @@ CONFIGS = {
     "bench": (dataclasses.replace(DEFAULT_CONFIG, **EXPECTED["bench_config"]["knobs"]),
               EXPECTED["bench_config"]["pairs"]),
 }
+ESCALATION = json.loads((FIXTURES / "torch_port_expected_escalation.json").read_text())
+ESC_CONFIGS = {
+    "default": (dataclasses.replace(DEFAULT_CONFIG, overlap_escalate=False), ESCALATION["pairs"]),
+    "dot": (dataclasses.replace(DEFAULT_CONFIG, overlap_escalate=False, coarse_method="dot"), ESCALATION["pairs"]),
+    "bench": (dataclasses.replace(DEFAULT_CONFIG, **ESCALATION["bench_config"]["knobs"]),
+              ESCALATION["bench_config"]["pairs"]),
+}
+BOARD_PAIRS = [(b, i) for b, _, _ in BOARDS for i in range(len(ESCALATION["boards"][b]["pairs"]))]
 
 
 @pytest.mark.slow
@@ -38,3 +51,30 @@ def test_remesh_pair_within_jax_band(label, index):
     aligned = kt.apply_similarity(res.transform, torch.as_tensor(src))
     rmse = kt.registration_measure(aligned, tgt, device="cpu")["rmse"]
     assert np.isfinite(rmse) and rmse <= exp["rmse"] + EXPECTED["rmse_band"], (rmse, exp["rmse"])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("label", sorted(ESC_CONFIGS))
+@pytest.mark.parametrize("index", range(len(ESCALATION["pairs"])))
+def test_remesh_pair_with_escalation_within_jax_band(label, index):
+    cfg, pairs = ESC_CONFIGS[label]
+    exp = pairs[index]
+    with np.load(FIXTURES / "remesh_transfer.npz") as z:
+        src, tgt = z[exp["name"] + "_src"], z[exp["name"] + "_tgt"]
+    res = kt.register_pair(src, tgt, cfg, device="cpu")
+    aligned = kt.apply_similarity(res.transform, torch.as_tensor(src))
+    rmse = kt.registration_measure(aligned, tgt, device="cpu")["rmse"]
+    assert np.isfinite(rmse) and rmse <= exp["rmse"] + ESCALATION["rmse_band"], (rmse, exp["rmse"])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("board, index", BOARD_PAIRS)
+def test_board_pair_passes_as_jax(board, index):
+    corpus = dict((b, fn) for b, fn, _ in BOARDS)[board]
+    name, src, tgt, gt = corpus()[index]
+    exp = ESCALATION["boards"][board]
+    assert name == exp["pairs"][index]["name"]
+    res = kt.register_pair(src, tgt, ESC_CONFIGS["default"][0], device="cpu")
+    pose = transform_rmse(kt.apply_similarity(res.transform, torch.as_tensor(src)).numpy(), src, gt)
+    if name != "se/7":
+        assert (pose <= exp["threshold"]) == exp["pairs"][index]["passed"], (name, pose)

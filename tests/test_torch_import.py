@@ -1,5 +1,6 @@
 """The port imports without jax, keeps the JAX package's config, refuses the
-knobs it does not implement, and its CPU path launches no kernel."""
+knobs it does not implement (and runs the ones it does as JAX does), and its
+CPU path launches no kernel."""
 
 import ast
 import dataclasses
@@ -13,10 +14,11 @@ import torch
 
 import kss_icp_torch.config as tcfg
 from kss_icp_torch.models import kss_icp as tk
-from kss_icp_torch.ops.coarse_cuda import field_ave
+from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot
 from kss_icp_torch.ops.nn_cuda import nn1
 from kss_icp_torch.ops.resample_cuda import fps
 from kss_icp_tpu import config as jcfg
+from kss_icp_tpu.models import kss_icp as jk
 
 torch.set_num_threads(1)
 
@@ -29,6 +31,7 @@ def test_imports_with_jax_blocked():
             "sys.modules['kss_icp_tpu'] = None\n"
             "import kss_icp_torch, kss_icp_torch.models.kss_icp, kss_icp_torch.metrics\n"
             "import kss_icp_torch.ops, kss_icp_torch.models, kss_icp_torch.core\n"
+            "import kss_icp_torch.escalate, kss_icp_torch.challenge\n"
             "print(sorted(kss_icp_torch.__all__))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -85,12 +88,13 @@ _NO_ESC = tcfg.KSSICPConfig(rotation_steps=2, max_candidates=2, max_resample_poi
                             max_icp_iterations=2, auto_escalate=False)
 # (knobs, read by register_resampled too?)
 UNPORTED = [
-    (dict(auto_escalate=True), False),
+    (dict(auto_escalate=True), False),  # overlap_escalate defaults to True: the overlap tier
+    (dict(auto_escalate=True, overlap_escalate=True), False),
     (dict(overlap_mode=True), False),
     (dict(refine_polish_iterations=4, refine_max_iterations=8), False),
     (dict(resampler="aivs"), False),
     (dict(neighborhood_fracs=(0.25,)), True),
-    (dict(pose_tiebreak_margin=0.12), True),
+    (dict(pose_tiebreak_margin=0.12), True),  # ported: the case now holds the port to JAX
     (dict(icp_variant="point_to_plane"), True),
     (dict(coarse_error_metric="trim"), True),
     (dict(coarse_error_metric="max"), True),
@@ -99,16 +103,42 @@ UNPORTED = [
 ]
 
 
+PORTED = [dict(pose_tiebreak_margin=0.12)]
+
+
 @pytest.mark.parametrize("knobs, in_core", UNPORTED, ids=[",".join(k) for k, _ in UNPORTED])
-def test_unported_knobs_raise(rng, knobs, in_core):
+def test_unported_knobs_raise(rng, monkeypatch, knobs, in_core):
     cfg = dataclasses.replace(_NO_ESC, **knobs)
     pts = rng.uniform(-1, 1, size=(40, 3)).astype(np.float32)
+    if knobs in PORTED:
+        # A target the source does not fit: the multistart gate fails, so the
+        # tie-break picks the lane (in JAX: used_multistart).
+        tgt = rng.uniform(-1, 1, size=(40, 3)).astype(np.float32)
+        calls, select = [], tk._pose_tiebreak_select
+        monkeypatch.setattr(tk, "_pose_tiebreak_select", lambda *a: calls.append(a) or select(*a))
+        want = jk.register_pair(pts, tgt, jcfg.KSSICPConfig(**dataclasses.asdict(cfg)))
+        got = tk.register_pair(pts, tgt, cfg, device="cpu")
+        assert bool(want.used_multistart) and bool(got.used_multistart) and len(calls) == 1
+        assert int(got.chosen_candidate) == int(want.chosen_candidate)
+        np.testing.assert_allclose(float(got.fitness), float(want.fitness), rtol=1e-3, atol=1e-7)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tk.register_pair(pts, pts, cfg, device="cpu")
     if in_core:
         x = torch.as_tensor(pts)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tk.register_resampled(x, torch.ones(40, dtype=torch.bool), x, torch.ones(40, dtype=torch.bool), cfg)
+
+
+def test_escalation_with_the_overlap_tier_raises_before_any_work(monkeypatch):
+    def no_work(*a, **kw):
+        raise AssertionError("register_pair started work before refusing the config")
+
+    monkeypatch.setattr(tk, "resample_batch", no_work)
+    pts = np.zeros((40, 3), np.float32)
+    for cfg in (tcfg.DEFAULT_CONFIG, dataclasses.replace(_NO_ESC, auto_escalate=True)):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tk.register_pair(pts, pts, cfg, device="cpu")
 
 
 def test_cuda_device_without_a_card_raises():
@@ -120,10 +150,11 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_cpu_wrappers_launch_no_kernel(rng):
-    before = (nn1.launches, fps.launches, field_ave.launches)
+    before = (nn1.launches, fps.launches, field_ave.launches, field_dot.launches)
     pts = torch.as_tensor(rng.uniform(-1, 1, size=(2, 50, 3)).astype(np.float32))
     mask = torch.ones((2, 50), dtype=torch.bool)
     nn1(pts, pts, mask)
     fps(pts, mask, 10)
     field_ave(pts[0], mask[0], pts[1], mask[1], torch.eye(3)[None])
-    assert (nn1.launches, fps.launches, field_ave.launches) == before
+    field_dot(pts[0], mask[0], pts[1], mask[1], torch.eye(3)[None], precision="default")
+    assert (nn1.launches, fps.launches, field_ave.launches, field_dot.launches) == before

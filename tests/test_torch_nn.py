@@ -11,7 +11,7 @@ import torch
 from helpers import random_cloud
 from kss_icp_torch.ops import nn as tnn
 from kss_icp_torch.ops.nn_cuda import nn1
-from kss_icp_tpu.ops.nn import masked_mean_nn_sqdist
+from kss_icp_tpu.ops.nn import masked_mean_nn_sqdist, masked_quantile_threshold
 from kss_icp_tpu.ops.nn_pallas import nearest_neighbor_pallas, nearest_neighbor_vpu
 
 torch.set_num_threads(1)
@@ -123,3 +123,37 @@ def test_query_chunking_is_invisible(rng, monkeypatch):
     monkeypatch.setattr(tnn, "_BLOCK_ELEMS", 64 * 10)  # 10 query rows per block
     chunked = tnn.nearest_neighbor(_t(q), _t(r), _t(mask))
     assert torch.equal(whole[0], chunked[0]) and torch.equal(whole[1], chunked[1])
+
+
+def _quantile_rows(rng):
+    """Rows with ties and with 0, 1, some and all of 40 entries valid."""
+    vals = np.round(rng.uniform(0, 1, size=(6, 40)) * 8).astype(np.float32) / 8  # many ties
+    mask = np.ones((6, 40), bool)
+    mask[0] = False              # n_valid 0
+    mask[1, 1:] = False          # n_valid 1
+    mask[2, 10:] = False
+    mask[3, ::3] = False
+    mask[4, 20:] = False
+    vals[4, 20:] = -5.0          # invalid entries must never rank
+    return vals, mask            # row 5: all valid
+
+
+@pytest.mark.parametrize("q", [0.7, 0.95, 1.0, 0.0])
+def test_masked_quantile_threshold_matches_jax(rng, q):
+    vals, mask = _quantile_rows(rng)
+    want = np.asarray(masked_quantile_threshold(jnp.asarray(vals), jnp.asarray(mask), q))
+    got = tnn.masked_quantile_threshold(_t(vals), _t(mask), q).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_trim_count_keeps_exact_integer_ranks():
+    n = torch.tensor([1000, 10, 7, 8191], dtype=torch.int32)
+    assert tnn._trim_count(n, 0.7).tolist() == [700, 7, 5, 5734]
+    # float32(0.3) * 50 = 15.000001: without the 1e-3 guard the rank would be 16.
+    assert tnn._trim_count(torch.tensor([50], dtype=torch.int32), 0.3).tolist() == [15]
+
+
+def test_masked_quantile_threshold_refuses_8192_wide_rows():
+    tnn.masked_quantile_threshold(torch.zeros((2, 8191)), torch.ones((2, 8191), dtype=torch.bool), 0.9)
+    with pytest.raises(ValueError, match="8192"):
+        tnn.masked_quantile_threshold(torch.zeros((1, 8192)), torch.ones((1, 8192), dtype=torch.bool), 0.9)
