@@ -10,11 +10,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
      source, in parallel) and print the time and the ptxas register /
      shared-memory report;
   3. kernels: run each kernel and its plain PyTorch version on the card on
-     the same inputs at the main path's shapes, compare them (indices
-     identical, d² within rtol 1e-6, the fields within rtol 2e-5; field_dot
-     at "highest" and "default" on the base grid C=512, P=T=2048 and the
-     escalation grid C=4096, P=T=512) and time both with CUDA events, with
-     each kernel's bound and a PyTorch composition as a yardstick;
+     the same inputs at the main path's shapes, compare them (nn1 and fps
+     bit-identical: indices and d² equal; the fields within rtol 2e-5;
+     nn1 at the screen, escalation screen, refine, metric and K4 shapes;
+     fps at B=2 x 8192 -> 2048 and at the largest remesh pair's padded
+     source and target with steps = pnumber; field_dot at "highest" and
+     "default" on the base grid C=512, P=T=2048 and the escalation grid
+     C=4096, P=T=512) and time both with CUDA events, calls back to back
+     (`ms`, as the ICP loop pays them); nn1 and fps also by CUDA-graph
+     replay (`device_ms`, the kernel's own time); each with its bound and a
+     PyTorch composition as a yardstick;
   4. end to end on the 25 remesh pairs through register_pair ->
      apply_similarity -> registration_measure, every pair's RMSE within the
      JAX CPU value + 0.006:
@@ -30,7 +35,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
           the CPU, se/7 (the recorded cross-platform knife edge) excepted;
      every pass zeroes the kernels' launch counts before it and checks them
      after: nn1 and fps on every pass, field_ave on the "vpu" passes only,
-     field_dot on the dot pass only and on both of its grids;
+     field_dot on the dot pass only and on both of its grids; each pass
+     prints its histogram of nn1 launch shapes (L, Q, R);
   5. a measurement that gates nothing: on each remesh pair's 8³ field, does
      field_dot at "default" (one bf16 pass) keep candidate 0 and the top-6
      set of "highest" and of field_ave?
@@ -96,20 +102,6 @@ def cloud(rng: np.random.Generator, n: int) -> np.ndarray:
     return np.stack([u, v, 0.3 * np.sin(3 * u) * np.cos(2 * v)], axis=-1).astype(np.float32)
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds of fn() on the card, by CUDA events, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bound(ops: float, nbytes: float, bf16_ops: float = 0.0) -> dict:
     """The least time for the work: the largest of its float32 operations
     and its bf16 tensor-core operations, each over its peak, and its bytes
@@ -128,6 +120,7 @@ def phase_kernels(torch, dev) -> dict:
     from kss_icp_torch.ops.nn_cuda import nn1, nn1_plain
     from kss_icp_torch.ops.resample import farthest_point_sampling
     from kss_icp_torch.ops.resample_cuda import fps
+    from kss_icp_torch.timing import graph_ms, time_ms
 
     rng = np.random.default_rng(0)
     out = {}
@@ -136,7 +129,8 @@ def phase_kernels(torch, dev) -> dict:
         return torch.as_tensor(x, device=dev)
 
     cases = []
-    for lanes, q_n, r_n, label in ((32, 512, 2048, "screen ICP"), (4, 2048, 2048, "refine ICP"),
+    for lanes, q_n, r_n, label in ((32, 512, 2048, "screen ICP"), (16, 512, 2048, "escalation screen ICP"),
+                                   (4, 2048, 2048, "refine ICP"), (1, 3072, 8192, "metric, largest remesh pair"),
                                    (1, 65536, 65536, "K4 metric regime")):
         query = t(np.stack([cloud(rng, q_n) for _ in range(lanes)]))
         ref = t(cloud(rng, r_n)[None])
@@ -146,22 +140,24 @@ def phase_kernels(torch, dev) -> dict:
         d2p, ip = nn1_plain(query, ref, mask)
         torch.cuda.synchronize()
         require(torch.equal(ik, ip), f"nn1 {label}: indices differ at {int((ik != ip).sum())} queries")
-        require(torch.allclose(d2k, d2p, rtol=1e-6, atol=0.0), f"nn1 {label}: d2 differs beyond rtol 1e-6")
+        require(torch.equal(d2k, d2p), f"nn1 {label}: d2 differs from the plain version's bits")
         err = float((d2k - d2p).abs().max())
         reps = 3 if q_n * r_n > 1e9 else 20
-        ms = time_ms(torch, lambda: nn1(query, ref, mask), reps)
-        plain_ms = time_ms(torch, lambda: nn1_plain(query, ref, mask), reps)
+        lane_ref = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+        ms = time_ms(lambda: nn1(query, ref, mask), reps)  # as the ICP loop calls it
+        device_ms = graph_ms(lambda: nn1(query, ref, mask, lane_ref), reps)  # the kernel alone
+        plain_ms = time_ms(lambda: nn1_plain(query, ref, mask), reps)
         valid = ref[0, mask[0]][None]
         # 4096 queries a call keeps cdist's (Q, R) output at 1 GiB in the K4 regime.
-        yard_ms = time_ms(torch, lambda: [torch.cdist(query[:, a:a + 4096], valid).min(-1)
+        yard_ms = time_ms(lambda: [torch.cdist(query[:, a:a + 4096], valid).min(-1)
                                           for a in range(0, q_n, 4096)], reps)
         # 3 sub + 3 mul + 2 add + 1 compare per query and valid reference row.
         b = bound(9.0 * lanes * q_n * int(mask.sum()), 4 * (lanes * q_n * 3 + r_n * 3) + r_n + 8 * lanes * q_n)
-        cases.append(dict({"shape": f"{lanes}x{q_n}x{r_n}", "label": label, "ms": ms, "plain_ms": plain_ms,
-                           "max_abs_err": err, "yardstick_ms": yard_ms}, **b))
-        log(f"  nn1 {lanes}x{q_n}x{r_n} ({label}): indices identical, max|d2 err| {err:.3g}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+min {yard_ms:.4f} ms, "
-            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        cases.append(dict({"shape": f"{lanes}x{q_n}x{r_n}", "label": label, "ms": ms, "device_ms": device_ms,
+                           "plain_ms": plain_ms, "max_abs_err": err, "yardstick_ms": yard_ms}, **b))
+        log(f"  nn1 {lanes}x{q_n}x{r_n} ({label}): indices and d2 identical; kernel {ms:.4f} ms a wrapper call "
+            f"back to back, {device_ms:.4f} ms on the device (graph replay), plain {plain_ms:.4f} ms, "
+            f"cdist+min {yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     out["nn1"] = dict(cases[0], cases=cases, source="kss_icp_torch/csrc/nn.cu",
                       replaces="kss_icp_tpu/ops/nn_pallas.py:118",
                       also_replaces="kss_icp_tpu/ops/nn_pallas.py:183",
@@ -172,21 +168,39 @@ def phase_kernels(torch, dev) -> dict:
     pmask = torch.ones((b_n, p_n), dtype=torch.bool, device=dev)
     pmask[0, 8000:] = False
     pmask[1, 6201:] = False
-    ik, smk = fps(pts, pmask, s)
-    ip, smp = farthest_point_sampling(pts, pmask, s)
-    torch.cuda.synchronize()
-    require(torch.equal(ik, ip) and torch.equal(smk, smp),
-            f"fps: indices differ at {int((ik != ip).sum())} of {b_n * s} picks")
-    ms = time_ms(torch, lambda: fps(pts, pmask, s), 5)
-    plain_ms = time_ms(torch, lambda: farthest_point_sampling(pts, pmask, s), 2)
-    # Per step and valid point: 3 sub + 3 mul + 2 add + 1 min + 1 compare. The
-    # S steps are a dependency chain the bound does not see (PERF.md).
-    b = bound(10.0 * s * int(pmask.sum()), 4 * b_n * p_n * 3 + b_n * p_n + b_n * s * 5)
-    log(f"  fps B={b_n} P={p_n} S={s}: indices identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {s} dependent steps)")
-    out["fps"] = dict({"shape": f"{b_n}x{p_n}->{s}", "ms": ms, "plain_ms": plain_ms, "max_abs_err": 0.0,
-                       "yardstick_ms": None, "source": "kss_icp_torch/csrc/fps.cu",
-                       "replaces": "kss_icp_tpu/ops/resample_pallas.py:102"}, **b)
+    fps_cases = [(pts, pmask, s, s, "table shape")]
+    # register_pair's two launches on the remesh pair with the most picks,
+    # padded as PointCloud.from_points pads them.
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.core.cloud import PointCloud
+
+    _, src, tgt = max(load_pairs(), key=lambda r: DEFAULT_CONFIG.resample_count(len(r[1]), len(r[2])))
+    steps = DEFAULT_CONFIG.resample_count(len(src), len(tgt))
+    for points, label in ((src, "remesh source"), (tgt, "remesh target")):
+        c = PointCloud.from_points(points, device=dev)
+        fps_cases.append((c.points[None].contiguous(), c.mask[None].contiguous(), DEFAULT_CONFIG.resample_pad,
+                          steps, label))
+    cases = []
+    for pts, pmask, s, steps, label in fps_cases:
+        b_n, p_n = pmask.shape
+        ik, smk = fps(pts, pmask, s, steps)
+        ip, smp = farthest_point_sampling(pts, pmask, s, steps)
+        torch.cuda.synchronize()
+        require(torch.equal(ik, ip) and torch.equal(smk, smp),
+                f"fps {label}: indices differ at {int((ik != ip).sum())} of {b_n * s} picks")
+        ms = time_ms(lambda: fps(pts, pmask, s, steps), 5)
+        device_ms = graph_ms(lambda: fps(pts, pmask, s, steps), 5)
+        plain_ms = time_ms(lambda: farthest_point_sampling(pts, pmask, s, steps), 2)
+        # Per step and valid point: 3 sub + 3 mul + 2 add + 1 min + 1 compare. The
+        # steps are a dependency chain the bound does not see (PERF.md).
+        b = bound(10.0 * steps * int(pmask.sum()), 4 * b_n * p_n * 3 + b_n * p_n + b_n * s * 5)
+        cases.append(dict({"shape": f"{b_n}x{p_n}->{s}", "steps": steps, "label": label, "ms": ms,
+                           "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": 0.0}, **b))
+        log(f"  fps B={b_n} P={p_n} S={s} steps={steps} ({label}): indices identical; {ms:.4f} ms a wrapper call "
+            f"back to back, {device_ms:.4f} ms on the device (graph replay; centroid and mask ops included), "
+            f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {steps} dependent steps)")
+    out["fps"] = dict(cases[0], cases=cases, yardstick_ms=None, source="kss_icp_torch/csrc/fps.cu",
+                      replaces="kss_icp_tpu/ops/resample_pallas.py:102")
 
     def field_inputs(steps, n):
         src, tgt = t(cloud(rng, n)), t(cloud(rng, n))
@@ -232,9 +246,9 @@ def phase_kernels(torch, dev) -> dict:
                 require(torch.allclose(fk, fp, rtol=2e-5, atol=0.0), f"{label}: differs beyond rtol 2e-5")
                 require(torch.equal(fk, kernel(*args, **kw)), f"{label}: repeated runs differ")
                 err = float((fk - fp).abs().max())
-                ms = time_ms(torch, lambda: kernel(*args, **kw), 10)
-                plain_ms = time_ms(torch, lambda: plain(*args, **kw), 3)
-                yard_ms = time_ms(torch, yard, 3)
+                ms = time_ms(lambda: kernel(*args, **kw), 10)
+                plain_ms = time_ms(lambda: plain(*args, **kw), 3)
+                yard_ms = time_ms(yard, 3)
                 evals = c_n * int(smask.sum()) * int(tmask.sum())
                 b = bound(per_eval[prec][0] * evals, field_bytes(c_n, n), per_eval[prec][1] * evals)
                 cases.append(dict({"shape": f"{c_n}x{n}x{n}", "label": grid, "precision": prec, "ms": ms,
@@ -283,6 +297,7 @@ def drive(torch, dev, cfg, pairs, counters, timer, label, judge):
     rows, total = [], 0.0
     for fn in counters.values():
         fn.launches = 0
+    counters["nn1"].launch_shapes.clear()
     for name, src, tgt in pairs:
         timer.ran.clear()
         t0 = time.perf_counter()
@@ -299,6 +314,9 @@ def drive(torch, dev, cfg, pairs, counters, timer, label, judge):
                          finisher="finish" in timer.ran))
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"  [{label}] kernel launches: {launches}")
+    shapes = sorted(counters["nn1"].launch_shapes.items(), key=lambda kv: -kv[1])
+    log(f"  [{label}] nn1 launches by shape (L x Q x R): " + ", ".join(f"{l}x{q}x{r} {n}" for (l, q, r), n in shapes))
+    launches["nn1_shapes"] = {f"{l}x{q}x{r}": n for (l, q, r), n in shapes}
     return rows, total, launches
 
 
@@ -440,6 +458,7 @@ def phase_end_to_end(torch, dev, kernels: dict) -> dict:
 
     for name in ("nn1", "fps", "field_ave"):
         kernels[name]["launches"] = out["passes"]["esc-default"]["launches"][name]
+    kernels["nn1"]["launch_shapes"] = out["passes"]["esc-default"]["launches"]["nn1_shapes"]
     kernels["field_dot"]["launches"] = out["passes"]["esc-dot"]["launches"]["field_dot"]
     return out
 
@@ -523,8 +542,9 @@ def main() -> int:
     phase_bf16_ranking(torch, dev)
     log(f"smoke run {time.perf_counter() - t_start:.1f} s ({card})")
 
-    keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "yardstick", "yardstick_ms", "shape", "precision", "cases")
+    keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "max_abs_err", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick", "yardstick_ms", "shape", "precision", "cases",
+            "launch_shapes")
     line = {"kernels": [{k: v for k, v in dict(kernels[n], name=n, route="cuda", library_ms=None).items() if k in keys}
                         for n in ("nn1", "fps", "field_ave", "field_dot")]}
     print(json.dumps(line), flush=True)

@@ -36,8 +36,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (pointers, ints, then the stream).
 SIGNATURES = {
-    "kss_nn1": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "kss_fps": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "kss_nn1": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "kss_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "kss_field_ave": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "kss_field_dot": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
@@ -61,34 +61,35 @@ def find_nvcc() -> str:
     raise BuildError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path) -> list[Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> tuple[Path, str, float]:
-    """Compile the library if its hash is not built yet.
+def build(csrc: Path = CSRC, out: Path = BUILD) -> tuple[Path, str, float]:
+    """Compile the `*.cu` files of `csrc` into one library under `out`, if
+    their hash is not built yet (the defaults are the package's own kernels).
 
     Returns (library path, nvcc's output, build seconds; 0 when cached)."""
-    lib = BUILD / f"libkss_kernels_{source_hash()}.so"
+    lib = out / f"libkss_kernels_{source_hash(csrc)}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
         return lib, log.read_text() if log.exists() else "", 0.0
-    BUILD.mkdir(parents=True, exist_ok=True)
+    out.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     t0 = time.perf_counter()
     # Build in a temporary directory, then rename the library into place: a
     # concurrent build never loads a half-written one.
-    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in sorted(CSRC.glob("*.cu"))]
-        output = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / f"{o.stem}.cu")]
+    with tempfile.TemporaryDirectory(dir=out) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sorted(csrc.glob("*.cu"))]
+        output = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(csrc / f"{o.stem}.cu")]
                            for o in objs], tmp)
         so = Path(tmp) / lib.name
         output += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",

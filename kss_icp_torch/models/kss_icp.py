@@ -3,7 +3,7 @@
 KSSICP_Registration (KSS_ICP.hpp:69-131) as batched tensor stages:
 
   1. FPS-resample both clouds to pNumber = min(|S|,|T|)//2 (≤ 2000), padded
-     to 2048 (`fps` kernel);
+     to 2048 (`fps` kernel, which stops after pNumber picks);
   2. Kendall pre-shape alignment (core/preshape.py);
   3. the Euler-grid coarse field (`field_ave` or `field_dot` kernel, by
      `coarse_method`) and its local-minima candidate list (models/coarse.py);
@@ -244,14 +244,20 @@ def resample_batch(
     pnumber: torch.Tensor,
     cfg: KSSICPConfig = DEFAULT_CONFIG,
     pad: Optional[int] = None,
+    steps: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """FPS-resample (B, N, 3) padded clouds to (B, resample_pad, 3), keeping
-    pnumber[b] valid samples of cloud b (the `fps` kernel on CUDA)."""
+    pnumber[b] valid samples of cloud b (the `fps` kernel on CUDA).
+
+    `steps`, a host int, makes only the first min(steps, pad) FPS picks: the
+    slots past pnumber are masked and zeroed anyway and picks are
+    prefix-stable, so with steps >= max(pnumber) the output is bit-identical
+    to the full run's (and JAX's). A smaller `steps` keeps `steps` samples."""
     if cfg.resampler != "fps":
         raise NotImplementedError("kss_icp_torch does not implement resampler != 'fps' yet: "
                                   "ROADMAP.md queue 1 item 13 (aivs)")
     p = pad if pad is not None else cfg.resample_pad
-    idx, smask = fps(points, mask, p)
+    idx, smask = fps(points, mask, p, None if steps is None else min(steps, p))
     smask = smask & (torch.arange(p, device=points.device)[None, :] < pnumber[:, None])
     pts = torch.take_along_dim(points, idx.long()[..., None], dim=1)
     return pts * smask[..., None].to(points.dtype), smask
@@ -341,8 +347,8 @@ def register_pair(
     pnumber = cfg.resample_count(int(source.count), int(target.count))
     pn = torch.tensor([pnumber], device=device)
     with _stage(timer, "resample"):
-        src_pts, src_mask = resample_batch(source.points[None], source.mask[None], pn, cfg)
-        tgt_pts, tgt_mask = resample_batch(target.points[None], target.mask[None], pn, cfg)
+        src_pts, src_mask = resample_batch(source.points[None], source.mask[None], pn, cfg, steps=pnumber)
+        tgt_pts, tgt_mask = resample_batch(target.points[None], target.mask[None], pn, cfg, steps=pnumber)
     clouds = (src_pts[0], src_mask[0], tgt_pts[0], tgt_mask[0])
     res = register_resampled(*clouds, cfg, timer=timer)
     if not cfg.auto_escalate:

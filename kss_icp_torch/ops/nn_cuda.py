@@ -8,11 +8,46 @@ it launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from collections import Counter
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from kss_icp_torch.ops import nn as nn_plain
+
+SMS = 132  # streaming multiprocessors of an H100 SXM: the plan's default where no card is asked
+MIN_SLICE = 256  # reference rows a cluster block scans at the least
+MAX_CLUSTER = 8  # the portable cluster size
+TILE_QUERIES = 256  # queries a block: 128 threads x 2 (csrc/nn.cu)
+
+
+class NN1Plan(NamedTuple):
+    cluster: int  # blocks of a cluster, each scanning one slice of R
+    slice: int    # reference rows a block scans; cluster * slice >= R
+
+
+@functools.lru_cache(maxsize=256)  # the ICP loop asks for a few shapes thousands of times
+def nn1_plan(lanes: int, q_n: int, r_n: int, sms: int = SMS) -> NN1Plan:
+    """The launch plan of `nn1` for L lanes of Q queries against R rows on a
+    card of `sms` streaming multiprocessors.
+
+    R is split over a cluster only as far as it takes to give every SM two
+    blocks: the smallest power-of-two cluster (up to 8, with slices of at
+    least 256 rows) for which the launch has 2 x `sms` blocks. At every
+    main-path shape this was the fastest cluster size on an H100
+    (scripts/torch_kernel_ab.py --sweep, PERF.md)."""
+    tiles = lanes * -(-q_n // TILE_QUERIES)
+    cluster = 1
+    while cluster < MAX_CLUSTER and r_n >= 2 * cluster * MIN_SLICE and tiles * cluster < 2 * sms:
+        cluster *= 2
+    return NN1Plan(cluster, -(-r_n // cluster))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lane_ref(lane_ref: Optional[torch.Tensor], lanes: int, groups: int, device) -> torch.Tensor:
@@ -75,19 +110,22 @@ def nn1(
         raise ValueError(f"nn1 needs 1 <= R and L <= 65535, got R={r_n}, L={lanes}")
     d2 = torch.empty((lanes, q_n), dtype=torch.float32, device=query.device)
     idx = torch.empty((lanes, q_n), dtype=torch.int32, device=query.device)
+    plan = nn1_plan(lanes, q_n, r_n, sm_count(query.device.index))
     from kss_icp_torch import _build
 
     lib = _build.library()
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.kss_nn1(query.data_ptr(), ref.data_ptr(), ref_mask.data_ptr(), lane_ref.data_ptr(),
-                           lanes, q_n, groups, r_n, d2.data_ptr(), idx.data_ptr(), stream)
+                           lanes, q_n, groups, r_n, plan.cluster, plan.slice, d2.data_ptr(), idx.data_ptr(), stream)
     _build.check(code, "nn1")
     nn1.launches += 1
+    nn1.launch_shapes[(lanes, q_n, r_n)] += 1
     return d2, idx
 
 
 nn1.launches = 0
+nn1.launch_shapes = Counter()  # (L, Q, R) -> launches, counted beside `launches`
 
 
 def _require(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:

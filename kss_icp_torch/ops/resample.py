@@ -7,7 +7,7 @@ kernel's order, (dx² + dy²) + dz², so index sequences agree exactly.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,29 +26,43 @@ def fps_centroid(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (points * w[..., None]).sum(dim=-2) / w.sum(dim=-1).clamp_min(1.0)[..., None]
 
 
-def sample_mask(mask: torch.Tensor, num_samples: int) -> torch.Tensor:
-    """(..., S) validity of the samples: arange(S) < min(count, S)."""
+def sample_mask(mask: torch.Tensor, num_samples: int, steps: int) -> torch.Tensor:
+    """(..., S) validity of the samples: arange(S) < min(count, steps)."""
     count = mask.to(torch.float32).sum(dim=-1)
     s = torch.arange(num_samples, device=mask.device)
-    return s < count.clamp_max(num_samples)[..., None]
+    return s < count.clamp_max(steps)[..., None]
 
 
-def farthest_point_sampling(points: torch.Tensor, mask: torch.Tensor, num_samples: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def check_steps(num_samples: int, steps: Optional[int]) -> int:
+    """The number of picks to make: `steps`, default num_samples, in [0, S]."""
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+    if steps is None:
+        return num_samples
+    if not 0 <= steps <= num_samples:
+        raise ValueError(f"steps must lie in [0, {num_samples}], got {steps}")
+    return steps
+
+
+def farthest_point_sampling(points: torch.Tensor, mask: torch.Tensor, num_samples: int,
+                            steps: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy FPS over the valid points of (B, P, 3) clouds.
 
     Returns (indices (B, S) int32, sample_mask (B, S) bool). The first sample
     is the valid point farthest from the masked centroid; each next one has
     the largest squared distance to the samples so far (first index on
     ties); invalid points score -1 and are picked only once no valid point
-    is left."""
+    is left. Only the first `steps` picks are made (default S): picks are
+    prefix-stable, the later slots hold index 0 and are masked off."""
+    steps = check_steps(num_samples, steps)
     batch, p_n = mask.shape
     neg = torch.tensor(-1.0, dtype=points.dtype, device=points.device)
     score = torch.where(mask, sqdist3(points, fps_centroid(points, mask)), neg)
     rows = torch.arange(batch, device=points.device)
-    idx = torch.empty((batch, num_samples), dtype=torch.int64, device=points.device)
-    for s in range(num_samples):
+    idx = torch.zeros((batch, num_samples), dtype=torch.int64, device=points.device)
+    for s in range(steps):
         sel = torch.argmax(score, dim=-1)
         idx[:, s] = sel
         d2 = torch.where(mask, sqdist3(points, points[rows, sel]), neg)
         score = d2 if s == 0 else torch.minimum(score, d2)
-    return idx.to(torch.int32), sample_mask(mask, num_samples)
+    return idx.to(torch.int32), sample_mask(mask, num_samples, steps)

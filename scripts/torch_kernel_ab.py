@@ -1,0 +1,277 @@
+#!/usr/bin/env python3
+"""Old against new `nn1` and `fps` kernels, in turns, on one CUDA card.
+
+    python3 scripts/torch_kernel_ab.py --old DIR [--reps N] [--sass] [--sweep] [--out DIR]
+
+DIR holds older `nn.cu` and `fps.cu` sources with the C interface they had
+before the launch plans (kss_nn1 without the plan arguments, kss_fps without
+steps and plan). They are built with the package's nvcc flags into a second
+ctypes library under `kss_icp_torch/_build/ab_old/`; the package's own
+sources are built as usual. At each of the main path's shapes the script
+checks that both give the same bits, then times the two C entry points on
+preallocated outputs in turns, old, new, new, old: each turn is the mean
+device time of --reps launches replayed from one CUDA graph (the kernel's
+own time; a launch of the small shapes takes less than the host's cost of
+a call). It also times the new wrapper called back to back, which is what
+the ICP loop pays, and prints one line per shape.
+The card's name, power limit and maximum SM clock come first; one JSON
+object with every number is the last line, and is also written to
+torch_kernel_ab.json in --out (default _scratch/kernel_ab/, gitignored).
+--sass also writes the new library's SASS (cuobjdump) there as
+torch_kernels.sass. --sweep also times every launch plan the new C entry
+points take at those shapes (nn1: each cluster size; fps: each
+points-a-thread count), beside the plan the wrappers pick, and writes them
+there as torch_kernel_sweep.json.
+
+Imports nothing of JAX and nothing of kss_icp_tpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+from kss_icp_torch import _build  # noqa: E402
+from kss_icp_torch.ops.nn_cuda import nn1, nn1_plan, sm_count  # noqa: E402
+from kss_icp_torch.ops.resample import fps_centroid  # noqa: E402
+from kss_icp_torch.ops.resample_cuda import MAX_THREADS, fps, fps_plan  # noqa: E402
+from kss_icp_torch.timing import graph_ms, time_ms  # noqa: E402
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+OLD_SIGNATURES = {
+    "kss_nn1": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "kss_fps": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+}
+# (L, Q, R, label): the ICP screen, the escalation screen, the refine lanes
+# (4, the two-tier 2 and the final 1), the metric at the largest and the
+# smallest remesh pair's padded shape, and the K4 regime.
+NN1_SHAPES = [(32, 512, 2048, "screen"), (16, 512, 2048, "escalation screen"), (4, 2048, 2048, "refine"),
+              (2, 2048, 2048, "two-tier refine"), (1, 2048, 2048, "final converge"),
+              (1, 3072, 8192, "metric, largest pair"), (1, 768, 4096, "metric, smallest pair"),
+              (1, 65536, 65536, "K4 regime")]
+# (B, P, S, steps, label): register_pair's two launches at the largest pair's
+# padded source and target (pnumber 1534 of 2048 slots), and the PERF.md
+# table's shape.
+FPS_SHAPES = [(1, 3072, 2048, 1534, "remesh source"), (1, 8192, 2048, 1534, "remesh target"),
+              (2, 8192, 2048, 2048, "table shape")]
+
+
+def cloud(rng: np.random.Generator, n: int) -> np.ndarray:
+    u = rng.uniform(-1, 1, size=(n,))
+    v = rng.uniform(-1, 1, size=(n,))
+    return np.stack([u, v, 0.3 * np.sin(3 * u) * np.cos(2 * v)], axis=-1).astype(np.float32)
+
+
+def smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def load_old(old_dir: Path) -> ctypes.CDLL:
+    path, log, seconds = _build.build(csrc=old_dir, out=_build.BUILD / "ab_old")
+    print(f"old library {path.name} built in {seconds:.2f} s", flush=True)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in OLD_SIGNATURES.items():
+        getattr(lib, name).argtypes = list(argtypes)
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check(code: int, name: str) -> None:
+    if code:
+        raise RuntimeError(f"{name}: CUDA error {code}")
+
+
+def nn1_calls(old, query, ref, mask, lane_ref):
+    """(old call, new call, outputs): both C entry points on preallocated outputs."""
+    lanes, q_n = query.shape[:2]
+    groups, r_n = ref.shape[:2]
+    outs = [(torch.empty((lanes, q_n), dtype=torch.float32, device=query.device),
+             torch.empty((lanes, q_n), dtype=torch.int32, device=query.device)) for _ in range(2)]
+    head = (query.data_ptr(), ref.data_ptr(), mask.data_ptr(), lane_ref.data_ptr(), lanes, q_n, groups, r_n)
+    plan = nn1_plan(lanes, q_n, r_n, sm_count(query.device.index))
+    new = _build.library()
+
+    def run_old():
+        _check(old.kss_nn1(*head, outs[0][0].data_ptr(), outs[0][1].data_ptr(), _stream()), "old kss_nn1")
+
+    def run_new():
+        _check(new.kss_nn1(*head, plan.cluster, plan.slice, outs[1][0].data_ptr(), outs[1][1].data_ptr(),
+                           _stream()), "kss_nn1")
+    return run_old, run_new, outs
+
+
+def fps_calls(old, points, mask, s, steps):
+    batch, p_n = mask.shape
+    centroid = fps_centroid(points, mask).contiguous()
+    work = torch.empty((batch, p_n, 4), dtype=torch.float32, device=points.device)
+    outs = [torch.empty((batch, s), dtype=torch.int32, device=points.device) for _ in range(2)]
+    head = (points.data_ptr(), mask.data_ptr(), centroid.data_ptr(), batch, p_n, s)
+    plan = fps_plan(p_n)
+    new = _build.library()
+
+    def run_old():
+        _check(old.kss_fps(*head, work.data_ptr(), outs[0].data_ptr(), _stream()), "old kss_fps")
+
+    def run_new(k=steps):
+        _check(new.kss_fps(*head, k, plan.k, plan.threads, work.data_ptr(), outs[1].data_ptr(), _stream()),
+               "kss_fps")
+    return run_old, run_new, outs
+
+
+def in_turns(old, new, reps: int) -> dict:
+    """old, new, new, old; each the mean device time of `reps` graphed launches."""
+    t = [graph_ms(old, reps), graph_ms(new, reps), graph_ms(new, reps), graph_ms(old, reps)]
+    return {"old_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2, "turns_ms": t}
+
+
+def sweep(dev, reps: int) -> dict:
+    """Device ms of every launch plan at the main path's shapes."""
+    rng = np.random.default_rng(1)
+    lib = _build.library()
+    result = {"nn1": [], "fps": []}
+    for lanes, q_n, r_n, label in NN1_SHAPES:
+        query = torch.as_tensor(np.stack([cloud(rng, q_n) for _ in range(lanes)]), device=dev)
+        ref = torch.as_tensor(cloud(rng, r_n)[None], device=dev)
+        mask = torch.ones((1, r_n), dtype=torch.bool, device=dev)
+        lane_ref = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+        d2 = torch.empty((lanes, q_n), dtype=torch.float32, device=dev)
+        idx = torch.empty((lanes, q_n), dtype=torch.int32, device=dev)
+        n = max(3, min(reps, int(2e10 // (lanes * q_n * r_n))))
+        rows = []
+        for cluster in (1, 2, 4, 8):
+            def run(cluster=cluster):
+                _check(lib.kss_nn1(query.data_ptr(), ref.data_ptr(), mask.data_ptr(), lane_ref.data_ptr(), lanes,
+                                   q_n, 1, r_n, cluster, -(-r_n // cluster), d2.data_ptr(), idx.data_ptr(),
+                                   _stream()), "kss_nn1")
+            rows.append({"cluster": cluster, "ms": graph_ms(run, n)})
+        chosen = nn1_plan(lanes, q_n, r_n, sm_count(dev.index)).cluster
+        result["nn1"].append({"shape": f"{lanes}x{q_n}x{r_n}", "label": label, "chosen": chosen, "plans": rows})
+        print(f"sweep nn1 {lanes}x{q_n}x{r_n} ({label}): chosen cluster {chosen}; " +
+              "; ".join(f"cluster {r['cluster']} {r['ms']:.4f} ms" for r in rows), flush=True)
+    for b_n, p_n, s, steps, label in FPS_SHAPES[:2]:
+        pts = torch.as_tensor(np.stack([cloud(rng, p_n) for _ in range(b_n)]), device=dev)
+        mask = torch.ones((b_n, p_n), dtype=torch.bool, device=dev)
+        centroid = fps_centroid(pts, mask).contiguous()
+        idx = torch.empty((b_n, s), dtype=torch.int32, device=dev)
+        rows = []
+        for k in (1, 2, 4, 8, 16):
+            threads = 32 * -(-p_n // (32 * k))
+            if threads > MAX_THREADS:
+                continue
+
+            def run(k=k, threads=threads):
+                _check(lib.kss_fps(pts.data_ptr(), mask.data_ptr(), centroid.data_ptr(), b_n, p_n, s, steps, k,
+                                   threads, idx.data_ptr(), idx.data_ptr(), _stream()), "kss_fps")
+            rows.append({"k": k, "threads": threads, "ms": graph_ms(run, max(3, reps // 5))})
+        result["fps"].append({"shape": f"{b_n}x{p_n}->{s}", "steps": steps, "label": label,
+                              "chosen": fps_plan(p_n)._asdict(), "plans": rows})
+        print(f"sweep fps {b_n}x{p_n} steps {steps} ({label}): chosen {fps_plan(p_n)}; " +
+              "; ".join(f"k {r['k']} x {r['threads']} {r['ms']:.4f}" for r in rows), flush=True)
+    return result
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--old", type=Path, required=True, help="directory of the older nn.cu and fps.cu")
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--sass", action="store_true", help="write the new library's SASS to --out")
+    ap.add_argument("--out", type=Path, default=REPO / "_scratch" / "kernel_ab", help="directory for the files")
+    ap.add_argument("--sweep", action="store_true", help="also time every launch plan at the main path's shapes")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    card = smi("name,power.limit")
+    print(card, f"max SM clock {smi('clocks.max.sm')}", flush=True)
+    dev = torch.device("cuda", 0)
+    old = load_old(args.old)
+    path, nvcc_out, seconds = _build.build()
+    print(f"new library {path.name} built in {seconds:.2f} s", flush=True)
+    for line in nvcc_out.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            print("  " + line.strip(), flush=True)
+    out_dir = args.out
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if args.sass:
+        sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(path)],
+                              capture_output=True, text=True, timeout=300)
+        (out_dir / "torch_kernels.sass").write_text(sass.stdout + sass.stderr)
+    rng = np.random.default_rng(0)
+    result = {"card": card, "nn1": [], "fps": []}
+
+    for lanes, q_n, r_n, label in NN1_SHAPES:
+        query = torch.as_tensor(np.stack([cloud(rng, q_n) for _ in range(lanes)]), device=dev)
+        ref = torch.as_tensor(cloud(rng, r_n)[None], device=dev)
+        mask = torch.ones((1, r_n), dtype=torch.bool, device=dev)
+        mask[0, r_n - r_n // 40:] = False
+        lane_ref = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+        run_old, run_new, outs = nn1_calls(old, query, ref, mask, lane_ref)
+        run_old()
+        run_new()
+        wrapped = nn1(query, ref, mask, lane_ref)
+        torch.cuda.synchronize()
+        same = all(torch.equal(o, n) and torch.equal(o, w) for o, n, w in zip(outs[0], outs[1], wrapped))
+        reps = max(3, min(args.reps, int(2e10 // (lanes * q_n * r_n))))
+        row = dict(in_turns(run_old, run_new, reps), shape=f"{lanes}x{q_n}x{r_n}", label=label, same_bits=same,
+                   reps=reps, plan=nn1_plan(lanes, q_n, r_n, sm_count(dev.index))._asdict())
+        row["wrapper_ms"] = time_ms(lambda: nn1(query, ref, mask, lane_ref), reps)
+        result["nn1"].append(row)
+        print(f"nn1 {row['shape']} ({label}): device old {row['old_ms']:.4f} ms, new {row['new_ms']:.4f} ms "
+              f"({row['old_ms'] / row['new_ms']:.2f}x); new wrapper back to back {row['wrapper_ms']:.4f} ms; "
+              f"same bits {same}, plan {row['plan']}", flush=True)
+
+    for b_n, p_n, s, steps, label in FPS_SHAPES:
+        pts = torch.as_tensor(np.stack([cloud(rng, p_n) for _ in range(b_n)]), device=dev)
+        mask = torch.ones((b_n, p_n), dtype=torch.bool, device=dev)
+        mask[:, p_n - p_n // 40:] = False
+        run_old, run_new, outs = fps_calls(old, pts, mask, s, steps)
+        run_old()
+        run_new(s)
+        i_full = outs[1].clone()
+        run_new()
+        i_new, _ = fps(pts, mask, s, steps)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(outs[0], i_full) and torch.equal(outs[1], i_new)
+                    and torch.equal(outs[0][:, :steps], i_new[:, :steps]) and not i_new[:, steps:].any())
+        reps = max(3, args.reps // 5)
+        row = dict(in_turns(run_old, run_new, reps), shape=f"{b_n}x{p_n}->{s}", steps=steps, label=label,
+                   same_bits=same, reps=reps, plan=fps_plan(p_n)._asdict())
+        # All S picks in both, to split the kernel's gain from the steps cut's.
+        row["new_all_steps_ms"] = graph_ms(lambda: run_new(s), reps)
+        row["us_per_step"] = row["new_all_steps_ms"] * 1e3 / s
+        row["old_us_per_step"] = row["old_ms"] * 1e3 / s
+        row["wrapper_ms"] = time_ms(lambda: fps(pts, mask, s, steps), reps)
+        result["fps"].append(row)
+        print(f"fps {row['shape']} steps {steps} ({label}): device old {row['old_ms']:.4f} ms, new "
+              f"{row['new_ms']:.4f} ms ({row['old_ms'] / row['new_ms']:.2f}x); all {s} steps "
+              f"{row['new_all_steps_ms']:.4f} ms ({row['us_per_step']:.3f} us a step, old "
+              f"{row['old_us_per_step']:.3f}); new wrapper {row['wrapper_ms']:.4f} ms; same bits {same}, "
+              f"plan {row['plan']}", flush=True)
+
+    if args.sweep:
+        (out_dir / "torch_kernel_sweep.json").write_text(json.dumps(sweep(dev, args.reps), indent=1))
+    ok = all(r["same_bits"] for r in result["nn1"] + result["fps"])
+    result["ok"] = ok
+    (out_dir / "torch_kernel_ab.json").write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

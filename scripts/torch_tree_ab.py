@@ -1,0 +1,218 @@
+#!/usr/bin/env python3
+"""Two checkouts of the port against each other, end to end, in turns, on
+one CUDA card.
+
+    python3 scripts/torch_tree_ab.py --old DIR [--new DIR] [--rounds N] [--passes N] [--out DIR]
+
+DIR is the root of another checkout of this repository (for example a
+commit unpacked with `git archive` into a gitignored directory such as
+_scratch/); --new defaults to this checkout. Each turn is a process of its
+own that imports `kss_icp_torch` from one checkout, builds that checkout's
+kernels there (at first use) and, after a warm-up pair:
+  - times its `nn1` and `fps` wrappers called back to back (CUDA events, the
+    host's cost of each call included), called as the main path calls them,
+    `nn1(query, ref, mask)` and `fps(points, mask, S)`, at the screen,
+    refine, metric and K4 shapes and at B=2, 8192 -> 2048;
+  - drives the esc-default pass (DEFAULT_CONFIG with overlap_escalate=False)
+    over the 25 remesh pairs through register_pair -> apply_similarity ->
+    registration_measure, --passes times without stage syncs (pairs/s) and
+    --passes times with a sync at each stage border (stage seconds), and
+    holds every pair's RMSE to the JAX CPU value + 0.006
+    (fixtures/torch_port_expected_escalation.json).
+The turns run old, new, new, old, --rounds times. The card's name and power
+limit come first, then one line per turn and the means of each checkout;
+one JSON object with every number is the last line, and is also written to
+torch_tree_ab.json in --out (default _scratch/tree_ab/, gitignored). Exits
+1 if a pair of either checkout is outside its band.
+
+Imports nothing of JAX and nothing of kss_icp_tpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+RMSE_BAND = 0.006
+NN1_SHAPES = [(32, 512, 2048), (4, 2048, 2048), (1, 3072, 8192), (1, 65536, 65536)]
+FPS_SHAPE = (2, 8192, 2048)
+
+
+def cloud(rng: np.random.Generator, n: int) -> np.ndarray:
+    u = rng.uniform(-1, 1, size=(n,))
+    v = rng.uniform(-1, 1, size=(n,))
+    return np.stack([u, v, 0.3 * np.sin(3 * u) * np.cos(2 * v)], axis=-1).astype(np.float32)
+
+
+def worker(tree: Path, passes: int) -> dict:
+    """One turn: the wrappers' times and the esc-default passes of the
+    `kss_icp_torch` in `tree`."""
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import kss_icp_torch as kt
+    from kss_icp_torch import _build
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.ops.nn_cuda import nn1
+    from kss_icp_torch.ops.resample_cuda import fps
+
+    if Path(kt.__file__).resolve().parents[1] != tree:
+        raise RuntimeError(f"kss_icp_torch came from {kt.__file__}, not from {tree}")
+    # This checkout's timing helpers, by path: the other checkout may lack them.
+    spec = importlib.util.spec_from_file_location("_kss_timing", REPO / "kss_icp_torch" / "timing.py")
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    dev = torch.device("cuda", 0)
+    _, _, build_s = _build.build()
+
+    rng = np.random.default_rng(0)
+    nn1_ms = {}
+    for lanes, q_n, r_n in NN1_SHAPES:
+        query = torch.as_tensor(np.stack([cloud(rng, q_n) for _ in range(lanes)]), device=dev)
+        ref = torch.as_tensor(cloud(rng, r_n)[None], device=dev)
+        mask = torch.ones((1, r_n), dtype=torch.bool, device=dev)
+        mask[0, r_n - r_n // 40:] = False
+        reps = 3 if q_n * r_n > 1e9 else 200
+        nn1_ms[f"{lanes}x{q_n}x{r_n}"] = timing.time_ms(lambda: nn1(query, ref, mask), reps)
+    b_n, p_n, s = FPS_SHAPE
+    pts = torch.as_tensor(np.stack([cloud(rng, p_n) for _ in range(b_n)]), device=dev)
+    pmask = torch.ones((b_n, p_n), dtype=torch.bool, device=dev)
+    pmask[0, 8000:] = False
+    pmask[1, 6201:] = False
+    fps_ms = {f"{b_n}x{p_n}->{s}": timing.time_ms(lambda: fps(pts, pmask, s), 20)}
+
+    meta = json.loads((tree / "fixtures" / "remesh_transfer.json").read_text())
+    with np.load(tree / "fixtures" / "remesh_transfer.npz") as z:
+        pairs = [(r["name"], np.asarray(z[r["name"] + "_src"], np.float32),
+                  np.asarray(z[r["name"] + "_tgt"], np.float32)) for r in meta]
+    expected = {p["name"]: p["rmse"] for p in
+                json.loads((tree / "fixtures" / "torch_port_expected_escalation.json").read_text())["pairs"]}
+    cfg = dataclasses.replace(DEFAULT_CONFIG, overlap_escalate=False)
+    kt.register_pair(pairs[0][1], pairs[0][2], dataclasses.replace(cfg, escalate_threshold=0.0), device=dev)
+    torch.cuda.synchronize()
+
+    def one_pass(sync: bool) -> dict:
+        stages = defaultdict(float)
+
+        @contextlib.contextmanager
+        def timer(name):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yield
+            if sync:
+                torch.cuda.synchronize()
+                stages[name] += time.perf_counter() - t0
+
+        nn1.launches = fps.launches = 0
+        outside, total = [], 0.0
+        for name, src, tgt in pairs:
+            t0 = time.perf_counter()
+            res = kt.register_pair(src, tgt, cfg, device=dev, timer=timer)
+            with timer("metric"):
+                aligned = kt.apply_similarity(res.transform, torch.as_tensor(src, device=dev))
+                rmse = kt.registration_measure(aligned, tgt, device=dev)["rmse"]
+            torch.cuda.synchronize()
+            total += time.perf_counter() - t0
+            if not (np.isfinite(rmse) and rmse <= expected[name] + RMSE_BAND):
+                outside.append(name)
+        return {"seconds": total, "pairs_per_s": len(pairs) / total, "outside": outside,
+                "launches": {"nn1": nn1.launches, "fps": fps.launches}, "stage_seconds": dict(stages)}
+
+    return {"build_s": build_s, "nn1_ms": nn1_ms, "fps_ms": fps_ms,
+            "unsynced": [one_pass(False) for _ in range(passes)],
+            "synced": [one_pass(True) for _ in range(passes)]}
+
+
+def run_turn(tree: Path, passes: int) -> dict:
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", str(tree),
+                           "--passes", str(passes)], capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"turn in {tree} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def mean(values) -> float:
+    values = list(values)
+    return sum(values) / len(values)
+
+
+def summary(turns: list) -> dict:
+    """Means over a checkout's turns (and over the passes of each turn)."""
+    unsynced = [p for t in turns for p in t["unsynced"]]
+    synced = [p for t in turns for p in t["synced"]]
+    stages = sorted({k for p in synced for k in p["stage_seconds"]})
+    return {
+        "nn1_ms": {k: mean(t["nn1_ms"][k] for t in turns) for k in turns[0]["nn1_ms"]},
+        "fps_ms": {k: mean(t["fps_ms"][k] for t in turns) for k in turns[0]["fps_ms"]},
+        "unsynced_seconds": mean(p["seconds"] for p in unsynced),
+        "pairs_per_s": mean(p["pairs_per_s"] for p in unsynced),
+        "synced_seconds": mean(p["seconds"] for p in synced),
+        "stage_seconds": {k: mean(p["stage_seconds"].get(k, 0.0) for p in synced) for k in stages},
+        "launches": synced[0]["launches"],
+        "outside": sorted({n for p in unsynced + synced for n in p["outside"]}),
+    }
+
+
+def fmt(d: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in d.items())
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--old", type=Path, help="root of the other checkout")
+    ap.add_argument("--new", type=Path, default=REPO, help="root of the checkout under test (default: this one)")
+    ap.add_argument("--rounds", type=int, default=1, help="rounds of old, new, new, old")
+    ap.add_argument("--passes", type=int, default=2, help="esc-default passes a turn, synced and not")
+    ap.add_argument("--out", type=Path, default=REPO / "_scratch" / "tree_ab", help="directory for the JSON")
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker is not None:
+        print(json.dumps(worker(args.worker.resolve(), args.passes)), flush=True)
+        return 0
+    import torch
+
+    if args.old is None:
+        ap.error("--old is required")
+    if not torch.cuda.is_available():
+        print("torch_tree_ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    trees = {"old": args.old.resolve(), "new": args.new.resolve()}
+    turns = {"old": [], "new": []}
+    for _ in range(args.rounds):
+        for which in ("old", "new", "new", "old"):
+            t = run_turn(trees[which], args.passes)
+            turns[which].append(t)
+            print(f"[{which}] build {t['build_s']:.2f} s; nn1 wrapper ms {fmt(t['nn1_ms'])}; fps wrapper ms "
+                  f"{fmt(t['fps_ms'])}; unsynced pass s " + ", ".join(f"{p['seconds']:.4f}" for p in t["unsynced"])
+                  + "; synced pass s " + ", ".join(f"{p['seconds']:.4f}" for p in t["synced"]), flush=True)
+    result = {"card": card, "trees": {k: str(v) for k, v in trees.items()}, "turns": turns,
+              "summary": {k: summary(v) for k, v in turns.items()}}
+    for which, s in result["summary"].items():
+        print(f"[{which} mean] nn1 wrapper ms {fmt(s['nn1_ms'])}; fps wrapper ms {fmt(s['fps_ms'])}; "
+              f"unsynced pass {s['unsynced_seconds']:.4f} s ({s['pairs_per_s']:.3f} pairs/s); synced pass "
+              f"{s['synced_seconds']:.4f} s, stages {fmt(s['stage_seconds'])}; launches {s['launches']}; "
+              f"pairs outside the band {s['outside']}", flush=True)
+    result["ok"] = not any(s["outside"] for s in result["summary"].values())
+    args.out.mkdir(parents=True, exist_ok=True)
+    (args.out / "torch_tree_ab.json").write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+    return 0 if result["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,7 +26,7 @@ from kss_icp_torch.core.transforms import euler_xyz_matrix
 from kss_icp_torch.models import coarse
 from kss_icp_torch.models.icp import ICPParams, icp
 from kss_icp_torch.ops.coarse_cuda import field_ave, field_ave_plain, field_dot, field_dot_plain
-from kss_icp_torch.ops.nn_cuda import nn1, nn1_plain
+from kss_icp_torch.ops.nn_cuda import nn1, nn1_plain, nn1_plan
 from kss_icp_torch.ops.resample import farthest_point_sampling
 from kss_icp_torch.ops.resample_cuda import fps
 from torch_helpers import cuda_device  # noqa: F401  (fixture)
@@ -118,6 +118,59 @@ def test_nn1_kernel_lanes_masks_and_ties(cuda_device):
     assert bool((d2[2] == 1e30).all())
 
 
+def _same_nn(got, want):
+    assert torch.equal(got[1], want[1]), f"indices differ at {int((got[1] != want[1]).sum())} queries"
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes, q_n, r_n", [(32, 512, 2048), (4, 2048, 2048), (1, 3072, 8192), (1, 1001, 2037),
+                                             (3, 97, 300)])
+def test_nn1_kernel_matches_plain_at_the_plans_shapes(cuda_device, lanes, q_n, r_n):
+    """Main-path shapes, and R not a multiple of the slice with Q not a
+    multiple of the query tile."""
+    rng = np.random.default_rng(q_n + r_n)
+    q = _t(np.stack([random_cloud(rng, q_n) for _ in range(lanes)]).astype(np.float32), cuda_device)
+    r = _t(random_cloud(rng, r_n).astype(np.float32)[None], cuda_device)
+    m = torch.ones((1, r_n), dtype=torch.bool, device=cuda_device)
+    m[0, r_n - r_n // 40:] = False
+    _same_nn(nn1(q, r, m), nn1_plain(q, r, m))
+
+
+@pytest.mark.cuda
+def test_nn1_kernel_ties_across_slice_borders_keep_the_first_index(cuda_device):
+    r_n = 2048
+    plan = nn1_plan(2, 256, r_n)
+    assert plan.cluster == 8 and plan.slice == 256
+    rng = np.random.default_rng(8)
+    r = random_cloud(rng, r_n).astype(np.float32)
+    border = plan.slice
+    for a, b in ((border - 1, border), (3 * border - 1, 3 * border), (5, 7 * border + 3)):
+        r[b] = r[a]  # exact ties: the later row, in a later slice, must lose
+    q = np.stack([r[[border - 1, border, 3 * border, 7 * border + 3] * 64], r[rng.permutation(r_n)[:256]]])
+    q = _t(q.astype(np.float32), cuda_device)
+    rt = _t(r[None], cuda_device)
+    m = torch.ones((1, r_n), dtype=torch.bool, device=cuda_device)
+    m[0, border - 1] = False  # a masked row straddling the border: its twin wins
+    d2, idx = nn1(q, rt, m)
+    _same_nn((d2, idx), nn1_plain(q, rt, m))
+    assert idx[0, :4].tolist() == [border, border, 3 * border - 1, 5]
+
+
+@pytest.mark.cuda
+def test_nn1_kernel_fully_masked_reference_and_foreign_lane_ref(cuda_device):
+    rng = np.random.default_rng(9)
+    q = _t(np.stack([random_cloud(rng, 600) for _ in range(4)]).astype(np.float32), cuda_device)
+    r = _t(np.stack([random_cloud(rng, 2100) for _ in range(2)]).astype(np.float32), cuda_device)
+    m = torch.ones((2, 2100), dtype=torch.bool, device=cuda_device)
+    m[1] = False
+    d2, idx = nn1(q, r, m, torch.tensor([0, 1, 2, -1], dtype=torch.int32, device=cuda_device))
+    want = nn1_plain(q[:2], r, m)
+    _same_nn((d2[:2], idx[:2]), want)
+    assert bool((d2[1] == 1e30).all())
+    assert bool(torch.isnan(d2[2:]).all()) and bool((idx[2:] == -1).all())
+
+
 @pytest.mark.cuda
 def test_fps_kernel_matches_plain_and_jax(cuda_device):
     pts, mask = _fps_case(cuda_device)
@@ -130,15 +183,52 @@ def test_fps_kernel_matches_plain_and_jax(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [8192, 20000])  # the shared-memory and the global-memory path
+# Registers (1 to 16 points a thread), then shared memory (12801) and global memory.
+@pytest.mark.parametrize("p", [1, 757, 3072, 8192, 12801, 20000, 65536])
 def test_fps_kernel_matches_plain_at_width(cuda_device, p):
     rng = np.random.default_rng(p)
     pts = _t(np.stack([random_cloud(rng, p) for _ in range(2)]).astype(np.float32), cuda_device)
     mask = torch.ones((2, p), dtype=torch.bool, device=cuda_device)
-    mask[1, p - 123:] = False
-    idx, sm = fps(pts, mask, 256)
-    idx_p, sm_p = farthest_point_sampling(pts, mask, 256)
+    mask[1, p - p // 50:] = False
+    s = min(256, 2 * p + 3)  # P = 1: more samples than points
+    idx, sm = fps(pts, mask, s)
+    idx_p, sm_p = farthest_point_sampling(pts, mask, s)
     assert torch.equal(idx, idx_p) and torch.equal(sm, sm_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [700, 5000, 9000])
+def test_fps_kernel_ties_short_clouds_and_steps(cuda_device, p):
+    """Duplicate points (tied scores), more samples than valid points, an
+    invalid first point, and steps < S."""
+    rng = np.random.default_rng(p + 1)
+    base = random_cloud(rng, p // 4).astype(np.float32)
+    pts = _t(np.stack([np.tile(base, (4, 1)), random_cloud(rng, p).astype(np.float32)]), cuda_device)
+    mask = torch.ones((2, p), dtype=torch.bool, device=cuda_device)
+    mask[1, 0] = False
+    mask[1, 300:] = False  # 299 valid points, 512 samples
+    for steps in (512, 200, 1, 0):
+        idx, sm = fps(pts, mask, 512, steps)
+        idx_p, sm_p = farthest_point_sampling(pts, mask, 512, steps)
+        assert torch.equal(idx, idx_p) and torch.equal(sm, sm_p), steps
+        assert not idx[:, steps:].any()
+
+
+@pytest.mark.cuda
+def test_resample_batch_steps_cut_is_bit_identical_on_the_card(cuda_device):
+    from kss_icp_torch.models.kss_icp import resample_batch
+
+    rng = np.random.default_rng(17)
+    pts = _t(np.stack([random_cloud(rng, 3072), random_cloud(rng, 3072)]).astype(np.float32), cuda_device)
+    mask = torch.ones((2, 3072), dtype=torch.bool, device=cuda_device)
+    mask[1, 2900:] = False
+    pn = torch.tensor([1534, 1400], device=cuda_device)
+    cfg = KSSICPConfig()
+    full = resample_batch(pts, mask, pn, cfg)
+    cut = resample_batch(pts, mask, pn, cfg, steps=1534)
+    cpu = resample_batch(pts.cpu(), mask.cpu(), pn.cpu(), cfg, steps=1534)
+    for a, b, c in zip(cut, full, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
 
 
 @pytest.mark.cuda

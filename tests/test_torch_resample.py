@@ -80,6 +80,49 @@ def test_resample_batch_matches_jax(rng):
     np.testing.assert_array_equal(rp.numpy(), np.asarray(rp_j))
 
 
+@pytest.mark.parametrize("steps", [0, 1, 37, 150])
+def test_plain_steps_are_the_full_runs_prefix(rng, steps):
+    pts, mask = _clouds(rng, 3, 400, {1: 120, 2: 0})
+    full, sm_full = t_fps(torch.as_tensor(pts), torch.as_tensor(mask), 150)
+    idx, sm = fps(torch.as_tensor(pts), torch.as_tensor(mask), 150, steps)
+    assert torch.equal(idx[:, :steps], full[:, :steps])
+    assert not idx[:, steps:].any()
+    assert torch.equal(sm, sm_full & (torch.arange(150) < steps))
+
+
+@pytest.mark.parametrize("steps", [-1, 151])
+def test_fps_refuses_steps_outside_the_samples(rng, steps):
+    pts, mask = _clouds(rng, 1, 64)
+    with pytest.raises(ValueError, match="steps"):
+        fps(torch.as_tensor(pts), torch.as_tensor(mask), 150, steps)
+
+
+@pytest.mark.parametrize("steps", [96, 97, 128, 500])
+def test_resample_batch_steps_cut_is_bit_identical(rng, steps):
+    """Stopping FPS after max(pnumber) picks changes no bit of the output: the
+    slots past pnumber are masked and zeroed (steps past the pad clamp to it)."""
+    pts, mask = _clouds(rng, 2, 256, {1: 190})
+    pn = np.array([96, 80])
+    args = (torch.as_tensor(pts), torch.as_tensor(mask), torch.as_tensor(pn), from_reference(_CFG))
+    rp, rm = tk.resample_batch(*args)
+    rp_s, rm_s = tk.resample_batch(*args, steps=steps)
+    rp_j, rm_j = jk.resample_batch(jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(pn), _CFG)
+    for got, want in ((rp_s, rp), (rm_s, rm)):
+        assert torch.equal(got, want)
+    np.testing.assert_array_equal(rm_s.numpy(), np.asarray(rm_j))
+    np.testing.assert_array_equal(rp_s.numpy(), np.asarray(rp_j))
+
+
+def test_register_pair_stops_fps_after_pnumber_picks(monkeypatch):
+    calls, inner = [], tk.fps
+    monkeypatch.setattr(tk, "fps", lambda *a: calls.append(a[2:]) or inner(*a))
+    rng = np.random.default_rng(4)
+    src, tgt = random_cloud(rng, 150).astype(np.float32), random_cloud(rng, 300).astype(np.float32)
+    cfg = dataclasses.replace(from_reference(_CFG), rotation_steps=2, max_candidates=2, max_icp_iterations=2)
+    tk.register_pair(src, tgt, cfg, device="cpu")
+    assert calls == [(128, 75), (128, 75)]  # pnumber = min(150, 300) // 2
+
+
 def test_resample_pairs_matches_jax(rng):
     src, smask = _clouds(rng, 2, 256, {0: 200})
     tgt, tmask = _clouds(rng, 2, 256, {1: 222})
