@@ -14,12 +14,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      bit-identical: indices and d² equal; the fields within rtol 2e-5;
      nn1 at the screen, escalation screen, refine, metric and K4 shapes;
      fps at B=2 x 8192 -> 2048 and at the largest remesh pair's padded
-     source and target with steps = pnumber; field_dot at "highest" and
-     "default" on the base grid C=512, P=T=2048 and the escalation grid
-     C=4096, P=T=512) and time both with CUDA events, calls back to back
-     (`ms`, as the ICP loop pays them); nn1 and fps also by CUDA-graph
-     replay (`device_ms`, the kernel's own time); each with its bound and a
-     PyTorch composition as a yardstick;
+     source and target with steps = pnumber; field_ave, and field_dot at
+     "highest" and "default", on the base grid C=512, P=T=2048 and the
+     escalation grid C=4096, P=T=512, mostly valid, and on the base grid
+     with both clouds suffix-masked to the largest and smallest remesh
+     pair's pnumber, 1534 and 378, where the field must also equal its
+     valid prefix's bit for bit, and on the base grid at the bench
+     config's 512-point prefixes, C=512, P=T=512) and time both with CUDA
+     events, calls back to back (`ms`, as the ICP loop pays them), and
+     each kernel also by
+     CUDA-graph replay (`device_ms`, the device's time of a call); each
+     with its bound on the valid rows and a PyTorch composition as a
+     yardstick;
   4. end to end on the 25 remesh pairs through register_pair ->
      apply_similarity -> registration_measure, every pair's RMSE within the
      JAX CPU value + 0.006:
@@ -202,10 +208,12 @@ def phase_kernels(torch, dev) -> dict:
     out["fps"] = dict(cases[0], cases=cases, yardstick_ms=None, source="kss_icp_torch/csrc/fps.cu",
                       replaces="kss_icp_tpu/ops/resample_pallas.py:102")
 
-    def field_inputs(steps, n):
+    def field_inputs(steps, n, valid):
+        """None: n - n/40 source and n - n/20 target rows valid; an int: both
+        clouds suffix-masked to that many rows, as register_pair pads them."""
         src, tgt = t(cloud(rng, n)), t(cloud(rng, n))
-        smask = torch.arange(n, device=dev) < n - n // 40
-        tmask = torch.arange(n, device=dev) < n - n // 20  # masked target rows
+        rows = torch.arange(n, device=dev)
+        smask, tmask = (rows < n - n // 40, rows < n - n // 20) if valid is None else (rows < valid, rows < valid)
         return src, smask, tgt, tmask, euler_xyz_matrix(rotation_grid(steps, 6.3, dev))
 
     def field_bytes(c_n, n):
@@ -220,17 +228,24 @@ def phase_kernels(torch, dev) -> dict:
     # "default" the K=4 bf16 product, 2 x 4 on a tensor core, and the float32
     # min. The kernels spend more (PERF.md).
     per_eval = {None: (9.0, 0.0), "highest": (7.0, 0.0), "default": (1.0, 8.0)}
+    # (grid steps, padded n, valid rows, label): the mostly valid cases; the
+    # largest and smallest remesh pair's pnumber in register_pair's 2048 slots;
+    # the bench config's 512-point prefixes, all valid from pnumber 512 on (23
+    # of the 25 pairs).
+    field_shapes = ((8, 2048, None, "base grid"), (16, 512, None, "escalation grid"),
+                    (8, 2048, 1534, "base grid, largest remesh pair"), (8, 2048, 378, "base grid, smallest remesh pair"),
+                    (8, 512, 512, "base grid, bench prefixes"))
     for name, kernel, plain, src_file, line, precisions in (
             ("field_ave", field_ave, field_ave_plain, "field.cu", 201, (None,)),
             ("field_dot", field_dot, field_dot_plain, "field_dot.cu", 218, ("highest", "default"))):
         cases = []
-        for steps, n, grid in ((8, 2048, "base grid"), (16, 512, "escalation grid")):
-            args = field_inputs(steps, n)
+        for steps, n, valid, grid in field_shapes:
+            args = field_inputs(steps, n, valid)
             c_n = args[4].shape[0]
             src, smask, tgt, tmask, rots = args
             if name == "field_ave":
-                rotated, valid = rotate_sources(rots, src), tgt[tmask]
-                yard = chunked(lambda a, z: torch.cdist(rotated[a:z], valid[None]).amin(-1), c_n)
+                rotated, valid_tgt = rotate_sources(rots, src), tgt[tmask]
+                yard = chunked(lambda a, z: torch.cdist(rotated[a:z], valid_tgt[None]).amin(-1), c_n)
                 yard_label = "torch.cdist(rotated, valid_target).amin(-1), 64 rotations a call"
             else:
                 rotated, _, _, ra = dot_operands(*args)
@@ -245,16 +260,22 @@ def phase_kernels(torch, dev) -> dict:
                 label = f"{name}{'' if prec is None else ' ' + prec} C={c_n} P=T={n}"
                 require(torch.allclose(fk, fp, rtol=2e-5, atol=0.0), f"{label}: differs beyond rtol 2e-5")
                 require(torch.equal(fk, kernel(*args, **kw)), f"{label}: repeated runs differ")
+                if valid is not None:  # masked rows skipped exactly: the padded clouds give their prefix's bits
+                    require(torch.equal(fk, kernel(src[:valid], smask[:valid], tgt[:valid], tmask[:valid], rots, **kw)),
+                            f"{label}: the padded clouds' field differs from their valid prefix's")
                 err = float((fk - fp).abs().max())
                 ms = time_ms(lambda: kernel(*args, **kw), 10)
+                device_ms = graph_ms(lambda: kernel(*args, **kw), 10)  # rotation, kernels and division
                 plain_ms = time_ms(lambda: plain(*args, **kw), 3)
                 yard_ms = time_ms(yard, 3)
                 evals = c_n * int(smask.sum()) * int(tmask.sum())
                 b = bound(per_eval[prec][0] * evals, field_bytes(c_n, n), per_eval[prec][1] * evals)
-                cases.append(dict({"shape": f"{c_n}x{n}x{n}", "label": grid, "precision": prec, "ms": ms,
-                                   "plain_ms": plain_ms, "max_abs_err": err, "yardstick_ms": yard_ms}, **b))
-                log(f"  {label} ({grid}): max|err| {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"yardstick {yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+                cases.append(dict({"shape": f"{c_n}x{n}x{n}", "label": grid, "precision": prec, "valid": valid,
+                                   "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": err,
+                                   "yardstick_ms": yard_ms}, **b))
+                log(f"  {label} ({grid}): max|err| {err:.3g}; kernel {ms:.4f} ms a wrapper call back to back, "
+                    f"{device_ms:.4f} ms on the device (graph replay), plain {plain_ms:.4f} ms, yardstick "
+                    f"{yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; valid rows only)")
         out[name] = dict(cases[0], cases=cases, yardstick=yard_label, source=f"kss_icp_torch/csrc/{src_file}",
                          replaces=f"kss_icp_tpu/ops/coarse_pallas.py:{line}")
     return out

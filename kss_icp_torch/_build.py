@@ -38,8 +38,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "kss_nn1": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "kss_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "kss_field_ave": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
-    "kss_field_dot": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "kss_field_ave": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "kss_field_dot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

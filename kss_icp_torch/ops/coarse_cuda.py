@@ -4,9 +4,10 @@
 rotation_scores_pallas with method="vpu" (K1), exact float32 differences;
 `field_dot` (csrc/field_dot.cu) ports method="dot" (K1-dot), the augmented
 dot product [R q, 1] . [-2 t, |t|^2] with |q|^2 added back, at a precision
-("default" is one bf16 pass). On CPU tensors each wrapper runs its plain
-version (`field_ave_plain`, `field_dot_plain`); on CUDA tensors it launches
-its kernel or raises.
+("default" is one bf16 pass). Both are one kernel (csrc/field_kernel.cuh)
+launched with a plan from `field_plan`. On CPU tensors each wrapper runs its
+plain version (`field_ave_plain`, `field_dot_plain`); on CUDA tensors it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -16,11 +17,23 @@ import torch
 from kss_icp_torch.core.transforms import rotate_points
 from kss_icp_torch.ops.nn import BIG, _BLOCK_ELEMS, masked_mean, masked_mean_nn_distance
 
-_THREADS = 256  # kThreads of csrc/field.cu and field_dot.cu: one partial sum per 256 source points
+FIELD_GROUP = 256  # kGroup of csrc/field_kernel.cuh: one partial sum per 256 source points
+FIELD_Q = 4  # kQ of csrc/field_kernel.cuh: rotations a block
+FIELD_SLOTS = (4, 2, 1)  # groups of 256 points a block scans at once
 # precision -> does the dot round its operands to bf16? coarse_pallas.py:37-41:
 # the TPU's dot takes one bf16 pass or full float32, and "high" is promoted
 # to full float32.
 BF16_OPERANDS = {"default": True, "high": False, "highest": False}
+
+
+def field_plan(p_n: int) -> int:
+    """The launch plan of `field_ave` and `field_dot` for P source points:
+    the groups of 256 points a block scans at once (256 threads each), as
+    many as the source has, up to 4. A block holds FIELD_Q rotations, so the
+    grid is ceil(C / 4) blocks: 4 slots on the 8³ grid's padded clouds, 2 at
+    512-point prefixes."""
+    groups = -(-p_n // FIELD_GROUP)
+    return next(s for s in FIELD_SLOTS if s <= groups)
 
 
 def rotate_sources(rotations: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
@@ -62,6 +75,34 @@ def _use_plain(name, source, source_mask, target, target_mask, rotations) -> boo
     return False
 
 
+def _scratch(c_n: int, p_n: int, device) -> tuple:
+    """The kernels' outputs: partials (C, ceil(P / 256)) and sums (C,)."""
+    groups = -(-p_n // FIELD_GROUP)
+    return (torch.empty((c_n, groups), dtype=torch.float32, device=device),
+            torch.empty((c_n,), dtype=torch.float32, device=device))
+
+
+def field_ave_sums(rotated, weight, target, target_mask, slots: int) -> torch.Tensor:
+    """One launch of the `field_ave` kernel with `slots` group slots (see
+    `field_plan`): the (C,) sums over valid points of the distance to the
+    nearest valid target row. rotated (C, P, 3), weight (P,) float32 0/1,
+    target (T, 3), target_mask (T,) bool, all contiguous on one card. The
+    sums' bits do not depend on `slots`. Counts the launch in
+    `field_ave.launches`."""
+    from kss_icp_torch import _build
+
+    c_n, p_n = rotated.shape[:2]
+    partial, sums = _scratch(c_n, p_n, rotated.device)
+    lib = _build.library()
+    with torch.cuda.device(rotated.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.kss_field_ave(rotated.data_ptr(), weight.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
+                                 c_n, p_n, target.shape[0], slots, partial.data_ptr(), sums.data_ptr(), stream)
+    _build.check(code, "field_ave")
+    field_ave.launches += 1
+    return sums
+
+
 def field_ave(
     source: torch.Tensor,
     source_mask: torch.Tensor,
@@ -76,22 +117,9 @@ def field_ave(
     points of the distance to the nearest valid target point."""
     if _use_plain("field_ave", source, source_mask, target, target_mask, rotations):
         return field_ave_plain(source, source_mask, target, target_mask, rotations)
-    c_n, p_n, t_n = rotations.shape[0], source.shape[0], target.shape[0]
     rotated = rotate_sources(rotations, source)
     weight = source_mask.to(torch.float32).contiguous()
-    nblk = (p_n + _THREADS - 1) // _THREADS
-    partial = torch.empty((c_n, nblk), dtype=torch.float32, device=source.device)
-    sums = torch.empty((c_n,), dtype=torch.float32, device=source.device)
-    from kss_icp_torch import _build
-
-    lib = _build.library()
-    with torch.cuda.device(source.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.kss_field_ave(rotated.data_ptr(), weight.data_ptr(), target.data_ptr(),
-                                 target_mask.data_ptr(), c_n, p_n, t_n, partial.data_ptr(),
-                                 sums.data_ptr(), stream)
-    _build.check(code, "field_ave")
-    field_ave.launches += 1
+    sums = field_ave_sums(rotated, weight, target, target_mask, field_plan(source.shape[0]))
     return sums / weight.sum().clamp_min(1.0)
 
 
@@ -143,6 +171,26 @@ def field_dot_plain(source, source_mask, target, target_mask, rotations, precisi
     return masked_mean(torch.sqrt((m + q2).clamp_min(0.0)), source_mask)
 
 
+def field_dot_sums(rotated, q2, weight, ra, target_mask, bf16: bool, slots: int) -> torch.Tensor:
+    """One launch of the `field_dot` kernel with `slots` group slots on the
+    operands of `dot_operands` (contiguous, on one card) and the target
+    mask: the (C,) sums. The sums' bits do not depend on `slots`. Counts the
+    launch in `field_dot.launches`."""
+    from kss_icp_torch import _build
+
+    c_n, p_n = rotated.shape[:2]
+    partial, sums = _scratch(c_n, p_n, rotated.device)
+    lib = _build.library()
+    with torch.cuda.device(rotated.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.kss_field_dot(rotated.data_ptr(), q2.data_ptr(), weight.data_ptr(), ra.data_ptr(),
+                                 target_mask.data_ptr(), c_n, p_n, ra.shape[0], int(bf16), slots, partial.data_ptr(),
+                                 sums.data_ptr(), stream)
+    _build.check(code, "field_dot")
+    field_dot.launches += 1
+    return sums
+
+
 def field_dot(
     source: torch.Tensor,
     source_mask: torch.Tensor,
@@ -162,21 +210,8 @@ def field_dot(
     bf16 = _dot_precision(precision)
     if _use_plain("field_dot", source, source_mask, target, target_mask, rotations):
         return field_dot_plain(source, source_mask, target, target_mask, rotations, precision)
-    c_n, p_n, t_n = rotations.shape[0], source.shape[0], target.shape[0]
     rotated, q2, weight, ra = dot_operands(source, source_mask, target, target_mask, rotations)
-    nblk = (p_n + _THREADS - 1) // _THREADS
-    partial = torch.empty((c_n, nblk), dtype=torch.float32, device=source.device)
-    sums = torch.empty((c_n,), dtype=torch.float32, device=source.device)
-    from kss_icp_torch import _build
-
-    lib = _build.library()
-    with torch.cuda.device(source.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.kss_field_dot(rotated.data_ptr(), q2.data_ptr(), weight.data_ptr(),
-                                 ra.data_ptr(), c_n, p_n, t_n, int(bf16), partial.data_ptr(),
-                                 sums.data_ptr(), stream)
-    _build.check(code, "field_dot")
-    field_dot.launches += 1
+    sums = field_dot_sums(rotated, q2, weight, ra, target_mask, bf16, field_plan(source.shape[0]))
     return sums / weight.sum().clamp_min(1.0)
 
 

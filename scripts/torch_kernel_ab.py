@@ -1,27 +1,40 @@
 #!/usr/bin/env python3
-"""Old against new `nn1` and `fps` kernels, in turns, on one CUDA card.
+"""Old against new kernels, in turns, on one CUDA card.
 
     python3 scripts/torch_kernel_ab.py --old DIR [--reps N] [--sass] [--sweep] [--out DIR]
 
-DIR holds older `nn.cu` and `fps.cu` sources with the C interface they had
-before the launch plans (kss_nn1 without the plan arguments, kss_fps without
-steps and plan). They are built with the package's nvcc flags into a second
-ctypes library under `kss_icp_torch/_build/ab_old/`; the package's own
-sources are built as usual. At each of the main path's shapes the script
-checks that both give the same bits, then times the two C entry points on
-preallocated outputs in turns, old, new, new, old: each turn is the mean
-device time of --reps launches replayed from one CUDA graph (the kernel's
-own time; a launch of the small shapes takes less than the host's cost of
-a call). It also times the new wrapper called back to back, which is what
-the ICP loop pays, and prints one line per shape.
+DIR holds older kernel sources, any of: `nn.cu` and `fps.cu` with the C
+interface they had before their launch plans (kss_nn1 without the plan
+arguments, kss_fps without steps and plan); `field.cu` and `field_dot.cu`
+with the interface they had before theirs (kss_field_ave and kss_field_dot
+without the target mask's compaction and the plan). They are built with the
+package's nvcc flags into a second ctypes library under
+`kss_icp_torch/_build/ab_old/`; the package's own sources are built as
+usual. For each kernel whose old source DIR holds, at each of the main
+path's shapes, the script checks that old and new give the same bits, then
+times the two C entry points on preallocated outputs in turns, old, new,
+new, old: each turn is the mean device time of --reps launches replayed
+from one CUDA graph (the kernel's own time; a launch of the small shapes
+takes less than the host's cost of a call). It also times the new wrapper
+called back to back, which is what the main path pays, and prints one line
+per shape. The fields run at the 8³ grid's padded clouds (512 x 2048 x
+2048) with all rows valid and with both clouds suffix-masked to the
+largest, median and smallest remesh pair's pnumber (1534, 1070, 378), at
+the 16³ grid (4096 x 512 x 512), mostly valid, and at the bench config's
+512-point prefixes on the 8³ grid (512 x 512 x 512), all valid and with
+the smallest pair's 378; field_dot at "highest" and "default".
 The card's name, power limit and maximum SM clock come first; one JSON
 object with every number is the last line, and is also written to
 torch_kernel_ab.json in --out (default _scratch/kernel_ab/, gitignored).
 --sass also writes the new library's SASS (cuobjdump) there as
-torch_kernels.sass. --sweep also times every launch plan the new C entry
+torch_kernels.sass, and sets beside each field shape the new kernel's issue
+floor: its inner loop's instructions an evaluation, from the SASS, times
+the evaluations on valid rows, over the card's 4 x SMs schedulers at the
+maximum SM clock. --sweep also times every launch plan the new C entry
 points take at those shapes (nn1: each cluster size; fps: each
-points-a-thread count), beside the plan the wrappers pick, and writes them
-there as torch_kernel_sweep.json.
+points-a-thread count; the fields: each group-slots count), beside the
+plan the wrappers pick, and writes
+them there as torch_kernel_sweep.json.
 
 Imports nothing of JAX and nothing of kss_icp_tpu.
 """
@@ -31,6 +44,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -42,15 +56,22 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from kss_icp_torch import _build  # noqa: E402
+from kss_icp_torch.core.transforms import euler_xyz_matrix  # noqa: E402
+from kss_icp_torch.models.coarse import rotation_grid  # noqa: E402
+from kss_icp_torch.ops.coarse_cuda import (FIELD_GROUP, FIELD_SLOTS, dot_operands, field_ave, field_dot,  # noqa: E402
+                                           field_plan)
 from kss_icp_torch.ops.nn_cuda import nn1, nn1_plan, sm_count  # noqa: E402
 from kss_icp_torch.ops.resample import fps_centroid  # noqa: E402
 from kss_icp_torch.ops.resample_cuda import MAX_THREADS, fps, fps_plan  # noqa: E402
 from kss_icp_torch.timing import graph_ms, time_ms  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# old source -> (C entry point, its argtypes)
 OLD_SIGNATURES = {
-    "kss_nn1": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "kss_fps": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "nn.cu": ("kss_nn1", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
+    "fps.cu": ("kss_fps", (_P, _P, _P, _I, _I, _I, _P, _P, _P)),
+    "field.cu": ("kss_field_ave", (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P)),
+    "field_dot.cu": ("kss_field_dot", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
 }
 # (L, Q, R, label): the ICP screen, the escalation screen, the refine lanes
 # (4, the two-tier 2 and the final 1), the metric at the largest and the
@@ -64,6 +85,13 @@ NN1_SHAPES = [(32, 512, 2048, "screen"), (16, 512, 2048, "escalation screen"), (
 # table's shape.
 FPS_SHAPES = [(1, 3072, 2048, 1534, "remesh source"), (1, 8192, 2048, 1534, "remesh target"),
               (2, 8192, 2048, 2048, "table shape")]
+# (grid steps, padded P = T, valid rows of both clouds, label); None: the
+# smoke run's masks, n - n // 40 source and n - n // 20 target rows.
+FIELD_SHAPES = [(8, 2048, 2048, "8³ grid, all valid"), (8, 2048, 1534, "8³ grid, largest remesh pair"),
+                (8, 2048, 1070, "8³ grid, median remesh pair"), (8, 2048, 378, "8³ grid, smallest remesh pair"),
+                (16, 512, None, "16³ grid, mostly valid"), (8, 512, 512, "8³ grid, bench prefixes"),
+                (8, 512, 378, "8³ grid, bench prefixes, smallest remesh pair")]
+FIELD_VARIANTS = [("field_ave", None), ("field_dot", "highest"), ("field_dot", "default")]
 
 
 def cloud(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -78,14 +106,19 @@ def smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def load_old(old_dir: Path) -> ctypes.CDLL:
+def load_old(old_dir: Path) -> tuple:
+    """(the old library, the sources of OLD_SIGNATURES that DIR holds)."""
+    present = sorted(name for name in OLD_SIGNATURES if (old_dir / name).exists())
+    if not present:
+        raise SystemExit(f"{old_dir} holds none of {sorted(OLD_SIGNATURES)}")
     path, log, seconds = _build.build(csrc=old_dir, out=_build.BUILD / "ab_old")
-    print(f"old library {path.name} built in {seconds:.2f} s", flush=True)
+    print(f"old library {path.name} ({', '.join(present)}) built in {seconds:.2f} s", flush=True)
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in OLD_SIGNATURES.items():
+    for src in present:
+        name, argtypes = OLD_SIGNATURES[src]
         getattr(lib, name).argtypes = list(argtypes)
         getattr(lib, name).restype = ctypes.c_int
-    return lib
+    return lib, present
 
 
 def _stream() -> int:
@@ -132,6 +165,51 @@ def fps_calls(old, points, mask, s, steps):
         _check(new.kss_fps(*head, k, plan.k, plan.threads, work.data_ptr(), outs[1].data_ptr(), _stream()),
                "kss_fps")
     return run_old, run_new, outs
+
+
+def field_inputs(rng, dev, steps: int, n: int, valid):
+    """(source, source mask, target, target mask, rotations) of one field shape."""
+    src, tgt = (torch.as_tensor(cloud(rng, n), device=dev) for _ in range(2))
+    rows = torch.arange(n, device=dev)
+    smask, tmask = (rows < n - n // 40, rows < n - n // 20) if valid is None else (rows < valid, rows < valid)
+    return src, smask, tgt, tmask, euler_xyz_matrix(rotation_grid(steps, 6.3, dev))
+
+
+def field_calls(old, name, precision, args, slots=None):
+    """(old call, new call, outputs, operands): both C entry points on the
+    wrapper's operands and preallocated outputs; the new one with `slots`
+    group slots (default: the wrapper's plan). The caller keeps the
+    operands alive while it runs the calls."""
+    src, smask, tgt, tmask, rots = args
+    operands = rotated, q2, weight, ra = dot_operands(*args)
+    c_n, p_n, t_n = rotated.shape[0], src.shape[0], tgt.shape[0]
+    groups = -(-p_n // FIELD_GROUP)
+    outs = [(torch.empty((c_n, groups), dtype=torch.float32, device=src.device),
+             torch.empty((c_n,), dtype=torch.float32, device=src.device)) for _ in range(2)]
+    slots = slots or field_plan(p_n)
+    new = _build.library()
+    bf16 = int(precision == "default")
+
+    def ptrs(k):
+        return outs[k][0].data_ptr(), outs[k][1].data_ptr(), _stream()
+
+    if name == "field_ave":
+        head = (rotated.data_ptr(), weight.data_ptr(), tgt.data_ptr(), tmask.data_ptr(), c_n, p_n, t_n)
+
+        def run_old():
+            _check(old.kss_field_ave(*head, *ptrs(0)), "old kss_field_ave")
+
+        def run_new():
+            _check(new.kss_field_ave(*head, slots, *ptrs(1)), "kss_field_ave")
+    else:
+        head = (rotated.data_ptr(), q2.data_ptr(), weight.data_ptr(), ra.data_ptr())
+
+        def run_old():
+            _check(old.kss_field_dot(*head, c_n, p_n, t_n, bf16, *ptrs(0)), "old kss_field_dot")
+
+        def run_new():
+            _check(new.kss_field_dot(*head, tmask.data_ptr(), c_n, p_n, t_n, bf16, slots, *ptrs(1)), "kss_field_dot")
+    return run_old, run_new, [o[1] for o in outs], operands
 
 
 def in_turns(old, new, reps: int) -> dict:
@@ -183,38 +261,26 @@ def sweep(dev, reps: int) -> dict:
                               "chosen": fps_plan(p_n)._asdict(), "plans": rows})
         print(f"sweep fps {b_n}x{p_n} steps {steps} ({label}): chosen {fps_plan(p_n)}; " +
               "; ".join(f"k {r['k']} x {r['threads']} {r['ms']:.4f}" for r in rows), flush=True)
+    result["fields"] = []
+    for steps, n, valid, label in FIELD_SHAPES:
+        args = field_inputs(rng, dev, steps, n, valid)
+        c_n = args[4].shape[0]
+        for name, precision in FIELD_VARIANTS[:2]:
+            rows = []
+            for slots in [s for s in FIELD_SLOTS if s <= -(-n // FIELD_GROUP)]:
+                _, run, _, operands = field_calls(None, name, precision, args, slots)
+                rows.append({"slots": slots, "ms": graph_ms(run, max(3, reps // 5))})
+                del operands
+            chosen = field_plan(n)
+            result["fields"].append({"kernel": name, "precision": precision, "shape": f"{c_n}x{n}x{n}",
+                                     "valid": valid, "label": label, "chosen": chosen, "plans": rows})
+            print(f"sweep {name} {c_n}x{n}x{n} ({label}): chosen slots {chosen}; " +
+                  "; ".join(f"slots {r['slots']} {r['ms']:.4f} ms" for r in rows), flush=True)
     return result
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--old", type=Path, required=True, help="directory of the older nn.cu and fps.cu")
-    ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--sass", action="store_true", help="write the new library's SASS to --out")
-    ap.add_argument("--out", type=Path, default=REPO / "_scratch" / "kernel_ab", help="directory for the files")
-    ap.add_argument("--sweep", action="store_true", help="also time every launch plan at the main path's shapes")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_kernel_ab: needs a CUDA card", file=sys.stderr)
-        return 1
-    card = smi("name,power.limit")
-    print(card, f"max SM clock {smi('clocks.max.sm')}", flush=True)
-    dev = torch.device("cuda", 0)
-    old = load_old(args.old)
-    path, nvcc_out, seconds = _build.build()
-    print(f"new library {path.name} built in {seconds:.2f} s", flush=True)
-    for line in nvcc_out.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print("  " + line.strip(), flush=True)
-    out_dir = args.out
-    out_dir.mkdir(parents=True, exist_ok=True)
-    if args.sass:
-        sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(path)],
-                              capture_output=True, text=True, timeout=300)
-        (out_dir / "torch_kernels.sass").write_text(sass.stdout + sass.stderr)
-    rng = np.random.default_rng(0)
-    result = {"card": card, "nn1": [], "fps": []}
-
+def ab_nn1(old, dev, rng, reps: int) -> list:
+    rows = []
     for lanes, q_n, r_n, label in NN1_SHAPES:
         query = torch.as_tensor(np.stack([cloud(rng, q_n) for _ in range(lanes)]), device=dev)
         ref = torch.as_tensor(cloud(rng, r_n)[None], device=dev)
@@ -227,15 +293,19 @@ def main() -> int:
         wrapped = nn1(query, ref, mask, lane_ref)
         torch.cuda.synchronize()
         same = all(torch.equal(o, n) and torch.equal(o, w) for o, n, w in zip(outs[0], outs[1], wrapped))
-        reps = max(3, min(args.reps, int(2e10 // (lanes * q_n * r_n))))
-        row = dict(in_turns(run_old, run_new, reps), shape=f"{lanes}x{q_n}x{r_n}", label=label, same_bits=same,
-                   reps=reps, plan=nn1_plan(lanes, q_n, r_n, sm_count(dev.index))._asdict())
-        row["wrapper_ms"] = time_ms(lambda: nn1(query, ref, mask, lane_ref), reps)
-        result["nn1"].append(row)
+        n = max(3, min(reps, int(2e10 // (lanes * q_n * r_n))))
+        row = dict(in_turns(run_old, run_new, n), shape=f"{lanes}x{q_n}x{r_n}", label=label, same_bits=same,
+                   reps=n, plan=nn1_plan(lanes, q_n, r_n, sm_count(dev.index))._asdict())
+        row["wrapper_ms"] = time_ms(lambda: nn1(query, ref, mask, lane_ref), n)
+        rows.append(row)
         print(f"nn1 {row['shape']} ({label}): device old {row['old_ms']:.4f} ms, new {row['new_ms']:.4f} ms "
               f"({row['old_ms'] / row['new_ms']:.2f}x); new wrapper back to back {row['wrapper_ms']:.4f} ms; "
               f"same bits {same}, plan {row['plan']}", flush=True)
+    return rows
 
+
+def ab_fps(old, dev, rng, reps: int) -> list:
+    rows = []
     for b_n, p_n, s, steps, label in FPS_SHAPES:
         pts = torch.as_tensor(np.stack([cloud(rng, p_n) for _ in range(b_n)]), device=dev)
         mask = torch.ones((b_n, p_n), dtype=torch.bool, device=dev)
@@ -249,24 +319,131 @@ def main() -> int:
         torch.cuda.synchronize()
         same = bool(torch.equal(outs[0], i_full) and torch.equal(outs[1], i_new)
                     and torch.equal(outs[0][:, :steps], i_new[:, :steps]) and not i_new[:, steps:].any())
-        reps = max(3, args.reps // 5)
-        row = dict(in_turns(run_old, run_new, reps), shape=f"{b_n}x{p_n}->{s}", steps=steps, label=label,
-                   same_bits=same, reps=reps, plan=fps_plan(p_n)._asdict())
+        n = max(3, reps // 5)
+        row = dict(in_turns(run_old, run_new, n), shape=f"{b_n}x{p_n}->{s}", steps=steps, label=label,
+                   same_bits=same, reps=n, plan=fps_plan(p_n)._asdict())
         # All S picks in both, to split the kernel's gain from the steps cut's.
-        row["new_all_steps_ms"] = graph_ms(lambda: run_new(s), reps)
+        row["new_all_steps_ms"] = graph_ms(lambda: run_new(s), n)
         row["us_per_step"] = row["new_all_steps_ms"] * 1e3 / s
         row["old_us_per_step"] = row["old_ms"] * 1e3 / s
-        row["wrapper_ms"] = time_ms(lambda: fps(pts, mask, s, steps), reps)
-        result["fps"].append(row)
+        row["wrapper_ms"] = time_ms(lambda: fps(pts, mask, s, steps), n)
+        rows.append(row)
         print(f"fps {row['shape']} steps {steps} ({label}): device old {row['old_ms']:.4f} ms, new "
               f"{row['new_ms']:.4f} ms ({row['old_ms'] / row['new_ms']:.2f}x); all {s} steps "
               f"{row['new_all_steps_ms']:.4f} ms ({row['us_per_step']:.3f} us a step, old "
               f"{row['old_us_per_step']:.3f}); new wrapper {row['wrapper_ms']:.4f} ms; same bits {same}, "
               f"plan {row['plan']}", flush=True)
+    return rows
+
+
+def field_loop_instructions(sass: str) -> dict:
+    """{mode: SASS instructions an evaluation} of each field kernel's
+    inner loop (mode 0 field_ave, 1 field_dot, 2 field_dot in bf16): of the
+    loops (a backward branch) that read staged rows (LDS.128) and multiply,
+    with at least 4 FMNMX, one an evaluation, the one with the fewest
+    instructions per FMNMX: the scan of valid rows."""
+    result = {}
+    for func in sass.split("Function : ")[1:]:
+        name = re.match(r"\S*field_partial_kernelILi(\d)EE", func)
+        if not name:
+            continue
+        ins = [(int(a, 16), t) for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        rates = []
+        for i, (a, t) in enumerate(ins):
+            back = re.search(r"BRA (0x[0-9a-f]+)", t)
+            if back and int(back.group(1), 16) < a and int(back.group(1), 16) in at:
+                body = [x for _, x in ins[at[int(back.group(1), 16)]:i + 1]]
+                mins = sum("FMNMX" in x for x in body)
+                if mins >= 4 and any("LDS.128" in x for x in body) and any("FMUL" in x for x in body):
+                    rates.append(len(body) / mins)
+        if rates:
+            result[int(name.group(1))] = min(rates)
+    return result
+
+
+def ab_field(old, name, dev, rng, reps: int, loops: dict, clock_hz: float) -> list:
+    """Old and new field kernels at FIELD_SHAPES: bits, then device times in
+    turns, beside the new kernel's issue floor where `loops` has its inner
+    loop: the evaluations on valid rows times its instructions an evaluation,
+    over 32 lanes and the card's 4 schedulers an SM at `clock_hz`."""
+    rows = []
+    wrapper = field_ave if name == "field_ave" else field_dot
+    for steps, n, valid, label in FIELD_SHAPES:
+        args = field_inputs(rng, dev, steps, n, valid)
+        c_n = args[4].shape[0]
+        for precision in [p for k, p in FIELD_VARIANTS if k == name]:
+            kw = {} if precision is None else {"precision": precision}
+            run_old, run_new, sums, operands = field_calls(old, name, precision, args)
+            weight = operands[2]
+            run_old()
+            run_new()
+            wrapped = wrapper(*args, **kw)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(sums[0], sums[1]) and torch.equal(wrapped, sums[1] / weight.sum().clamp_min(1.0)))
+            m = max(3, reps // 2)
+            row = dict(in_turns(run_old, run_new, m), shape=f"{c_n}x{n}x{n}", valid=valid, label=label,
+                       precision=precision, same_bits=same, reps=m,
+                       slots=field_plan(n))
+            row["wrapper_ms"] = time_ms(lambda: wrapper(*args, **kw), m)
+            row["wrapper_device_ms"] = graph_ms(lambda: wrapper(*args, **kw), m)
+            ipe = loops.get({"field_ave": 0, "highest": 1, "default": 2}[precision or name])
+            floor = ""
+            if ipe is not None:
+                evals = c_n * int(args[1].sum()) * int(args[3].sum())
+                row["instructions_an_evaluation"] = ipe
+                row["issue_floor_ms"] = evals * ipe / 32 / (sm_count(dev.index) * 4 * clock_hz) * 1e3
+                floor = f"; issue floor {row['issue_floor_ms']:.4f} ms ({ipe:.4f} instructions an evaluation)"
+            rows.append(row)
+            print(f"{name}{'' if precision is None else ' ' + precision} {row['shape']} ({label}): device old "
+                  f"{row['old_ms']:.4f} ms, new {row['new_ms']:.4f} ms ({row['old_ms'] / row['new_ms']:.2f}x); "
+                  f"new wrapper {row['wrapper_ms']:.4f} ms back to back, {row['wrapper_device_ms']:.4f} ms on the "
+                  f"device; same bits {same}, slots {row['slots']}{floor}", flush=True)
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--old", type=Path, required=True,
+                    help="directory of older kernel sources: nn.cu, fps.cu, field.cu, field_dot.cu, any of them")
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--sass", action="store_true", help="write the new library's SASS to --out")
+    ap.add_argument("--out", type=Path, default=REPO / "_scratch" / "kernel_ab", help="directory for the files")
+    ap.add_argument("--sweep", action="store_true", help="also time every launch plan at the main path's shapes")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    card = smi("name,power.limit")
+    clock = smi("clocks.max.sm")
+    print(card, f"max SM clock {clock}", flush=True)
+    dev = torch.device("cuda", 0)
+    old, present = load_old(args.old)
+    path, nvcc_out, seconds = _build.build()
+    print(f"new library {path.name} built in {seconds:.2f} s", flush=True)
+    for line in nvcc_out.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            print("  " + line.strip(), flush=True)
+    out_dir = args.out
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if args.sass:
+        sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(path)],
+                              capture_output=True, text=True, timeout=300)
+        (out_dir / "torch_kernels.sass").write_text(sass.stdout + sass.stderr)
+    loops = field_loop_instructions(sass.stdout) if args.sass else {}
+    rng = np.random.default_rng(0)
+    result = {"card": card, "nn1": [], "fps": [], "field_ave": [], "field_dot": []}
+    if "nn.cu" in present:
+        result["nn1"] = ab_nn1(old, dev, rng, args.reps)
+    if "fps.cu" in present:
+        result["fps"] = ab_fps(old, dev, rng, args.reps)
+    for src, name in (("field.cu", "field_ave"), ("field_dot.cu", "field_dot")):
+        if src in present:
+            result[name] = ab_field(old, name, dev, rng, args.reps, loops, float(clock.split()[0]) * 1e6)
 
     if args.sweep:
         (out_dir / "torch_kernel_sweep.json").write_text(json.dumps(sweep(dev, args.reps), indent=1))
-    ok = all(r["same_bits"] for r in result["nn1"] + result["fps"])
+    ok = all(r["same_bits"] for k in ("nn1", "fps", "field_ave", "field_dot") for r in result[k])
     result["ok"] = ok
     (out_dir / "torch_kernel_ab.json").write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)

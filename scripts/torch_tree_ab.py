@@ -9,10 +9,12 @@ commit unpacked with `git archive` into a gitignored directory such as
 _scratch/); --new defaults to this checkout. Each turn is a process of its
 own that imports `kss_icp_torch` from one checkout, builds that checkout's
 kernels there (at first use) and, after a warm-up pair:
-  - times its `nn1` and `fps` wrappers called back to back (CUDA events, the
-    host's cost of each call included), called as the main path calls them,
-    `nn1(query, ref, mask)` and `fps(points, mask, S)`, at the screen,
-    refine, metric and K4 shapes and at B=2, 8192 -> 2048;
+  - times its `nn1`, `fps` and `field_ave` wrappers called back to back
+    (CUDA events, the host's cost of each call included), called as the main
+    path calls them, `nn1(query, ref, mask)` at the screen, refine, metric
+    and K4 shapes, `fps(points, mask, S)` at B=2, 8192 -> 2048, and
+    `field_ave` on the 8³ grid at register_pair's padded clouds (512 x 2048
+    x 2048, both suffix-masked to the median remesh pair's 1070 rows);
   - drives the esc-default pass (DEFAULT_CONFIG with overlap_escalate=False)
     over the 25 remesh pairs through register_pair -> apply_similarity ->
     registration_measure, --passes times without stage syncs (pairs/s) and
@@ -20,7 +22,9 @@ kernels there (at first use) and, after a warm-up pair:
     holds every pair's RMSE to the JAX CPU value + 0.006
     (fixtures/torch_port_expected_escalation.json).
 The turns run old, new, new, old, --rounds times. The card's name and power
-limit come first, then one line per turn and the means of each checkout;
+limit come first, then one line per turn and, for each checkout, the means
+of the wrapper times and the medians of the passes' seconds and stage
+seconds with their interquartile range;
 one JSON object with every number is the last line, and is also written to
 torch_tree_ab.json in --out (default _scratch/tree_ab/, gitignored). Exits
 1 if a pair of either checkout is outside its band.
@@ -47,6 +51,7 @@ REPO = Path(__file__).resolve().parents[1]
 RMSE_BAND = 0.006
 NN1_SHAPES = [(32, 512, 2048), (4, 2048, 2048), (1, 3072, 8192), (1, 65536, 65536)]
 FPS_SHAPE = (2, 8192, 2048)
+FIELD_SHAPE = (8, 2048, 1070)  # grid steps, padded P = T, valid rows of both clouds
 
 
 def cloud(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -64,6 +69,9 @@ def worker(tree: Path, passes: int) -> dict:
     import kss_icp_torch as kt
     from kss_icp_torch import _build
     from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.core.transforms import euler_xyz_matrix
+    from kss_icp_torch.models.coarse import rotation_grid
+    from kss_icp_torch.ops.coarse_cuda import field_ave
     from kss_icp_torch.ops.nn_cuda import nn1
     from kss_icp_torch.ops.resample_cuda import fps
 
@@ -91,6 +99,11 @@ def worker(tree: Path, passes: int) -> dict:
     pmask[0, 8000:] = False
     pmask[1, 6201:] = False
     fps_ms = {f"{b_n}x{p_n}->{s}": timing.time_ms(lambda: fps(pts, pmask, s), 20)}
+    steps, n, valid = FIELD_SHAPE
+    fargs = (torch.as_tensor(cloud(rng, n), device=dev), torch.arange(n, device=dev) < valid,
+             torch.as_tensor(cloud(rng, n), device=dev), torch.arange(n, device=dev) < valid,
+             euler_xyz_matrix(rotation_grid(steps, 6.3, dev)))
+    field_ms = {f"{steps ** 3}x{n}x{n}, {valid} valid": timing.time_ms(lambda: field_ave(*fargs), 20)}
 
     meta = json.loads((tree / "fixtures" / "remesh_transfer.json").read_text())
     with np.load(tree / "fixtures" / "remesh_transfer.npz") as z:
@@ -130,7 +143,7 @@ def worker(tree: Path, passes: int) -> dict:
         return {"seconds": total, "pairs_per_s": len(pairs) / total, "outside": outside,
                 "launches": {"nn1": nn1.launches, "fps": fps.launches}, "stage_seconds": dict(stages)}
 
-    return {"build_s": build_s, "nn1_ms": nn1_ms, "fps_ms": fps_ms,
+    return {"build_s": build_s, "nn1_ms": nn1_ms, "fps_ms": fps_ms, "field_ms": field_ms,
             "unsynced": [one_pass(False) for _ in range(passes)],
             "synced": [one_pass(True) for _ in range(passes)]}
 
@@ -148,18 +161,28 @@ def mean(values) -> float:
     return sum(values) / len(values)
 
 
+def quartiles(values) -> list:
+    """[first quartile, median, third quartile]."""
+    return [float(q) for q in np.percentile(list(values), [25, 50, 75])]
+
+
 def summary(turns: list) -> dict:
-    """Means over a checkout's turns (and over the passes of each turn)."""
+    """Means over a checkout's turns (and over the passes of each turn), and
+    the quartiles of the passes' seconds."""
     unsynced = [p for t in turns for p in t["unsynced"]]
     synced = [p for t in turns for p in t["synced"]]
     stages = sorted({k for p in synced for k in p["stage_seconds"]})
     return {
         "nn1_ms": {k: mean(t["nn1_ms"][k] for t in turns) for k in turns[0]["nn1_ms"]},
         "fps_ms": {k: mean(t["fps_ms"][k] for t in turns) for k in turns[0]["fps_ms"]},
+        "field_ms": {k: mean(t["field_ms"][k] for t in turns) for k in turns[0]["field_ms"]},
         "unsynced_seconds": mean(p["seconds"] for p in unsynced),
         "pairs_per_s": mean(p["pairs_per_s"] for p in unsynced),
         "synced_seconds": mean(p["seconds"] for p in synced),
         "stage_seconds": {k: mean(p["stage_seconds"].get(k, 0.0) for p in synced) for k in stages},
+        "unsynced_seconds_quartiles": quartiles(p["seconds"] for p in unsynced),
+        "synced_seconds_quartiles": quartiles(p["seconds"] for p in synced),
+        "stage_seconds_quartiles": {k: quartiles(p["stage_seconds"].get(k, 0.0) for p in synced) for k in stages},
         "launches": synced[0]["launches"],
         "outside": sorted({n for p in unsynced + synced for n in p["outside"]}),
     }
@@ -167,6 +190,11 @@ def summary(turns: list) -> dict:
 
 def fmt(d: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" for k, v in d.items())
+
+
+def fmt_q(q: list) -> str:
+    """A median with its interquartile range in brackets."""
+    return f"{q[1]:.4f} ({q[0]:.4f}-{q[2]:.4f})"
 
 
 def main() -> int:
@@ -198,15 +226,19 @@ def main() -> int:
             t = run_turn(trees[which], args.passes)
             turns[which].append(t)
             print(f"[{which}] build {t['build_s']:.2f} s; nn1 wrapper ms {fmt(t['nn1_ms'])}; fps wrapper ms "
-                  f"{fmt(t['fps_ms'])}; unsynced pass s " + ", ".join(f"{p['seconds']:.4f}" for p in t["unsynced"])
+                  f"{fmt(t['fps_ms'])}; field_ave wrapper ms {fmt(t['field_ms'])}; unsynced pass s "
+                  + ", ".join(f"{p['seconds']:.4f}" for p in t["unsynced"])
                   + "; synced pass s " + ", ".join(f"{p['seconds']:.4f}" for p in t["synced"]), flush=True)
     result = {"card": card, "trees": {k: str(v) for k, v in trees.items()}, "turns": turns,
               "summary": {k: summary(v) for k, v in turns.items()}}
     for which, s in result["summary"].items():
-        print(f"[{which} mean] nn1 wrapper ms {fmt(s['nn1_ms'])}; fps wrapper ms {fmt(s['fps_ms'])}; "
-              f"unsynced pass {s['unsynced_seconds']:.4f} s ({s['pairs_per_s']:.3f} pairs/s); synced pass "
-              f"{s['synced_seconds']:.4f} s, stages {fmt(s['stage_seconds'])}; launches {s['launches']}; "
-              f"pairs outside the band {s['outside']}", flush=True)
+        print(f"[{which} mean] nn1 wrapper ms {fmt(s['nn1_ms'])}; fps wrapper ms {fmt(s['fps_ms'])}; field_ave "
+              f"wrapper ms {fmt(s['field_ms'])}; unsynced pass {s['unsynced_seconds']:.4f} s ({s['pairs_per_s']:.3f} "
+              f"pairs/s); synced pass {s['synced_seconds']:.4f} s, stages {fmt(s['stage_seconds'])}; launches "
+              f"{s['launches']}; pairs outside the band {s['outside']}", flush=True)
+        print(f"[{which} quartiles] unsynced pass s {fmt_q(s['unsynced_seconds_quartiles'])}; synced pass s "
+              f"{fmt_q(s['synced_seconds_quartiles'])}; stages " + ", ".join(
+                  f"{k} {fmt_q(v)}" for k, v in s["stage_seconds_quartiles"].items()), flush=True)
     result["ok"] = not any(s["outside"] for s in result["summary"].values())
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "torch_tree_ab.json").write_text(json.dumps(result, indent=1))

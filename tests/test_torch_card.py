@@ -281,6 +281,92 @@ def test_field_dot_kernel_matches_plain_at_width(cuda_device, precision):
     torch.testing.assert_close(got, field_dot_plain(src, smask, tgt, tmask, rots, precision), rtol=2e-5, atol=0.0)
 
 
+FIELD_VARIANTS = [("field_ave", None), ("field_dot", "highest"), ("field_dot", "high"), ("field_dot", "default")]
+# name -> (grid steps, P, T, valid source rows, valid target rows): an int is a
+# suffix mask (a padded cloud, as register_pair pads both to 2048), "scatter"
+# masks a random third of the rows. The remesh pairs' pnumber runs 378-1534.
+FIELD_CARD_CASES = {
+    "suffix 378": (8, 2048, 2048, 378, 378),
+    "suffix 1070": (8, 2048, 2048, 1070, 1070),
+    "suffix 1534": (8, 2048, 2048, 1534, 1534),
+    "scattered": (8, 2048, 2048, "scatter", "scatter"),
+    "target fully masked": (8, 2048, 2048, 2000, 0),
+    "source fully masked": (8, 2048, 2048, 0, 2000),
+    "T not a multiple of the tile": (8, 2048, 4173, 2000, 4100),
+    "C not a multiple of q": (9, 2048, 2048, 1534, 1534),
+    "16^3 grid": (16, 512, 512, 500, 490),
+    "8^3 grid, bench prefixes": (8, 512, 512, 378, 378),
+    "few rotations, small P, long T": (3, 200, 3000, 190, 2900),
+}
+
+
+def _field_kernel(name, precision):
+    if name == "field_ave":
+        return field_ave, field_ave_plain, {}
+    return field_dot, field_dot_plain, {"precision": precision}
+
+
+def _mask(rng, n, valid, device):
+    if valid == "scatter":
+        return _t(rng.uniform(size=n) < 2 / 3, device)
+    return torch.arange(n, device=device) < valid
+
+
+def _field_card_case(device, steps, p, t, s_valid, t_valid):
+    rng = np.random.default_rng(p + t + steps)
+    src, tgt = (_t(random_cloud(rng, n).astype(np.float32), device) for n in (p, t))
+    return src, _mask(rng, p, s_valid, device), tgt, _mask(rng, t, t_valid, device), euler_xyz_matrix(
+        coarse.rotation_grid(steps, 6.3, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, precision", FIELD_VARIANTS)
+@pytest.mark.parametrize("case", list(FIELD_CARD_CASES))
+def test_field_kernels_match_plain_on_padded_clouds(cuda_device, case, name, precision):
+    """Masked rows skipped, exactly: the kernel within rtol 2e-5 of the plain
+    version, the same bits on a second run and, for suffix masks, the bits of
+    the field of the valid prefix alone."""
+    kernel, plain, kw = _field_kernel(name, precision)
+    steps, p, t, s_valid, t_valid = FIELD_CARD_CASES[case]
+    args = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
+    before = kernel.launches
+    got = kernel(*args, **kw)
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(got, plain(*args, **kw), rtol=2e-5, atol=0.0)
+    assert torch.equal(got, kernel(*args, **kw))
+    assert kernel.launches == before + 2
+    if s_valid == 0:
+        assert not got.any()
+    if isinstance(s_valid, int) and isinstance(t_valid, int) and s_valid and t_valid:
+        src, smask, tgt, tmask, rots = args
+        prefix = kernel(src[:s_valid], smask[:s_valid], tgt[:t_valid], tmask[:t_valid], rots, **kw)
+        assert torch.equal(got, prefix)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["scattered", "target fully masked", "few rotations, small P, long T"])
+def test_field_kernels_give_the_same_bits_under_every_plan(cuda_device, case):
+    """Every group-slots count the C entry points take: the sums keep their
+    bits (the min is exact, the sum's tree fixed), and each launch is
+    counted."""
+    from kss_icp_torch.ops.coarse_cuda import FIELD_SLOTS, dot_operands, field_ave_sums, field_dot_sums
+
+    src, smask, tgt, tmask, rots = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
+    rotated, q2, weight, ra = dot_operands(src, smask, tgt, tmask, rots)
+    runs = {"ave": [], "dot": [], "dot bf16": []}
+    before = field_ave.launches, field_dot.launches
+    for slots in FIELD_SLOTS:
+        runs["ave"].append(field_ave_sums(rotated, weight, tgt, tmask, slots))
+        runs["dot"].append(field_dot_sums(rotated, q2, weight, ra, tmask, False, slots))
+        runs["dot bf16"].append(field_dot_sums(rotated, q2, weight, ra, tmask, True, slots))
+    plans = len(FIELD_SLOTS)
+    assert (field_ave.launches, field_dot.launches) == (before[0] + plans, before[1] + 2 * plans)
+    for key, sums in runs.items():
+        assert all(torch.equal(sums[0], s) for s in sums[1:]), key
+    torch.testing.assert_close(runs["ave"][0] / weight.sum(), field_ave_plain(src, smask, tgt, tmask, rots),
+                               rtol=2e-5, atol=0.0)
+
+
 @pytest.mark.cuda
 def test_icp_on_the_card_matches_cpu(cuda_device):
     rng = np.random.default_rng(3)

@@ -22,11 +22,14 @@ from kss_icp_tpu.ops.coarse_pallas import rotation_scores_pallas
 torch.set_num_threads(1)
 
 
-def _clouds(rng, p=130, t=100, steps=3, t_valid=None, s_valid=None):
+def _clouds(rng, p=130, t=100, steps=3, t_valid=None, s_valid=None, scatter=False):
     src = random_cloud(rng, p).astype(np.float32)
     tgt = random_cloud(rng, t).astype(np.float32)
     smask = np.ones((p,), bool)
     tmask = np.ones((t,), bool)
+    if scatter:  # a random third of each cloud's rows masked
+        smask = rng.uniform(size=p) < 2 / 3
+        tmask = rng.uniform(size=t) < 2 / 3
     if t_valid is not None:
         tmask[t_valid:] = False
     if s_valid is not None:
@@ -45,7 +48,11 @@ def _field_case(rng, method="vpu", precision="highest", **kw):
     return got.numpy(), np.asarray(want)
 
 
-FIELD_CASES = [{}, {"t_valid": 40}, {"p": 256, "t": 128, "steps": 2, "s_valid": 77}]
+# Fully valid; suffix masks (padded clouds, as register_pair pads both);
+# scattered masks; a fully masked target (the kernels' biased path) and source.
+FIELD_CASES = [{}, {"t_valid": 40}, {"p": 256, "t": 128, "steps": 2, "s_valid": 77},
+               {"p": 300, "t": 280, "s_valid": 150, "t_valid": 120}, {"scatter": True}, {"t_valid": 0},
+               {"s_valid": 0}]
 
 
 @pytest.mark.parametrize("kw", FIELD_CASES)
@@ -87,7 +94,10 @@ def test_field_dot_default_is_one_bf16_pass(rng, kw):
     want = _bf16_dot_field(src, smask, tgt, tmask, rots.numpy())
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
     exact = field_dot(*args, precision="highest").numpy()
-    assert np.abs(got - exact).max() > 1e-5 * np.abs(exact).max()  # the rounding is really there
+    if smask.any():
+        assert np.abs(got - exact).max() > 1e-5 * np.abs(exact).max()  # the rounding is really there
+    else:
+        assert not got.any() and not exact.any()  # a fully masked source scores 0 at any precision
 
 
 def test_field_dot_refuses_unknown_precision_and_method():

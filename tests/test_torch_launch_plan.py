@@ -1,14 +1,17 @@
-"""The launch plans of the `nn1` and `fps` kernels (ops/nn_cuda.py::nn1_plan,
-ops/resample_cuda.py::fps_plan), at the shapes the main path gives them.
+"""The launch plans of the `nn1`, `fps` and field kernels (ops/nn_cuda.py::
+nn1_plan, ops/resample_cuda.py::fps_plan, ops/coarse_cuda.py::field_plan), at
+the shapes the main path gives them.
 
 The kernels run only on the card; their plans are plain Python, so the
 partition of work they imply is checked here: every reference row falls in
 exactly one cluster slice, the cluster size is one the card takes, every
 query has a thread, and R is split until every SM has two blocks or the
-cluster is at its cap."""
+cluster is at its cap; every (rotation, source point) pair of a field is
+finished by exactly one block."""
 
 import pytest
 
+from kss_icp_torch.ops.coarse_cuda import FIELD_GROUP, FIELD_Q, FIELD_SLOTS, field_plan
 from kss_icp_torch.ops.nn_cuda import MAX_CLUSTER, MIN_SLICE, SMS, TILE_QUERIES, nn1_plan
 from kss_icp_torch.ops.resample_cuda import MAX_POINTS, MAX_THREADS, fps_plan
 
@@ -81,3 +84,54 @@ def test_fps_plan_covers_the_cloud(p_n):
         assert plan.k == 1 or p_n > plan.k // 2 * MAX_THREADS  # the fewest points a thread
     else:
         assert plan == (0, MAX_THREADS)
+
+
+# (C, P, label, slots): the 8³ and 16³ grids at the main path's padded clouds,
+# the bench config's 512-point prefixes, and small shapes of the tests.
+FIELD_SHAPES = [
+    (512, 2048, "8³ grid, padded clouds", 4),
+    (4096, 512, "16³ grid, 512-point prefixes", 2),
+    (512, 512, "8³ grid, bench prefixes", 2),
+    (729, 2048, "9³ grid: C not a multiple of q", 4),
+    (27, 2048, "3³ grid", 4),
+    (27, 200, "small P", 1),
+    (64, 256, "one group", 1),
+    (8, 150, "tests' tiny field", 1),
+    (2, 10, "two rotations", 1),
+    (1, 1, "one of each", 1),
+    (65535, 1, "the most rotations", 1),
+]
+
+
+def _field_cover(slots, c_n, p_n):
+    """The (rotation, point) pairs the kernels' blocks finish, as
+    csrc/field_kernel.cuh computes them: block b holds rotations b * 4 +
+    [0, 4) and walks the points in steps of `slots` groups of 256, a thread
+    a point."""
+    groups = -(-p_n // FIELD_GROUP)
+    finished = []
+    for b in range(-(-c_n // FIELD_Q)):
+        rotations = [c for c in range(b * FIELD_Q, (b + 1) * FIELD_Q) if c < c_n]
+        for g0 in range(0, groups, slots):
+            finished += [(c, p) for c in rotations for p in range(g0 * FIELD_GROUP, (g0 + slots) * FIELD_GROUP)
+                         if p < p_n]
+    return finished
+
+
+@pytest.mark.parametrize("c_n, p_n, label, expected", FIELD_SHAPES, ids=[s[2] for s in FIELD_SHAPES])
+def test_field_plan_partitions_the_work(c_n, p_n, label, expected):
+    slots = field_plan(p_n)
+    assert slots == expected
+    assert sorted(_field_cover(slots, c_n, p_n)) == [(c, p) for c in range(c_n) for p in range(p_n)]  # each once
+    # What kss_field_ave and kss_field_dot accept (csrc/field_kernel.cuh::
+    # launch_field), else they return cudaErrorInvalidValue.
+    assert slots in FIELD_SLOTS and c_n <= 65535
+    assert slots == 1 or slots * FIELD_GROUP < p_n + FIELD_GROUP  # no group slot left idle
+
+
+@pytest.mark.parametrize("p_n, slots", [(1, 1), (256, 1), (257, 2), (512, 2), (768, 2), (1024, 4), (2048, 4),
+                                        (8192, 4)])
+def test_field_plan_slots_follow_the_source(p_n, slots):
+    """As many group slots as the source has groups of 256 points, up to 4:
+    256 to 1024 threads a block."""
+    assert field_plan(p_n) == slots
