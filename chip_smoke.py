@@ -12,7 +12,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
   3. kernels: run each kernel and its plain PyTorch version on the card on
      the same inputs at the main path's shapes, compare them (nn1 and fps
      bit-identical: indices and d² equal; the fields within rtol 2e-5;
-     nn1 at the screen, escalation screen, refine, metric and K4 shapes;
+     nn1 at the screen, escalation screen, refine, metric and K4 shapes
+     and at the overlap screen rung's: 512 lanes x 512 x 2048, the forward
+     fitness 512 x 2048 x 2048 and the reverse one against 512 per-lane
+     references (lane_ref = arange);
      fps at B=2 x 8192 -> 2048 and at the largest remesh pair's padded
      source and target with steps = pnumber; field_ave, and field_dot at
      "highest" and "default", on the base grid C=512, P=T=2048 and the
@@ -25,7 +28,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      each kernel also by
      CUDA-graph replay (`device_ms`, the device's time of a call); each
      with its bound on the valid rows and a PyTorch composition as a
-     yardstick;
+     yardstick; field_trim (the per-point mode of the field kernel, the
+     overlap tier's trimmed field) bit for bit, per-point distances and
+     trimmed field, at 512 x 2048 x 2048 with ~70% scattered inlier masks on
+     both clouds, 4096 x 2048 x 2048 and a fully masked target;
   4. end to end on the 25 remesh pairs through register_pair ->
      apply_similarity -> registration_measure, every pair's RMSE within the
      JAX CPU value + 0.006:
@@ -36,13 +42,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
           (fixtures/torch_port_expected_escalation.json): pairs/s from a pass
           without stage syncs, stage seconds from a second pass with them,
           and how many pairs escalated, won and were finished, beside JAX;
-       c. the category, deform and scale boards (48 pairs) at DEFAULT_CONFIG,
-          escalation on: the pass/fail set by pose error must equal JAX's on
+       c. the category, deform and scale boards (48 pairs) as in b: the
+          pass/fail set by pose error must equal JAX's on
           the CPU, se/7 (the recorded cross-platform knife edge) excepted;
+       d. the unmodified DEFAULT_CONFIG, escalation and its overlap tier on
+          (fixtures/torch_port_expected_overlap.json): the remesh 25 within
+          JAX + 0.006, pairs/s unsynced and stage seconds synced (the rungs'
+          stages overlap8, overlap16, overlap_screen among them); then the
+          five boards (64 pairs, partial and partial_hard included): the
+          pass/fail set equal to JAX's, se/7 excepted, each pair's overlap
+          rungs (skipped, run, adopted) printed beside JAX's;
      every pass zeroes the kernels' launch counts before it and checks them
      after: nn1 and fps on every pass, field_ave on the "vpu" passes only,
-     field_dot on the dot pass only and on both of its grids; each pass
-     prints its histogram of nn1 launch shapes (L, Q, R);
+     field_dot on the dot pass only and on both of its grids, field_trim on
+     4d only, where an overlap rung must have run on the partial boards and
+     nn1 launched the screen rung's 512-lane solve; each pass prints its
+     histogram of nn1 launch shapes (L, Q, R);
   5. a measurement that gates nothing: on each remesh pair's 8³ field, does
      field_dot at "default" (one bf16 pass) keep candidate 0 and the top-6
      set of "highest" and of field_ave?
@@ -135,34 +150,51 @@ def phase_kernels(torch, dev) -> dict:
         return torch.as_tensor(x, device=dev)
 
     cases = []
-    for lanes, q_n, r_n, label in ((32, 512, 2048, "screen ICP"), (16, 512, 2048, "escalation screen ICP"),
-                                   (4, 2048, 2048, "refine ICP"), (1, 3072, 8192, "metric, largest remesh pair"),
-                                   (1, 65536, 65536, "K4 metric regime")):
+    # (lanes, queries, reference rows, reference clouds, label): G = lanes gives
+    # each lane its own cloud through lane_ref = arange, as the overlap screen's
+    # reverse fitness does.
+    for lanes, q_n, r_n, groups, label in (
+            (32, 512, 2048, 1, "screen ICP"), (16, 512, 2048, 1, "escalation screen ICP"),
+            (4, 2048, 2048, 1, "refine ICP"), (1, 3072, 8192, 1, "metric, largest remesh pair"),
+            (1, 65536, 65536, 1, "K4 metric regime"), (512, 512, 2048, 1, "overlap screen ICP"),
+            (512, 2048, 2048, 1, "overlap screen fitness, forward"),
+            (512, 2048, 2048, 512, "overlap screen fitness, reverse: per-lane references")):
         query = t(np.stack([cloud(rng, q_n) for _ in range(lanes)]))
-        ref = t(cloud(rng, r_n)[None])
-        mask = torch.ones((1, r_n), dtype=torch.bool, device=dev)
-        mask[0, r_n - r_n // 40:] = False  # a padded tail, as 2000 of 2048
-        d2k, ik = nn1(query, ref, mask)
-        d2p, ip = nn1_plain(query, ref, mask)
+        ref = t(np.stack([cloud(rng, r_n) for _ in range(groups)]))
+        mask = torch.ones((groups, r_n), dtype=torch.bool, device=dev)
+        mask[:, r_n - r_n // 40:] = False  # a padded tail, as 2000 of 2048
+        if groups > 1:
+            mask &= t(rng.uniform(size=(groups, r_n)) < 0.7)  # each lane its own inlier mask
+        lane_ref = torch.arange(lanes, dtype=torch.int32, device=dev) if groups > 1 else \
+            torch.zeros((lanes,), dtype=torch.int32, device=dev)
+        d2k, ik = nn1(query, ref, mask, lane_ref)
+        d2p, ip = nn1_plain(query, ref, mask, lane_ref)
         torch.cuda.synchronize()
         require(torch.equal(ik, ip), f"nn1 {label}: indices differ at {int((ik != ip).sum())} queries")
         require(torch.equal(d2k, d2p), f"nn1 {label}: d2 differs from the plain version's bits")
         err = float((d2k - d2p).abs().max())
-        reps = 3 if q_n * r_n > 1e9 else 20
-        lane_ref = torch.zeros((lanes,), dtype=torch.int32, device=dev)
-        ms = time_ms(lambda: nn1(query, ref, mask), reps)  # as the ICP loop calls it
+        reps = 3 if lanes * q_n * r_n > 1e9 else 20
+        call = (lambda: nn1(query, ref, mask)) if groups == 1 else (lambda: nn1(query, ref, mask, lane_ref))
+        ms = time_ms(call, reps)  # as the ICP loop calls it
         device_ms = graph_ms(lambda: nn1(query, ref, mask, lane_ref), reps)  # the kernel alone
-        plain_ms = time_ms(lambda: nn1_plain(query, ref, mask), reps)
-        valid = ref[0, mask[0]][None]
-        # 4096 queries a call keeps cdist's (Q, R) output at 1 GiB in the K4 regime.
-        yard_ms = time_ms(lambda: [torch.cdist(query[:, a:a + 4096], valid).min(-1)
-                                          for a in range(0, q_n, 4096)], reps)
+        plain_ms = time_ms(lambda: nn1_plain(query, ref, mask, lane_ref), reps)
+        if groups == 1:
+            valid = ref[0, mask[0]][None]
+            # 4096 queries a call keeps cdist's (Q, R) output at 1 GiB in the K4 regime.
+            yard_ms = time_ms(lambda: [torch.cdist(query[:, a:a + 4096], valid).min(-1)
+                                       for a in range(0, q_n, 4096)], reps)
+        else:  # masked rows at +inf, 64 lanes a call
+            far = torch.where(mask[..., None], ref, torch.full_like(ref, float("inf")))
+            yard_ms = time_ms(lambda: [torch.cdist(query[a:a + 64], far[a:a + 64]).min(-1)
+                                       for a in range(0, lanes, 64)], reps)
         # 3 sub + 3 mul + 2 add + 1 compare per query and valid reference row.
-        b = bound(9.0 * lanes * q_n * int(mask.sum()), 4 * (lanes * q_n * 3 + r_n * 3) + r_n + 8 * lanes * q_n)
-        cases.append(dict({"shape": f"{lanes}x{q_n}x{r_n}", "label": label, "ms": ms, "device_ms": device_ms,
-                           "plain_ms": plain_ms, "max_abs_err": err, "yardstick_ms": yard_ms}, **b))
-        log(f"  nn1 {lanes}x{q_n}x{r_n} ({label}): indices and d2 identical; kernel {ms:.4f} ms a wrapper call "
-            f"back to back, {device_ms:.4f} ms on the device (graph replay), plain {plain_ms:.4f} ms, "
+        evals = q_n * int(mask.sum()) * (lanes // groups)
+        b = bound(9.0 * evals, 4 * (lanes * q_n * 3 + groups * r_n * 3) + groups * r_n + 8 * lanes * q_n)
+        cases.append(dict({"shape": f"{lanes}x{q_n}x{r_n}" + (f" G={groups}" if groups > 1 else ""), "label": label,
+                           "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": err,
+                           "yardstick_ms": yard_ms}, **b))
+        log(f"  nn1 {lanes}x{q_n}x{r_n} G={groups} ({label}): indices and d2 identical; kernel {ms:.4f} ms a wrapper "
+            f"call back to back, {device_ms:.4f} ms on the device (graph replay), plain {plain_ms:.4f} ms, "
             f"cdist+min {yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     out["nn1"] = dict(cases[0], cases=cases, source="kss_icp_torch/csrc/nn.cu",
                       replaces="kss_icp_tpu/ops/nn_pallas.py:118",
@@ -278,7 +310,68 @@ def phase_kernels(torch, dev) -> dict:
                     f"{yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; valid rows only)")
         out[name] = dict(cases[0], cases=cases, yardstick=yard_label, source=f"kss_icp_torch/csrc/{src_file}",
                          replaces=f"kss_icp_tpu/ops/coarse_pallas.py:{line}")
+    out["field_trim"] = phase_field_trim(torch, dev, rng)
     return out
+
+
+def phase_field_trim(torch, dev, rng) -> dict:
+    """field_trim's per-point distances and trimmed field against the plain
+    version, bit for bit, at the overlap rungs' full-resolution shapes."""
+    from kss_icp_torch.core.transforms import euler_xyz_matrix
+    from kss_icp_torch.models.coarse import rotation_grid
+    from kss_icp_torch.ops.coarse_cuda import (field_plan, field_trim, field_trim_distances, field_trim_plain,
+                                               rotate_sources)
+    from kss_icp_torch.ops.nn import nn_distances
+    from kss_icp_torch.timing import graph_ms, time_ms
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    cases = []
+    n = 2048
+    # (grid steps, source mask, target mask, label): ~70% scattered inliers on
+    # both clouds, as the overlap re-solves' masks are; a fully masked target.
+    for steps, s_kind, t_kind, label in ((8, "inliers", "inliers", "8^3 overlap field, inlier masks"),
+                                          (16, "padded", "padded", "16^3 overlap field"),
+                                          (8, "padded", "none", "8^3, target fully masked")):
+        src, tgt = t(cloud(rng, n)), t(cloud(rng, n))
+        rows = torch.arange(n, device=dev)
+        masks = {"inliers": lambda: (rows < 2000) & t(rng.uniform(size=n) < 0.7), "padded": lambda: rows < 2000,
+                 "none": lambda: torch.zeros(n, dtype=torch.bool, device=dev)}
+        smask, tmask = masks[s_kind](), masks[t_kind]()
+        rots = euler_xyz_matrix(rotation_grid(steps, 6.3, dev))
+        c_n = rots.shape[0]
+        rotated, weight = rotate_sources(rots, src), smask.to(torch.float32)
+        dk = field_trim_distances(rotated, weight, tgt, tmask, field_plan(n))
+        dp = nn_distances(rotated, smask, tgt, tmask)
+        fk = field_trim(src, smask, tgt, tmask, rots, 0.7)
+        fp = field_trim_plain(src, smask, tgt, tmask, rots, 0.7)
+        torch.cuda.synchronize()
+        require(torch.equal(dk, dp), f"field_trim {label}: per-point distances differ from the plain version's bits "
+                                     f"at {int((dk != dp).sum())} of {dk.numel()}")
+        require(torch.equal(fk, fp), f"field_trim {label}: the trimmed field differs from the plain version's bits")
+        args = (src, smask, tgt, tmask, rots, 0.7)
+        ms = time_ms(lambda: field_trim(*args), 10)
+        device_ms = graph_ms(lambda: field_trim(*args), 10)  # rotation, kernel and the trimmed mean
+        kernel_ms = graph_ms(lambda: field_trim_distances(rotated, weight, tgt, tmask, field_plan(n)), 10)
+        plain_ms = time_ms(lambda: field_trim_plain(*args), 2)
+        valid_tgt = tgt[tmask] if bool(tmask.any()) else tgt
+        yard_ms = time_ms(lambda: [torch.cdist(rotated[a:a + 64], valid_tgt[None]).amin(-1)
+                                   for a in range(0, c_n, 64)], 3)
+        # Per evaluation (rotation, valid source point, valid target row): 3 sub
+        # + 3 mul + 2 add + 1 min; every row where the target has no valid one.
+        evals = c_n * int(smask.sum()) * (int(tmask.sum()) or n)
+        b = bound(9.0 * evals, 4 * (n * 3 * 2 + c_n * 9 + c_n * n) + 2 * n)
+        err = float((fk - fp).abs().max())
+        cases.append(dict({"shape": f"{c_n}x{n}x{n}", "label": label, "ms": ms, "device_ms": device_ms,
+                           "kernel_device_ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
+                           "yardstick_ms": yard_ms}, **b))
+        log(f"  field_trim C={c_n} P=T={n} ({label}): distances and field identical; {ms:.4f} ms a wrapper call back "
+            f"to back, {device_ms:.4f} ms on the device (graph replay; the per-point kernel alone {kernel_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, yardstick {yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return dict(cases[0], cases=cases, source="kss_icp_torch/csrc/field_trim.cu",
+                replaces="kss_icp_tpu/models/coarse.py:121 (the XLA trim path, not a TPU kernel)",
+                yardstick="torch.cdist(rotated, valid_target).amin(-1), 64 rotations a call")
 
 
 def load_pairs():
@@ -309,10 +402,74 @@ class StageTimer:
             self.seconds[name] += time.perf_counter() - t0
 
 
-def drive(torch, dev, cfg, pairs, counters, timer, label, judge):
+RUNGS = ("overlap8", "overlap16", "overlap_screen")
+
+
+class RungLog:
+    """Records the overlap rungs that `module.register_pair` reaches, in
+    either package (kss_icp_torch.models.kss_icp, or kss_icp_tpu's in the
+    tests and scripts/torch_port_expected.py): a trimmed fitness computed
+    outside the solvers opens a rung (the incumbent's tf_old), a solver call
+    marks it run (tf_new); a rung is adopted when tf_new < margin x tf_old.
+    Wraps the module's functions while entered; `rungs` is reset by the
+    caller between pairs."""
+
+    def __init__(self, module, margin: float):
+        self.module, self.margin, self.depth, self.rungs = module, margin, 0, []
+        self.orig = {n: getattr(module, n) for n in ("trimmed_fitness", "register_overlap_resampled",
+                                                      "register_overlap_screen_resampled")}
+
+    def __enter__(self):
+        def fitness(*a, **kw):
+            out = self.orig["trimmed_fitness"](*a, **kw)
+            if not self.depth:
+                self.rungs.append({"rung": RUNGS[len(self.rungs)], "tf_old": float(out), "skipped": True,
+                                   "ran": False, "adopted": False, "tf_new": None})
+            return out
+
+        def solver(name):
+            def run(*a, **kw):
+                self.depth += 1
+                try:
+                    res = self.orig[name](*a, **kw)
+                finally:
+                    self.depth -= 1
+                if self.rungs:  # overlap_mode=True calls the solver with no rung open
+                    r = self.rungs[-1]
+                    r.update(skipped=False, ran=True, tf_new=float(res.fitness))
+                    r["adopted"] = r["tf_new"] < self.margin * r["tf_old"]
+                return res
+            return run
+
+        self.module.trimmed_fitness = fitness
+        for n in ("register_overlap_resampled", "register_overlap_screen_resampled"):
+            setattr(self.module, n, solver(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.module, n, fn)
+
+    def outcomes(self) -> list:
+        """'skipped', 'ran' or 'adopted' for each rung reached."""
+        return [rung_state(r) for r in self.rungs]
+
+
+def rung_state(r: dict) -> str:
+    return "adopted" if r["adopted"] else "ran" if r["ran"] else "skipped"
+
+
+def rung_outcome(rungs) -> str:
+    """'8:adopted 16:ran screen:skipped' for a pair's rungs; '-' where none ran."""
+    short = {"overlap8": "8", "overlap16": "16", "overlap_screen": "screen"}
+    return " ".join(f"{short[r['rung']]}:{rung_state(r)}" for r in rungs) or "-"
+
+
+def drive(torch, dev, cfg, pairs, counters, timer, label, judge, rung_log=None):
     """One pass of `pairs` through register_pair -> apply_similarity ->
     registration_measure, the launch counts zeroed just before it. Returns
-    (rows, seconds, launches); judge(name, src, metrics, aligned) -> row."""
+    (rows, seconds, launches); judge(name, src, metrics, aligned) -> row.
+    With a RungLog, each row carries the overlap rungs of its pair."""
     import kss_icp_torch as kt
 
     rows, total = [], 0.0
@@ -321,6 +478,8 @@ def drive(torch, dev, cfg, pairs, counters, timer, label, judge):
     counters["nn1"].launch_shapes.clear()
     for name, src, tgt in pairs:
         timer.ran.clear()
+        if rung_log is not None:
+            rung_log.rungs = []
         t0 = time.perf_counter()
         res = kt.register_pair(src, tgt, cfg, device=dev, timer=timer)
         with timer("metric"):
@@ -332,7 +491,8 @@ def drive(torch, dev, cfg, pairs, counters, timer, label, judge):
         rows.append(dict(judge(name, src, m, aligned), name=name, s=dt, cand=int(res.chosen_candidate),
                          iters=int(res.icp_iterations), escalated="escalate" in timer.ran,
                          won=res.coarse.field.shape[0] == cfg.escalate_rotation_steps and cfg.auto_escalate,
-                         finisher="finish" in timer.ran))
+                         finisher="finish" in timer.ran,
+                         rungs=[] if rung_log is None else rung_log.rungs))
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"  [{label}] kernel launches: {launches}")
     shapes = sorted(counters["nn1"].launch_shapes.items(), key=lambda kv: -kv[1])
@@ -372,8 +532,10 @@ def escalation_counts(label, rows, exp_rows) -> dict:
     return {"port": counts, "jax": jax}
 
 
-def check_launches(label, launches, method: str) -> None:
+def check_launches(label, launches, method: str, overlap: bool = False) -> None:
     require(launches["nn1"] > 0 and launches["fps"] > 0, f"{label}: nn1 or fps never launched: {launches}")
+    if not overlap:
+        require(launches["field_trim"] == 0, f"{label}: field_trim launched without the overlap tier: {launches}")
     if method == "dot":
         require(launches["field_dot"] > 0 and launches["field_ave"] == 0,
                 f"{label}: the dot pass must launch field_dot and not field_ave: {launches}")
@@ -385,11 +547,11 @@ def check_launches(label, launches, method: str) -> None:
 def phase_end_to_end(torch, dev, kernels: dict) -> dict:
     from kss_icp_torch.challenge import BOARDS, transform_rmse
     from kss_icp_torch.config import DEFAULT_CONFIG
-    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
     from kss_icp_torch.ops.nn_cuda import nn1
     from kss_icp_torch.ops.resample_cuda import fps
 
-    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot}
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim}
     pairs = load_pairs()
     plain_exp = json.loads((FIXTURES / "torch_port_expected.json").read_text())
     esc_exp = json.loads((FIXTURES / "torch_port_expected_escalation.json").read_text())
@@ -442,10 +604,12 @@ def phase_end_to_end(torch, dev, kernels: dict) -> dict:
                                 "escalation": counts, "stage_seconds": dict(timer.seconds),
                                 "staged_seconds": staged}
 
-    log("== 4c. escalation on: category, deform and scale boards")
+    log("== 4c. escalation on (overlap_escalate=False): category, deform and scale boards")
     cfg = dataclasses.replace(DEFAULT_CONFIG, **esc)
     board_pairs, gt, threshold, jax_pass = [], {}, {}, {}
     for board, corpus, thr in BOARDS:
+        if board not in esc_exp["boards"]:  # the partial boards need the overlap tier: 4d
+            continue
         for name, src, tgt, g in corpus():
             board_pairs.append((name, src, tgt))
             gt[name], threshold[name] = g, thr
@@ -482,6 +646,96 @@ def phase_end_to_end(torch, dev, kernels: dict) -> dict:
     kernels["nn1"]["launch_shapes"] = out["passes"]["esc-default"]["launches"]["nn1_shapes"]
     kernels["field_dot"]["launches"] = out["passes"]["esc-dot"]["launches"]["field_dot"]
     return out
+
+
+def phase_default_config(torch, dev, kernels: dict, e2e: dict) -> None:
+    """4d: the unmodified DEFAULT_CONFIG, the overlap tier on, against
+    fixtures/torch_port_expected_overlap.json."""
+    from kss_icp_torch.challenge import BOARDS, transform_rmse
+    from kss_icp_torch.config import DEFAULT_CONFIG as cfg
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
+    from kss_icp_torch.ops.nn_cuda import nn1
+    from kss_icp_torch.ops.resample_cuda import fps
+
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim}
+    exp = json.loads((FIXTURES / "torch_port_expected_overlap.json").read_text())
+    pairs = load_pairs()
+    expected = {p["name"]: p for p in exp["pairs"]}
+    judge = remesh_judge(torch, expected)
+    label = "shipped"
+    from kss_icp_torch.models import kss_icp as tk
+
+    with RungLog(tk, cfg.overlap_adopt_margin) as rung_log:
+        rows, total, launches = drive(torch, dev, cfg, pairs, counters, StageTimer(torch, False), label, judge,
+                                      rung_log)
+        report_remesh(label, rows, total, expected, escalation=True)
+        check_launches(label, launches, "vpu", overlap=True)
+        counts = escalation_counts(label, rows, exp["pairs"])
+        for r in rows:
+            if r["rungs"] or expected[r["name"]]["rungs"]:
+                log(f"  [{label}] {r['name']}: rungs {rung_outcome(r['rungs'])} "
+                    f"(jax {rung_outcome(expected[r['name']]['rungs'])})")
+        timer = StageTimer(torch, True)
+        _, staged, _ = drive(torch, dev, cfg, pairs, counters, timer, label + " staged", judge, rung_log)
+        log(f"  [{label}] stage seconds over all pairs (synced pass, {staged:.3f} s): " +
+            ", ".join(f"{k} {v:.4f}" for k, v in timer.seconds.items()))
+        e2e["passes"][label] = {"pairs_per_s": len(rows) / total, "seconds": total, "launches": launches,
+                                "escalation": counts, "stage_seconds": dict(timer.seconds), "staged_seconds": staged}
+
+        log("== 4d. DEFAULT_CONFIG: the five boards (64 pairs)")
+        # Pairs are named board:pair, since partial and partial_hard share pair names.
+        board_pairs, gt, threshold, jax_rows = [], {}, {}, {}
+        for board, corpus, thr in BOARDS:
+            for name, src, tgt, g in corpus():
+                board_pairs.append((f"{board}:{name}", src, tgt))
+                gt[f"{board}:{name}"], threshold[f"{board}:{name}"] = g, thr
+            for p in exp["boards"][board]["pairs"]:
+                jax_rows[f"{board}:{p['name']}"] = p
+
+        def board_judge(name, src, m, aligned):
+            pose = transform_rmse(aligned.cpu().numpy(), src, gt[name])
+            return {"pose": pose, "passed": bool(pose <= threshold[name]), "rmse": m["rmse"]}
+
+        timer = StageTimer(torch, True)
+        rows, total, launches = drive(torch, dev, cfg, board_pairs, counters, timer, "shipped boards", board_judge,
+                                      rung_log)
+    check_launches("shipped boards", launches, "vpu", overlap=True)
+    mismatched, runs, adopted = [], {"port": 0, "jax": 0}, {"port": 0, "jax": 0}
+    for r in rows:
+        j = jax_rows[r["name"]]
+        agree = r["passed"] == j["passed"]
+        for who, rungs in (("port", r["rungs"]), ("jax", j["rungs"])):
+            runs[who] += sum(x["ran"] for x in rungs)
+            adopted[who] += sum(x["adopted"] for x in rungs)
+        log(f"  [shipped boards] {r['name']}: pose {r['pose']:.4f} {'pass' if r['passed'] else 'FAIL'} "
+            f"(jax {j['pose_rmse']:.4f} {'pass' if j['passed'] else 'FAIL'}) esc {int(r['escalated'])} "
+            f"rungs {rung_outcome(r['rungs'])} (jax {rung_outcome(j['rungs'])}) {r['s'] * 1e3:.1f} ms"
+            f"{'' if agree else ' DIFFERS'}")
+        if not agree and r["name"] != f"category:{KNIFE_EDGE}":
+            mismatched.append(r["name"])
+    require(not mismatched, f"shipped boards: pass/fail differs from JAX on the CPU: {mismatched}")
+    partial = [r for r in rows if r["name"].startswith("partial")]
+    require(any(x["ran"] for r in partial for x in r["rungs"]) and launches["field_trim"] > 0,
+            f"shipped boards: no overlap rung ran on the partial boards: {launches}")
+    screens = launches["nn1_shapes"].get(f"512x512x{cfg.resample_pad}", 0)
+    ran_screen = sum(x["ran"] for r in rows for x in r["rungs"] if x["rung"] == "overlap_screen")
+    require(screens >= ran_screen > 0,
+            f"shipped boards: {ran_screen} screen rungs ran and nn1 saw {screens} 512-lane screen launches")
+    passed = {b: [0, 0, 0] for b, _, _ in BOARDS}  # port, jax, pairs
+    for r in rows:
+        board = r["name"].split(":")[0]
+        passed[board][0] += r["passed"]
+        passed[board][1] += jax_rows[r["name"]]["passed"]
+        passed[board][2] += 1
+    log("  [shipped boards] " + ", ".join(f"{b} {p}/{n} (jax {j}/{n})" for b, (p, j, n) in passed.items()) +
+        f"; overlap rungs run {runs['port']} (jax {runs['jax']}), adopted {adopted['port']} (jax {adopted['jax']}); "
+        f"{len(rows) / total:.3f} pairs/s (synced)")
+    log(f"  [shipped boards] stage seconds (synced pass, {total:.3f} s): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in timer.seconds.items()))
+    e2e["passes"]["shipped boards"] = {"pairs_per_s": len(rows) / total, "seconds": total, "launches": launches,
+                                       "passed": {b: v[0] for b, v in passed.items()}, "rungs_run": runs,
+                                       "rungs_adopted": adopted, "stage_seconds": dict(timer.seconds)}
+    kernels["field_trim"]["launches"] = launches["field_trim"]
 
 
 def phase_bf16_ranking(torch, dev) -> None:
@@ -559,6 +813,11 @@ def main() -> int:
         f"bench {p['esc-bench']['pairs_per_s']:.3f}, dot {p['esc-dot']['pairs_per_s']:.3f}; boards "
         f"{p['boards']['pairs_per_s']:.3f} ({card})")
 
+    log("== 4d. DEFAULT_CONFIG (the overlap tier on): remesh 25")
+    phase_default_config(torch, dev, kernels, e2e)
+    log(f"shipped DEFAULT_CONFIG: remesh 25 {p['shipped']['pairs_per_s']:.3f} pairs/s (no stage syncs), "
+        f"boards {p['shipped boards']['pairs_per_s']:.3f} pairs/s (synced) ({card})")
+
     log("== 5. bf16 dot field against the float32 fields (gates nothing)")
     phase_bf16_ranking(torch, dev)
     log(f"smoke run {time.perf_counter() - t_start:.1f} s ({card})")
@@ -567,7 +826,7 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick", "yardstick_ms", "shape", "precision", "cases",
             "launch_shapes")
     line = {"kernels": [{k: v for k, v in dict(kernels[n], name=n, route="cuda", library_ms=None).items() if k in keys}
-                        for n in ("nn1", "fps", "field_ave", "field_dot")]}
+                        for n in ("nn1", "fps", "field_ave", "field_dot", "field_trim")]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

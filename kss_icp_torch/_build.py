@@ -40,6 +40,7 @@ SIGNATURES = {
     "kss_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "kss_field_ave": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "kss_field_dot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "kss_field_trim": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
 }
 
 

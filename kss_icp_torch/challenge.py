@@ -3,24 +3,27 @@ generators of kss_icp_tpu/challenge.py and of `rot_xyz` (kss_icp_tpu/stress.py:3
 
 The JAX package's modules are pure numpy but cannot be imported where jax is
 absent, because kss_icp_tpu/__init__.py imports jax. This copy keeps the
-category, deform and scale boards, their helpers and `transform_rmse`, array
-for array (tests/test_torch_challenge.py holds them to the JAX module):
+five boards, their helpers and `transform_rmse`, array for array
+(tests/test_torch_challenge.py holds them to the JAX module):
 
   category_corpus()  CAD-like parametric families (superellipsoids, surfaces
                      of revolution, box assemblies, helical tubes); a pair is
                      two independent samplings of one instance, the source
                      moved by a hard similarity (the ModelNet40 protocol);
+  partial_corpus()   both sides cropped by different half-spaces, with sensor
+                     noise and outliers (the RGB-D analogue); keep=0.8 is the
+                     hard tier, about 60% overlap;
   deform_corpus()    a smooth non-rigid displacement on the target side (the
                      SHREC analogue);
   scale_corpus()     the category protocol at scales 0.3x and 3x.
 
 Every pair carries its ground-truth similarity; success is the pose error
-`transform_rmse` against BOARDS' thresholds. The partial-overlap corpus
-waits for the overlap tier (ROADMAP.md queue 1 item 11).
+`transform_rmse` against BOARDS' thresholds.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -280,6 +283,46 @@ def category_corpus(instances: int = 8, n_points: int = 6000) -> List[Pair]:
     return out
 
 
+def partial_corpus(n_points: int = 6000, keep: float = 0.92,
+                   noise: float = 0.004, outlier_frac: float = 0.01) -> List[Pair]:
+    """RGB-D-analogue: both sides cropped by DIFFERENT half-spaces (each
+    keeps `keep` of its points, so the overlap is about 2*keep-1 of the
+    surface), with Gaussian sensor noise and uniform outliers on both sides.
+    The Kendall pre-shape estimates centroid and scale from all points
+    (initRegistrationKSS.hpp:144-220), so asymmetric crops bias it: the
+    overlap tier of register_pair exists for these pairs."""
+    out = []
+    k = 0
+    for f, (fname, _) in enumerate(FAMILIES):
+        for i in range(2):
+            rng = np.random.default_rng((7, f, i))
+            tgt = _instance(f, i, n_points, sample=0)
+            base = _instance(f, i, n_points, sample=1)
+
+            def crop(pts, normal):
+                score = pts @ normal
+                return pts[score <= np.quantile(score, keep)]
+
+            n1 = rng.normal(size=3)
+            n1 /= np.linalg.norm(n1)
+            n2 = rng.normal(size=3)
+            n2 /= np.linalg.norm(n2)
+            tgt_c = crop(tgt, n1)
+            base_c = crop(base, n2)
+            tgt_c = tgt_c + rng.normal(scale=noise, size=tgt_c.shape)
+            base_c = base_c + rng.normal(scale=noise, size=base_c.shape)
+            n_out = int(outlier_frac * len(tgt_c))
+            tgt_c = np.concatenate([tgt_c, rng.uniform(-1, 1, (n_out, 3))], axis=0)
+            # The source's outliers are drawn after the target's.
+            n_out_s = int(outlier_frac * len(base_c))
+            base_c = np.concatenate([base_c, rng.uniform(-1, 1, (n_out_s, 3))], axis=0)
+            gt = _gt(k)
+            out.append((f"part/{fname}{i}", _apply_gt(base_c.astype(np.float32), gt),
+                        tgt_c.astype(np.float32), gt))
+            k += 1
+    return out
+
+
 def deform_corpus(n_points: int = 6000, amplitude: float = 0.04) -> List[Pair]:
     """SHREC-analogue: the target carries a smooth low-frequency non-rigid
     displacement (sum of 3 sinusoidal modes, amplitude ~4% of extent);
@@ -325,6 +368,14 @@ def scale_corpus(n_points: int = 6000) -> List[Pair]:
     return out
 
 
-# (board, corpus, pose-error threshold) as in kss_icp_tpu/challenge.py:407-412.
-BOARDS = (("category", category_corpus, 0.20), ("deform", deform_corpus, 0.12),
-          ("scale", scale_corpus, 0.20))
+# (board, corpus, pose-error threshold) as in kss_icp_tpu/challenge.py:407-417,
+# the hard partial tier last.
+BOARDS = (("category", category_corpus, 0.20), ("partial", partial_corpus, 0.20),
+          ("deform", deform_corpus, 0.12), ("scale", scale_corpus, 0.20),
+          ("partial_hard", functools.partial(partial_corpus, keep=0.8), 0.20))
+
+
+def challenge_corpus(include_hard: bool = False) -> List[Tuple[str, List[Pair], float]]:
+    """[(board, pairs, threshold)] as kss_icp_tpu.challenge.challenge_corpus
+    gives them: the hard partial tier only with include_hard."""
+    return [(board, corpus(), thr) for board, corpus, thr in BOARDS if include_hard or board != "partial_hard"]

@@ -9,8 +9,9 @@ budget) and keep the better answer per row.
 The JAX version merges winning rows with jax.tree.map; here the trees are
 the port's NamedTuples (or dicts, tuples and lists) of tensors or numpy
 arrays. `near_tie_margin` is not ported: no call site passes a nonzero value
-(ROADMAP.md "Not ported"). The overlap tier's `overlap_rerun` waits for
-ROADMAP.md queue 1 item 11.
+(ROADMAP.md "Not ported"). The overlap tier's batched `overlap_rerun`
+waits for register_many (ROADMAP.md queue 1 item 9); register_pair runs its
+single-pair ladder (models/kss_icp.py::_overlap_ladder).
 """
 
 from __future__ import annotations

@@ -2,9 +2,11 @@
 
 Port of kss_icp_tpu/models/coarse.py (initRegistration_Rotation and
 initRegistration_kernel, initRegistrationKSS.hpp:222-296,:481-522). The
-field is scored by the `field_ave` kernel (method "vpu") or the `field_dot`
-kernel (method "dot"); local minima come from a 3-D min-pool whose -inf
-padding equals the reference's clamped-edge cube.
+"ave" field is scored by the `field_ave` kernel (method "vpu") or the
+`field_dot` kernel (method "dot"); the overlap tier's "trim" field by the
+`field_trim` kernel, in exact float32 differences whatever the method. Local
+minima come from a 3-D min-pool whose -inf padding equals the reference's
+clamped-edge cube.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from kss_icp_torch.core.transforms import euler_xyz_matrix
-from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot
+from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
 
 BIG = 1e30
 
@@ -51,20 +53,28 @@ def score_rotation_field(
     error_metric: str = "ave",
     method: str = "vpu",
     precision: str = "highest",
+    trim_fraction: float = 0.7,
 ) -> torch.Tensor:
-    """(steps, steps, steps) field: field[i, j, k] is the mean 1-NN distance of
-    Rz(k)·Ry(j)·Rx(i)·source to the target. Only the main-path "ave" metric
-    is ported; the others raise. method "vpu" scores with exact float32
-    differences (`field_ave`, which ignores precision, as the TPU kernel
-    does); "dot" through the augmented dot product at `precision`
-    (`field_dot`)."""
-    if error_metric != "ave":
+    """(steps, steps, steps) field: field[i, j, k] is the alignment error of
+    Rz(k)·Ry(j)·Rx(i)·source to the target. error_metric "ave" is the mean
+    1-NN distance: method "vpu" scores it with exact float32 differences
+    (`field_ave`, which ignores precision, as the TPU kernel does), "dot"
+    through the augmented dot product at `precision` (`field_dot`). "trim"
+    is the mean of the best trim_fraction quantile of the 1-NN distances
+    (`field_trim`), always in exact float32 differences: the port's rule
+    where JAX takes its XLA path (kss_icp_tpu/models/coarse.py:115-131).
+    "max" and "diff" are not ported (ROADMAP.md queue 1 item 13)."""
+    if error_metric in ("max", "diff"):
         raise NotImplementedError(
-            f"coarse_error_metric={error_metric!r} is not ported yet (ROADMAP.md queue 1, items 11 and 13)")
+            f"coarse_error_metric={error_metric!r} is not ported yet (ROADMAP.md queue 1 item 13)")
+    if error_metric not in ("ave", "trim"):
+        raise ValueError(f"unknown error metric {error_metric!r}")
     if method not in ("vpu", "dot"):
         raise ValueError(f"coarse method must be 'vpu' or 'dot', got {method!r}")
     rots = euler_xyz_matrix(rotation_grid(steps, span, source.device))
-    if method == "dot":
+    if error_metric == "trim":
+        scores = field_trim(source, source_mask, target, target_mask, rots, trim_fraction)
+    elif method == "dot":
         scores = field_dot(source, source_mask, target, target_mask, rots, precision)
     else:
         scores = field_ave(source, source_mask, target, target_mask, rots)
@@ -91,13 +101,15 @@ def coarse_align(
     error_metric: str = "ave",
     method: str = "vpu",
     precision: str = "highest",
+    trim_fraction: float = 0.7,
 ) -> CoarseResult:
     """Score the grid, extract local minima, rank candidates by error.
 
     Candidate 0 is the global minimum. Ties keep index order, as
     jax.lax.top_k does (a stable sort, not torch.topk)."""
     field = score_rotation_field(source, source_mask, target, target_mask, steps=steps, span=span,
-                                 error_metric=error_metric, method=method, precision=precision)
+                                 error_metric=error_metric, method=method, precision=precision,
+                                 trim_fraction=trim_fraction)
     is_min = local_minima_mask(field, radius)
     masked = torch.where(is_min, field, torch.full_like(field, BIG)).reshape(-1)
     neg_vals, order = torch.sort(-masked, descending=True, stable=True)

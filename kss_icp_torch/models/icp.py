@@ -9,8 +9,11 @@ and one host sync per iteration for the "any lane active" test. Per-lane
 `iterations` and `converged` equal the reference's.
 
 Correspondences come from the `nn1` kernel (one launch per iteration for all
-lanes). Point-to-plane, trimmed ICP, the Umeyama scale and the sharded
-point axis are not ported yet (ROADMAP.md queue 1, items 11 and 13).
+lanes). `trim_fraction` and `estimate_scale` give the overlap tier's trimmed
+similarity ICP (icp.py:226-232): a per-lane quantile gate on the
+correspondences, the Umeyama scale, and the trimmed mean as fitness.
+Point-to-plane and the sharded point axis are not ported yet (ROADMAP.md
+queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from kss_icp_torch.core.transforms import matmul3, matvec3, rotate_points
+from kss_icp_torch.ops.nn import masked_quantile_threshold, trimmed_masked_mean
 from kss_icp_torch.ops.nn_cuda import nn1
 
 
@@ -49,14 +53,17 @@ class ICPResult(NamedTuple):
     fitness: torch.Tensor      # (L,) mean squared NN distance over valid points
     iterations: torch.Tensor   # (L,) int32
     converged: torch.Tensor    # (L,) bool
-    scale: torch.Tensor        # (L,) accumulated scale (stays at its init)
+    scale: torch.Tensor        # (L,) accumulated scale (stays at its init unless estimate_scale)
 
 
-def kabsch(source: torch.Tensor, target: torch.Tensor, weights: torch.Tensor):
+def kabsch(source: torch.Tensor, target: torch.Tensor, weights: torch.Tensor, estimate_scale: bool = False):
     """Weighted rigid Kabsch over lanes: argmin_R,t sum w ||R s + t - t'||².
 
     source, target (L, N, 3); weights (L, N). Returns (R (L, 3, 3), t (L, 3)),
-    with the determinant correction so that R is a proper rotation."""
+    with the determinant correction so that R is a proper rotation; with
+    estimate_scale, (R, t, s (L,)), the Umeyama similarity
+    argmin_s,R,t sum w ||s R x + t - y||², s = trace(D S) / var_src
+    (kss_icp_tpu/models/icp.py:61-114)."""
     dtype = source.dtype
     wsum = weights.sum(dim=-1).clamp_min(torch.finfo(dtype).tiny)
     w = weights[..., None]
@@ -65,12 +72,16 @@ def kabsch(source: torch.Tensor, target: torch.Tensor, weights: torch.Tensor):
     s0 = source - cs[..., None, :]
     t0 = target - ct[..., None, :]
     h = (w[..., None] * s0[..., :, None] * t0[..., None, :]).sum(dim=-3) / wsum[..., None, None]
-    u, _, vh = torch.linalg.svd(h)
+    u, sv, vh = torch.linalg.svd(h)
     v, ut = vh.transpose(-1, -2), u.transpose(-1, -2)
     det = torch.linalg.det(matmul3(v, ut))
     d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
     r = matmul3(v * d[..., None, :], ut)
-    return r, ct - matvec3(r, cs)
+    if not estimate_scale:
+        return r, ct - matvec3(r, cs)
+    var_s = (weights * (s0 * s0).sum(dim=-1)).sum(dim=-1) / wsum
+    scale = (sv * d).sum(dim=-1) / var_s.clamp_min(torch.finfo(dtype).tiny)
+    return r, ct - scale[..., None] * matvec3(r, cs), scale
 
 
 def _where(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
@@ -86,13 +97,21 @@ def icp(
     init_rotation: Optional[torch.Tensor] = None,
     init_translation: Optional[torch.Tensor] = None,
     init_scale: Optional[torch.Tensor] = None,
+    trim_fraction: float = 0.0,
+    estimate_scale: bool = False,
 ) -> ICPResult:
     """Run ICP on L lanes from identity (or a warm start) against one target.
 
     source (L, N, 3); source_mask (N,) or (L, N); target (T, 3), target_mask
     (T,); init_* (L, 3, 3), (L, 3), (L,). Returns the rigid transform of each
     lane, source -> target, with PCL's convergence tests and getFitnessScore
-    fitness."""
+    fitness.
+
+    trim_fraction > 0 keeps, each iteration, only the correspondences within
+    the lane's trim_fraction-quantile of valid NN distances, and reports the
+    trimmed mean squared distance as fitness; estimate_scale solves the
+    Umeyama similarity, and a step converges on its transform only once the
+    scale delta is small too, (ds - 1)² < transformation_epsilon."""
     lanes = source.shape[0]
     dtype, device = source.dtype, source.device
     smask = source_mask.expand(source.shape[:2])
@@ -119,11 +138,18 @@ def icp(
         cur = positions(rot, trans, scale)
         d2, idx = nn1(cur, tgt, tmask)
         keep = smask & (d2 <= max_d2)
+        if trim_fraction:
+            keep = keep & (d2 <= masked_quantile_threshold(d2, smask, trim_fraction)[:, None])
         w = keep.to(dtype)
         corr = target[idx.long()]
-        dr, dt = kabsch(cur, corr, w)
+        if estimate_scale:
+            dr, dt, ds = kabsch(cur, corr, w, estimate_scale=True)
+        else:
+            (dr, dt), ds = kabsch(cur, corr, w), torch.ones_like(scale)
+        # new(x) = ds·dr·(s·R·x + t) + dt
         new_r = matmul3(dr, rot)
-        new_t = matvec3(dr, trans) + dt
+        new_t = ds[:, None] * matvec3(dr, trans) + dt
+        new_s = ds * scale
 
         # Convergence MSE from the matched pairs in exact f32 (icp.py:293-301).
         wsum = w.sum(dim=-1).clamp_min(1.0)
@@ -135,6 +161,8 @@ def icp(
         cos_angle = (dr[:, 0, 0] + dr[:, 1, 1] + dr[:, 2, 2] - 1.0) / 2.0
         transform_small = (trans_delta2 < params.transformation_epsilon) & (
             (1.0 - cos_angle) < params.rotation_epsilon)
+        if estimate_scale:
+            transform_small = transform_small & ((ds - 1.0) ** 2 < params.transformation_epsilon)
         mse_delta = (new_mse - corr_mse).abs()
         if params.relative_mse:
             mse_delta = mse_delta / new_mse.clamp_min(tiny)
@@ -143,12 +171,16 @@ def icp(
 
         rot = _where(active, new_r, rot)
         trans = _where(active, new_t, trans)
+        scale = _where(active, new_s, scale)
         corr_mse = _where(active, new_mse, corr_mse)
         converged = _where(active, new_conv, converged)
         iteration = _where(active, iteration + 1, iteration)
 
     d2, _ = nn1(positions(rot, trans, scale), tgt, tmask)
-    w = smask.to(dtype)
-    fitness = (d2 * w).sum(dim=-1) / w.sum(dim=-1).clamp_min(1.0)
+    if trim_fraction:
+        fitness = trimmed_masked_mean(d2, smask, trim_fraction)
+    else:
+        w = smask.to(dtype)
+        fitness = (d2 * w).sum(dim=-1) / w.sum(dim=-1).clamp_min(1.0)
     return ICPResult(rotation=rot, translation=trans, fitness=fitness,
                      iterations=iteration, converged=converged, scale=scale)

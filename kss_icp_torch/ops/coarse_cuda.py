@@ -1,13 +1,16 @@
-"""Wrappers of the two rotation-field CUDA kernels: the "ave" field.
+"""Wrappers of the rotation-field CUDA kernels: the "ave" and "trim" fields.
 
 `field_ave` (csrc/field.cu) ports kss_icp_tpu/ops/coarse_pallas.py::
 rotation_scores_pallas with method="vpu" (K1), exact float32 differences;
 `field_dot` (csrc/field_dot.cu) ports method="dot" (K1-dot), the augmented
 dot product [R q, 1] . [-2 t, |t|^2] with |q|^2 added back, at a precision
 ("default" is one bf16 pass). Both are one kernel (csrc/field_kernel.cuh)
-launched with a plan from `field_plan`. On CPU tensors each wrapper runs its
-plain version (`field_ave_plain`, `field_dot_plain`); on CUDA tensors it
-launches its kernel or raises.
+launched with a plan from `field_plan`. `field_trim` (csrc/field_trim.cu) is
+the same kernel in its per-point mode: it scores the overlap tier's "trim"
+field, which JAX computes with XLA (kss_icp_tpu/models/coarse.py:115-131),
+not a TPU kernel. On CPU tensors each wrapper runs its plain version
+(`field_ave_plain`, `field_dot_plain`, `field_trim_plain`); on CUDA tensors
+it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from kss_icp_torch.core.transforms import rotate_points
-from kss_icp_torch.ops.nn import BIG, _BLOCK_ELEMS, masked_mean, masked_mean_nn_distance
+from kss_icp_torch.ops.nn import (BIG, _BLOCK_ELEMS, masked_mean, masked_mean_nn_distance, masked_nn_error,
+                                  trimmed_masked_mean)
 
 FIELD_GROUP = 256  # kGroup of csrc/field_kernel.cuh: one partial sum per 256 source points
 FIELD_Q = 4  # kQ of csrc/field_kernel.cuh: rotations a block
@@ -216,3 +220,56 @@ def field_dot(
 
 
 field_dot.launches = 0
+
+
+def field_trim_plain(source, source_mask, target, target_mask, rotations, trim_fraction=0.7) -> torch.Tensor:
+    """The plain PyTorch version of `field_trim`, with the same arguments."""
+    return masked_nn_error(rotate_sources(rotations, source), source_mask, target, target_mask, "trim", trim_fraction)
+
+
+def field_trim_distances(rotated, weight, target, target_mask, slots: int) -> torch.Tensor:
+    """One launch of the field kernel in its per-point mode with `slots`
+    group slots: the (C, P) distances sqrt(max(min, 0)) of each rotated
+    source point to the nearest valid target row, 0 where weight is 0, the
+    bits of its plain version ops/nn.py::nn_distances(rotated, source_mask,
+    target, target_mask). rotated (C, P, 3), weight (P,) float32 0/1,
+    target (T, 3), target_mask (T,) bool, all contiguous on one card. Counts
+    the launch in `field_trim.launches`."""
+    from kss_icp_torch import _build
+
+    c_n, p_n = rotated.shape[:2]
+    dist = torch.empty((c_n, p_n), dtype=torch.float32, device=rotated.device)
+    lib = _build.library()
+    with torch.cuda.device(rotated.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.kss_field_trim(rotated.data_ptr(), weight.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
+                                  c_n, p_n, target.shape[0], slots, dist.data_ptr(), stream)
+    _build.check(code, "field_trim")
+    field_trim.launches += 1
+    return dist
+
+
+def field_trim(
+    source: torch.Tensor,
+    source_mask: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    rotations: torch.Tensor,
+    trim_fraction: float = 0.7,
+) -> torch.Tensor:
+    """The trimmed field: for every rotation, the mean of the smallest
+    ceil(trim_fraction * n_valid) 1-NN distances of the valid points of
+    R_c · source to the valid target (kss_icp_tpu/ops/nn.py:195-198).
+
+    Same arguments as `field_ave`, plus the fraction. The kernel writes the
+    (C, P) per-point distances; the trimmed mean along P (`trimmed_masked_mean`:
+    a sort, a cumulative sum) runs in PyTorch. Returns (C,) float32."""
+    if _use_plain("field_trim", source, source_mask, target, target_mask, rotations):
+        return field_trim_plain(source, source_mask, target, target_mask, rotations, trim_fraction)
+    rotated = rotate_sources(rotations, source)
+    weight = source_mask.to(torch.float32).contiguous()
+    dist = field_trim_distances(rotated, weight, target, target_mask, field_plan(source.shape[0]))
+    return trimmed_masked_mean(dist, source_mask.expand(dist.shape), trim_fraction)
+
+
+field_trim.launches = 0

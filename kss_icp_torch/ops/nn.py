@@ -71,6 +71,16 @@ def masked_mean_nn_distance(query: torch.Tensor, query_mask: torch.Tensor, ref: 
     return masked_mean(torch.sqrt(m.clamp_min(0.0)), query_mask)
 
 
+def nn_distances(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> torch.Tensor:
+    """Each valid query point's 1-NN distance, sqrt(max(min, 0)) of the raw
+    biased min as `masked_mean_nn_distance` takes it, and 0 at a masked query
+    point: the per-point values of the "trim" field and the contract of the
+    `field_trim` kernel's per-point mode. A fully masked reference gives 1e15."""
+    m, _ = _min_rel(query, ref, ref_mask)
+    d = torch.sqrt(m.clamp_min(0.0))
+    return torch.where(query_mask, d, torch.zeros_like(d))
+
+
 def masked_mean_nn_sqdist(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> torch.Tensor:
     """Mean squared 1-NN distance — PCL's getFitnessScore contract."""
     d2, _ = nearest_neighbor(query, ref, ref_mask)
@@ -89,6 +99,19 @@ def _trim_count(nvalid: torch.Tensor, q: float) -> torch.Tensor:
     return torch.ceil(q * nvalid.to(torch.float32) - 1e-3).to(torch.int32)
 
 
+def _sorted_rank(values: torch.Tensor, mask: torch.Tensor, q: float, name: str):
+    """(ascending stable sort of the values with invalid entries at 1e30,
+    the rank k = ceil(q * n_valid) clipped to [1, max(n_valid, 1)])."""
+    if values.shape[-1] >= QUANTILE_MAX_WIDTH:
+        raise ValueError(f"{name} takes fewer than {QUANTILE_MAX_WIDTH} values "
+                         f"per row (the rank's rounding guard), got {values.shape[-1]}")
+    vm = torch.where(mask, values, torch.full_like(values, BIG))
+    vs = torch.sort(vm, dim=-1, stable=True).values
+    nvalid = mask.sum(dim=-1, dtype=torch.int32)
+    k = torch.minimum(_trim_count(nvalid, q).clamp_min(1), nvalid.clamp_min(1))
+    return vs, k
+
+
 def masked_quantile_threshold(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
     """The q-quantile of the valid values along the last axis: the value at
     rank ceil(q * n_valid), clipped to [1, max(n_valid, 1)], of the ascending
@@ -96,11 +119,32 @@ def masked_quantile_threshold(values: torch.Tensor, mask: torch.Tensor, q: float
 
     Raises ValueError for a last axis of 8192 or more, where the rank's
     rounding guard no longer holds."""
-    if values.shape[-1] >= QUANTILE_MAX_WIDTH:
-        raise ValueError(f"masked_quantile_threshold takes fewer than {QUANTILE_MAX_WIDTH} values "
-                         f"per row (the rank's rounding guard), got {values.shape[-1]}")
-    vm = torch.where(mask, values, torch.full_like(values, BIG))
-    vs = torch.sort(vm, dim=-1, stable=True).values
-    nvalid = mask.sum(dim=-1, dtype=torch.int32)
-    k = torch.minimum(_trim_count(nvalid, q).clamp_min(1), nvalid.clamp_min(1))
+    vs, k = _sorted_rank(values, mask, q, "masked_quantile_threshold")
     return torch.take_along_dim(vs, (k - 1).long()[..., None], dim=-1)[..., 0]
+
+
+def trimmed_masked_mean(values: torch.Tensor, mask: torch.Tensor, trim_fraction: float) -> torch.Tensor:
+    """Mean of the smallest ceil(q * n_valid) valid values along the last
+    axis, the rank clipped as in `masked_quantile_threshold`
+    (kss_icp_tpu/ops/nn.py:113-131): the cumulative sum of the same sort,
+    read at that rank. The overlap tier's score: on partially overlapping
+    clouds the largest NN distances come from the non-overlap region."""
+    vs, k = _sorted_rank(values, mask, trim_fraction, "trimmed_masked_mean")
+    picked = torch.take_along_dim(torch.cumsum(vs, dim=-1), (k - 1).long()[..., None], dim=-1)[..., 0]
+    return picked / k.to(values.dtype)
+
+
+def masked_nn_error(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor,
+                    metric: str = "ave", trim_fraction: float = 0.7) -> torch.Tensor:
+    """The rotation-field error of kss_icp_tpu/ops/nn.py:160-199 in its
+    "ave" (mean 1-NN distance) and "trim" (mean of the best trim_fraction
+    quantile of 1-NN distances) flavours, from exact float32 differences.
+    "max" and "diff" are not ported (ROADMAP.md queue 1 item 13)."""
+    if metric == "ave":
+        return masked_mean_nn_distance(query, query_mask, ref, ref_mask)
+    if metric == "trim":
+        d = nn_distances(query, query_mask, ref, ref_mask)
+        return trimmed_masked_mean(d, query_mask.expand(d.shape), trim_fraction)
+    if metric in ("max", "diff"):
+        raise NotImplementedError(f"error metric {metric!r} is not ported yet (ROADMAP.md queue 1 item 13)")
+    raise ValueError(f"unknown error metric {metric!r}")

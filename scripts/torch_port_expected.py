@@ -1,6 +1,6 @@
 """Record the JAX package's answers, the reference the PyTorch port is held to.
 
-Two records, each a JSON file under fixtures/:
+Three records, each a JSON file under fixtures/:
 
 * default: `kss_icp_tpu.register_pair` on the CPU with auto_escalate=False
   on the 25 remesh fixture pairs, at DEFAULT_CONFIG and at
@@ -9,7 +9,14 @@ Two records, each a JSON file under fixtures/:
   tier is not ported yet) on the remesh 25 at DEFAULT_CONFIG and at
   bench_config(), and on the category, deform and scale boards of
   kss_icp_tpu/challenge.py (48 pairs) at DEFAULT_CONFIG, written to
-  fixtures/torch_port_expected_escalation.json.
+  fixtures/torch_port_expected_escalation.json;
+* `--overlap`: the unmodified DEFAULT_CONFIG (escalation and its overlap
+  tier on) on the remesh 25 and on all five boards of
+  `challenge_corpus(include_hard=True)` (64 pairs: category 32, partial 8,
+  deform 8, scale 8, partial_hard 8), written to
+  fixtures/torch_port_expected_overlap.json. On the CPU the partial
+  boards' pairs take about 460 s each; `--shard I/N` runs every Nth pair,
+  so N processes can share the work, and `--merge` joins their records.
 
 Per pair: the chosen candidate, ICP fitness, ICP iteration count, the
 hit-cap flag, the similarity transform and the full-resolution RMSE; with
@@ -17,10 +24,14 @@ hit-cap flag, the similarity transform and the full-resolution RMSE; with
 (`escalated`), whether the re-solve won keep-better (`escalation_won`),
 whether the uncapped finisher ran (`finisher`), and on the boards the pose
 error against the ground truth (`pose_rmse`) and its pass/fail at the
-board's threshold. chip_smoke.py and tests/test_torch_expected.py hold the
+board's threshold. With `--overlap`, each pair also lists the overlap
+tier's rungs (`overlap8`, `overlap16`, `overlap_screen`) that register_pair
+reached, each with the incumbent's trimmed fitness `tf_old`, whether the
+crop-signature gate skipped it, and, for a rung that ran, its trimmed
+fitness `tf_new` and whether it was adopted. chip_smoke.py and tests/test_torch_expected.py hold the
 port to these records.
 
-    JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation] [--limit N] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation | --overlap] [--limit N] [--out PATH]
 
 About 16 s per remesh pair at DEFAULT_CONFIG and 8 s at the bench config on
 an 8-core x86 CPU with escalation off.
@@ -78,23 +89,56 @@ class _Counts:
         self.kss.polish_resampled = self.orig_polish
 
 
+def merge(paths, out_path) -> int:
+    """One record from the shards' records: every list of pairs joined and
+    put back in corpus order, the seconds summed."""
+    parts = [json.loads(p.read_text()) for p in paths]
+    out = parts[0]
+
+    def join(get):
+        return sorted((r for part in parts for r in get(part)), key=lambda r: r["index"])
+
+    for key in ("pairs",):
+        out[key] = join(lambda part: part[key])
+    if "bench_config" in out:
+        out["bench_config"]["pairs"] = join(lambda part: part["bench_config"]["pairs"])
+    for b in out.get("boards", {}):
+        out["boards"][b]["pairs"] = join(lambda part: part["boards"][b]["pairs"])
+    out["seconds"] = sum(part["seconds"] for part in parts)
+    out_path.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {out_path} from {len(parts)} shards", file=sys.stderr)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--escalation", action="store_true",
-                    help="record escalation on (overlap_escalate=False), boards included")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--escalation", action="store_true",
+                      help="record escalation on (overlap_escalate=False), boards included")
+    mode.add_argument("--overlap", action="store_true",
+                      help="record the unmodified DEFAULT_CONFIG (the overlap tier on), all five boards")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--limit", type=int, default=0,
                     help="only the first N pairs of each corpus (0 = all)")
+    ap.add_argument("--shard", default="0/1",
+                    help="I/N: only the pairs whose index in their corpus is I mod N (run N at once, then --merge)")
+    ap.add_argument("--merge", type=Path, nargs="+", default=None,
+                    help="join the records that --shard runs wrote, in corpus order, into --out (or the "
+                         "mode's fixture)")
     args = ap.parse_args()
-    out_path = args.out or FIXTURES / ("torch_port_expected_escalation.json" if args.escalation
-                                       else "torch_port_expected.json")
+    out_path = args.out or FIXTURES / ("torch_port_expected_escalation.json" if args.escalation else
+                                       "torch_port_expected_overlap.json" if args.overlap else
+                                       "torch_port_expected.json")
+    if args.merge:
+        return merge(args.merge, out_path)
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, str(REPO))
     from kss_icp_tpu import escalate
-    from kss_icp_tpu.challenge import category_corpus, deform_corpus, scale_corpus, transform_rmse
+    from kss_icp_tpu.challenge import (category_corpus, challenge_corpus, deform_corpus, scale_corpus,
+                                       transform_rmse)
     from kss_icp_tpu.config import DEFAULT_CONFIG
     from kss_icp_tpu.core.transforms import apply_similarity
     from kss_icp_tpu.metrics import registration_measure
@@ -103,23 +147,32 @@ def main() -> int:
 
     from bench import bench_config
 
-    def limit(corpus):
-        return corpus[: args.limit] if args.limit else corpus
+    shard, shards = map(int, args.shard.split("/"))
 
+    def limit(corpus):
+        corpus = corpus[: args.limit] if args.limit else corpus
+        return [pair for i, pair in enumerate(corpus) if i % shards == shard]
+
+    t_start = time.perf_counter()
     counts = _Counts(kss, escalate)
+    from chip_smoke import RungLog  # jax-free; the port's smoke run records the card's rungs the same way
+
+    rungs = RungLog(kss, DEFAULT_CONFIG.overlap_adopt_margin)
 
     def run(cfg, corpus, threshold=None):
         pairs = []
-        for name, src, tgt, gt in limit(corpus):
+        for index, (name, src, tgt, gt) in limit(list(enumerate(corpus))):
             t0 = time.perf_counter()
             counts.reset()
-            with counts:
+            rungs.rungs = []
+            with counts, rungs:
                 res = kss.register_pair(src, tgt, cfg)
             aligned = np.asarray(apply_similarity(res.transform, src))
             rmse = registration_measure(aligned, tgt)["rmse"]
             tr = res.transform
             rec = {
                 "name": name,
+                "index": index,
                 "n_source": int(src.shape[0]),
                 "n_target": int(tgt.shape[0]),
                 "chosen_candidate": int(res.chosen_candidate),
@@ -131,15 +184,19 @@ def main() -> int:
                 "translation": np.asarray(tr.translation, np.float64).tolist(),
                 "rmse": float(rmse),
             }
-            if args.escalation:
+            if args.escalation or args.overlap:
                 rec.update(escalated=counts.flagged > 0, escalation_won=counts.won > 0,
                            finisher=counts.finished > 0)
+            if args.overlap:
+                rec["rungs"] = rungs.rungs
             if threshold is not None:
                 pose = transform_rmse(aligned, src, gt)
                 rec.update(pose_rmse=float(pose), passed=bool(pose <= threshold))
             pairs.append(rec)
             extra = "".join(f" {k}={rec[k]}" for k in ("escalated", "escalation_won", "finisher",
                                                          "pose_rmse") if k in rec)
+            extra += "".join(f" {r['rung']}={'adopted' if r['adopted'] else 'ran' if r['ran'] else 'skipped'}"
+                             for r in rec.get("rungs", ()))
             print(f"{name}: cand={rec['chosen_candidate']} fit={rec['fitness']:.6g} "
                   f"iters={rec['icp_iterations']} rmse={rmse:.6f}{extra} "
                   f"({time.perf_counter() - t0:.1f} s)", file=sys.stderr, flush=True)
@@ -150,7 +207,7 @@ def main() -> int:
     knobs = {f.name: getattr(bench, f.name) for f in dataclasses.fields(bench)
              if getattr(bench, f.name) != getattr(DEFAULT_CONFIG, f.name)}
     platform = "jax " + jax.__version__ + " on cpu"
-    if not args.escalation:
+    if not (args.escalation or args.overlap):
         no_esc = dict(auto_escalate=False)
         out = {
             "platform": platform,
@@ -159,6 +216,16 @@ def main() -> int:
             "pairs": run(dataclasses.replace(DEFAULT_CONFIG, **no_esc), remesh),
             "bench_config": {"knobs": dict(knobs, **no_esc),
                              "pairs": run(dataclasses.replace(bench, **no_esc), remesh)},
+        }
+    elif args.overlap:
+        out = {
+            "platform": platform,
+            "note": ESCALATION_NOTE,
+            "rmse_band": 0.006,
+            "config": "DEFAULT_CONFIG (escalation and the overlap tier on)",
+            "pairs": run(DEFAULT_CONFIG, remesh),
+            "boards": {b: {"threshold": thr, "pairs": run(DEFAULT_CONFIG, corpus, thr)}
+                       for b, corpus, thr in challenge_corpus(include_hard=True)},
         }
     else:
         esc = dict(overlap_escalate=False)
@@ -176,8 +243,9 @@ def main() -> int:
             "boards": {b: {"threshold": thr, "pairs": run(base, corpus, thr)}
                        for b, (corpus, thr) in boards.items()},
         }
+    out["seconds"] = time.perf_counter() - t_start
     out_path.write_text(json.dumps(out, indent=1) + "\n")
-    print(f"wrote {out_path}", file=sys.stderr)
+    print(f"wrote {out_path} in {out['seconds']:.0f} s", file=sys.stderr)
     return 0
 
 

@@ -368,6 +368,27 @@ def test_field_kernels_give_the_same_bits_under_every_plan(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FIELD_CARD_CASES))
+def test_field_trim_kernel_matches_plain_bit_for_bit(cuda_device, case):
+    """The per-point mode: every (rotation, point) distance equals the plain
+    version's bits (the min is exact), 0 at masked source points, under every
+    plan; the trimmed field equals the plain one's bits too."""
+    from kss_icp_torch.ops.coarse_cuda import (FIELD_SLOTS, field_trim, field_trim_distances,
+                                               field_trim_plain, rotate_sources)
+    from kss_icp_torch.ops.nn import nn_distances
+
+    src, smask, tgt, tmask, rots = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
+    rotated, weight = rotate_sources(rots, src), smask.to(torch.float32)
+    want = nn_distances(rotated, smask, tgt, tmask)
+    before = field_trim.launches
+    for slots in FIELD_SLOTS:
+        assert torch.equal(field_trim_distances(rotated, weight, tgt, tmask, slots), want), slots
+    got = field_trim(src, smask, tgt, tmask, rots, 0.7)
+    assert field_trim.launches == before + len(FIELD_SLOTS) + 1
+    assert torch.equal(got, field_trim_plain(src, smask, tgt, tmask, rots, 0.7))
+
+
+@pytest.mark.cuda
 def test_icp_on_the_card_matches_cpu(cuda_device):
     rng = np.random.default_rng(3)
     tgt = random_cloud(rng, 2048).astype(np.float32)
@@ -424,6 +445,79 @@ def test_escalated_pair_on_the_card_matches_cpu(cuda_device, method):
         assert res.coarse.field.shape in ((4, 4, 4), (6, 6, 6))
     assert abs(rmse[0] - rmse[1]) <= 1e-4, rmse
     assert field.launches == 2  # the base grid and the escalation grid
+
+
+@pytest.mark.cuda
+def test_trimmed_scaled_icp_on_the_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(4)
+    tgt = random_cloud(rng, 2048).astype(np.float32)
+    base = tgt[rng.permutation(2048)[:512]] + rng.normal(0, 0.01, size=(512, 3)).astype(np.float32)
+    base[:100] += 0.3  # points without a counterpart: the trim's work
+    rots = euler_xyz_matrix(_t(rng.uniform(-0.4, 0.4, size=(8, 3)).astype(np.float32)))
+    src = 1.2 * torch.einsum("lij,nj->lni", rots, _t(base)) + 0.05
+    smask, tmask = torch.ones(512, dtype=torch.bool), torch.ones(2048, dtype=torch.bool)
+    params = ICPParams.from_config(KSSICPConfig(rotation_epsilon=-1.0))._replace(max_iterations=40)
+    kw = dict(trim_fraction=0.7, estimate_scale=True)
+    cpu = icp(src, smask, _t(tgt), tmask, params, **kw)
+    gpu = icp(*(x.to(cuda_device) for x in (src, smask, _t(tgt), tmask)), params, **kw)
+    assert torch.equal(gpu.iterations.cpu(), cpu.iterations)
+    for f in ("rotation", "translation", "scale"):
+        np.testing.assert_allclose(getattr(gpu, f).cpu().numpy(), getattr(cpu, f).numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_overlap_ladder_on_the_card_matches_cpu(cuda_device):
+    """A partial pair through the whole ladder at tiny sizes: the same rungs
+    run on the card as on the CPU, field_trim and nn1's per-lane references
+    launched."""
+    from kss_icp_torch.challenge import partial_corpus
+    from kss_icp_torch.ops.coarse_cuda import field_trim
+
+    cfg = KSSICPConfig(rotation_steps=4, max_candidates=4, max_resample_points=160, resample_pad=192,
+                       max_icp_iterations=12, screen_points=64, refine_candidates=2, escalate_rotation_steps=5,
+                       escalate_max_candidates=5, escalate_coarse_points=64, escalate_coarse_target_points=64,
+                       overlap_screen_steps=4, overlap_screen_iters=4, overlap_iterations=2,
+                       escalate_threshold=1e-9, overlap_threshold=1e-9, overlap_adopt_margin=0.8)
+    name, src, tgt, gt = partial_corpus(n_points=1500)[7]
+    field_trim.launches = 0
+    runs = []
+    for device in ("cpu", cuda_device):
+        stages = []
+        res = kt.register_pair(src, tgt, cfg, device=device, timer=lambda s: stages.append(s) or _null())
+        runs.append((stages, res))
+    assert runs[0][0] == runs[1][0] and {"overlap8", "overlap16", "overlap_screen"} <= set(runs[0][0])
+    for f in ("rotation", "translation", "scale"):
+        np.testing.assert_allclose(getattr(runs[1][1].transform, f).cpu().numpy(),
+                                   getattr(runs[0][1].transform, f).numpy(), atol=1e-4)
+    # Two overlap solves of 2 fields each (the 4^3 and 5^3 grids).
+    assert field_trim.launches == 4
+
+
+@pytest.mark.cuda
+def test_overlap_mode_on_the_card_matches_cpu(cuda_device):
+    """overlap_mode=True as the JAX package's CLI sets it (`--overlap`:
+    cfg.overlap_config()): the overlap solve alone, its 2 trimmed fields on
+    the card."""
+    from kss_icp_torch.challenge import partial_corpus
+    from kss_icp_torch.ops.coarse_cuda import field_trim
+
+    cfg = KSSICPConfig(rotation_steps=4, max_candidates=4, max_resample_points=160, resample_pad=192,
+                       max_icp_iterations=12, screen_points=64, refine_candidates=2,
+                       overlap_iterations=2).overlap_config()
+    name, src, tgt, gt = partial_corpus(n_points=1500)[2]
+    field_trim.launches = 0
+    cpu, gpu = (kt.register_pair(src, tgt, cfg, device=d) for d in ("cpu", cuda_device))
+    for f in ("rotation", "translation", "scale"):
+        np.testing.assert_allclose(getattr(gpu.transform, f).cpu().numpy(), getattr(cpu.transform, f).numpy(),
+                                   atol=1e-4)
+    np.testing.assert_allclose(float(gpu.fitness), float(cpu.fitness), rtol=1e-3)
+    assert field_trim.launches == 2
+
+
+def _null():
+    import contextlib
+
+    return contextlib.nullcontext()
 
 
 @pytest.mark.cuda

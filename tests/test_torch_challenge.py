@@ -12,6 +12,8 @@ from kss_icp_tpu.stress import rot_xyz
 
 @pytest.mark.parametrize("corpus, kw", [
     ("category_corpus", dict(instances=6, n_points=300)),  # instances past 5 take the later perturbations
+    ("partial_corpus", dict(n_points=300)),
+    ("partial_corpus", dict(n_points=300, keep=0.8)),  # the hard tier
     ("deform_corpus", dict(n_points=300)),
     ("scale_corpus", dict(n_points=300)),
 ])
@@ -34,7 +36,9 @@ def test_rot_xyz_and_transform_rmse_equal_jax(rng):
 
 
 def test_boards_match_the_jax_registry():
-    want = {name: thr for name, _, thr in jch.challenge_corpus()}
-    assert [(b, fn.__name__) for b, fn, _ in tch.BOARDS] == [
-        ("category", "category_corpus"), ("deform", "deform_corpus"), ("scale", "scale_corpus")]
-    assert all(want[b] == thr for b, _, thr in tch.BOARDS)
+    want = [(name, thr) for name, _, thr in jch.challenge_corpus(include_hard=True)]
+    assert [(b, thr) for b, _, thr in tch.BOARDS] == want
+    assert [getattr(fn, "func", fn).__name__ for _, fn, _ in tch.BOARDS] == [
+        "category_corpus", "partial_corpus", "deform_corpus", "scale_corpus", "partial_corpus"]
+    assert tch.BOARDS[-1][1].keywords == {"keep": 0.8}
+    assert [b for b, _, _ in tch.challenge_corpus()] == [b for b, _, _ in jch.challenge_corpus()]

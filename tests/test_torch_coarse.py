@@ -176,5 +176,8 @@ def test_coarse_align_dot_method_matches_jax(rng):
 def test_other_field_metrics_are_not_ported(rng):
     x = torch.zeros((4, 3))
     m = torch.ones((4,), dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        tc.score_rotation_field(x, m, x, m, steps=2, error_metric="trim")
+    for metric in ("max", "diff"):  # "trim" is ported: tests/test_torch_overlap.py
+        with pytest.raises(NotImplementedError):
+            tc.score_rotation_field(x, m, x, m, steps=2, error_metric=metric)
+    with pytest.raises(ValueError):
+        tc.score_rotation_field(x, m, x, m, steps=2, error_metric="no such metric")

@@ -1,8 +1,10 @@
 """The port imports without jax, keeps the JAX package's config, refuses the
-knobs it does not implement (and runs the ones it does as JAX does), and its
-CPU path launches no kernel."""
+knobs it does not implement (and runs the ones it does as JAX does, the
+shipped DEFAULT_CONFIG's overlap tier included), and its CPU path launches
+no kernel."""
 
 import ast
+import contextlib
 import dataclasses
 import subprocess
 import sys
@@ -14,7 +16,7 @@ import torch
 
 import kss_icp_torch.config as tcfg
 from kss_icp_torch.models import kss_icp as tk
-from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot
+from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
 from kss_icp_torch.ops.nn_cuda import nn1
 from kss_icp_torch.ops.resample_cuda import fps
 from kss_icp_tpu import config as jcfg
@@ -90,7 +92,7 @@ _NO_ESC = tcfg.KSSICPConfig(rotation_steps=2, max_candidates=2, max_resample_poi
                             max_icp_iterations=2, auto_escalate=False)
 # (knobs, read by register_resampled too?)
 UNPORTED = [
-    (dict(auto_escalate=True), False),  # overlap_escalate defaults to True: the overlap tier
+    (dict(auto_escalate=True), False),  # overlap_escalate defaults to True: the overlap tier, ported
     (dict(auto_escalate=True, overlap_escalate=True), False),
     (dict(overlap_mode=True), False),
     (dict(refine_polish_iterations=4, refine_max_iterations=8), False),
@@ -100,12 +102,16 @@ UNPORTED = [
     (dict(icp_variant="point_to_plane"), True),
     (dict(coarse_error_metric="trim"), True),
     (dict(coarse_error_metric="max"), True),
+    (dict(coarse_error_metric="diff"), True),
     (dict(icp_trim_fraction=0.7), True),
     (dict(icp_estimate_scale=True), True),
 ]
 
 
-PORTED = [dict(pose_tiebreak_margin=0.12)]
+# Ported knobs: each case holds the port's register_pair to JAX's on the same inputs.
+PORTED = [dict(pose_tiebreak_margin=0.12), dict(auto_escalate=True), dict(auto_escalate=True, overlap_escalate=True),
+          dict(overlap_mode=True), dict(coarse_error_metric="trim"), dict(icp_trim_fraction=0.7),
+          dict(icp_estimate_scale=True)]
 
 
 @pytest.mark.parametrize("knobs, in_core", UNPORTED, ids=[",".join(k) for k, _ in UNPORTED])
@@ -114,15 +120,23 @@ def test_unported_knobs_raise(rng, monkeypatch, knobs, in_core):
     pts = rng.uniform(-1, 1, size=(40, 3)).astype(np.float32)
     if knobs in PORTED:
         # A target the source does not fit: the multistart gate fails, so the
-        # tie-break picks the lane (in JAX: used_multistart).
+        # tie-break picks the lane (in JAX: used_multistart), and a flagged
+        # pair climbs the whole escalation ladder.
         tgt = rng.uniform(-1, 1, size=(40, 3)).astype(np.float32)
         calls, select = [], tk._pose_tiebreak_select
         monkeypatch.setattr(tk, "_pose_tiebreak_select", lambda *a: calls.append(a) or select(*a))
         want = jk.register_pair(pts, tgt, jcfg.KSSICPConfig(**dataclasses.asdict(cfg)))
         got = tk.register_pair(pts, tgt, cfg, device="cpu")
-        assert bool(want.used_multistart) and bool(got.used_multistart) and len(calls) == 1
-        assert int(got.chosen_candidate) == int(want.chosen_candidate)
+        if "pose_tiebreak_margin" in knobs:
+            assert bool(want.used_multistart) and bool(got.used_multistart) and len(calls) == 1
+        if "auto_escalate" not in knobs:
+            # Here two lanes of the 16^3 re-solve converge to one pose, their
+            # fitnesses a few ulps apart, and the tie-break may take either.
+            assert int(got.chosen_candidate) == int(want.chosen_candidate)
         np.testing.assert_allclose(float(got.fitness), float(want.fitness), rtol=1e-3, atol=1e-7)
+        for f in ("scale", "rotation", "translation"):
+            np.testing.assert_allclose(getattr(got.transform, f).numpy(), np.asarray(getattr(want.transform, f)),
+                                       atol=1e-4)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tk.register_pair(pts, pts, cfg, device="cpu")
@@ -133,14 +147,32 @@ def test_unported_knobs_raise(rng, monkeypatch, knobs, in_core):
 
 
 def test_escalation_with_the_overlap_tier_raises_before_any_work(monkeypatch):
+    """The shipped ladder is ported; a knob that is not, set beside it, is
+    still refused before any work."""
     def no_work(*a, **kw):
         raise AssertionError("register_pair started work before refusing the config")
 
     monkeypatch.setattr(tk, "resample_batch", no_work)
     pts = np.zeros((40, 3), np.float32)
-    for cfg in (tcfg.DEFAULT_CONFIG, dataclasses.replace(_NO_ESC, auto_escalate=True)):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    for cfg in (dataclasses.replace(tcfg.DEFAULT_CONFIG, refine_polish_iterations=4, refine_max_iterations=8),
+                dataclasses.replace(_NO_ESC, auto_escalate=True, resampler="aivs")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             tk.register_pair(pts, pts, cfg, device="cpu")
+
+
+def test_default_config_runs_the_overlap_ladder(rng):
+    """DEFAULT_CONFIG, shrunk to tiny sizes with every threshold at 0, runs
+    the base solve, the escalation and the three overlap rungs, no knob
+    refused."""
+    cfg = dataclasses.replace(tcfg.DEFAULT_CONFIG, max_resample_points=48, resample_pad=64, max_icp_iterations=4,
+                              rotation_steps=3, escalate_rotation_steps=4, overlap_screen_steps=3,
+                              escalate_threshold=0.0, overlap_threshold=0.0, overlap_gate_ratio=1e9)
+    stages = []
+    pts = rng.uniform(-1, 1, size=(100, 3)).astype(np.float32)
+    res = tk.register_pair(pts, pts[::-1] * 1.3, cfg, device="cpu",
+                           timer=lambda s: stages.append(s) or contextlib.nullcontext())
+    assert {"resample", "escalate", "overlap8", "overlap16", "overlap_screen"} <= set(stages)
+    assert bool(torch.isfinite(res.fitness)) and bool(torch.isfinite(res.transform.rotation).all())
 
 
 def test_cuda_device_without_a_card_raises():
@@ -152,11 +184,12 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_cpu_wrappers_launch_no_kernel(rng):
-    before = (nn1.launches, fps.launches, field_ave.launches, field_dot.launches)
+    before = (nn1.launches, fps.launches, field_ave.launches, field_dot.launches, field_trim.launches)
     pts = torch.as_tensor(rng.uniform(-1, 1, size=(2, 50, 3)).astype(np.float32))
     mask = torch.ones((2, 50), dtype=torch.bool)
     nn1(pts, pts, mask)
     fps(pts, mask, 10)
     field_ave(pts[0], mask[0], pts[1], mask[1], torch.eye(3)[None])
     field_dot(pts[0], mask[0], pts[1], mask[1], torch.eye(3)[None], precision="default")
-    assert (nn1.launches, fps.launches, field_ave.launches, field_dot.launches) == before
+    field_trim(pts[0], mask[0], pts[1], mask[1], torch.eye(3)[None], 0.7)
+    assert (nn1.launches, fps.launches, field_ave.launches, field_dot.launches, field_trim.launches) == before
