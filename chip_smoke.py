@@ -15,9 +15,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
      nn1 at the screen, escalation screen, refine, metric and K4 shapes
      and at the overlap screen rung's: 512 lanes x 512 x 2048, the forward
      fitness 512 x 2048 x 2048 and the reverse one against 512 per-lane
-     references (lane_ref = arange);
-     fps at B=2 x 8192 -> 2048 and at the largest remesh pair's padded
-     source and target with steps = pnumber; field_ave, and field_dot at
+     references (lane_ref = arange); and at register_many's shapes, a cloud
+     a pair (lane_ref = the lane's pair): the batch screen (25 x 32) x 512 x
+     2048, the batch refine (25 x 4) x 2048 x 2048 and the batch metric
+     25 x 8192 x 8192;
+     fps at B=2 x 8192 -> 2048, at the largest remesh pair's padded
+     source and target with steps = pnumber, and over the remesh 25's 50
+     clouds at full_pad 8192 with steps = the largest pnumber; field_ave, and field_dot at
      "highest" and "default", on the base grid C=512, P=T=2048 and the
      escalation grid C=4096, P=T=512, mostly valid, and on the base grid
      with both clouds suffix-masked to the largest and smallest remesh
@@ -52,12 +56,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
           five boards (64 pairs, partial and partial_hard included): the
           pass/fail set equal to JAX's, se/7 excepted, each pair's overlap
           rungs (skipped, run, adopted) printed beside JAX's;
+       e. register_many at the unmodified DEFAULT_CONFIG
+          (fixtures/torch_port_expected_batch.json, JAX's register_many on
+          the CPU): the remesh 25 as one batch after a warm-up batch, every
+          pair within JAX + 0.006 and escalated as in JAX, pairs/s unsynced
+          beside 4d's single-pair figure, stage seconds and lockstep ICP
+          iterations from a synced pass beside 4d's sums over the pairs;
+          then the five boards' 64 pairs as one batch: the pass/fail set
+          equal to JAX's, se/7 excepted, every pair escalated and its
+          overlap rungs run and adopted as in JAX; each pair's difference
+          from register_pair (4d) printed;
      every pass zeroes the kernels' launch counts before it and checks them
      after: nn1 and fps on every pass, field_ave on the "vpu" passes only,
      field_dot on the dot pass only and on both of its grids, field_trim on
-     4d only, where an overlap rung must have run on the partial boards and
-     nn1 launched the screen rung's 512-lane solve; each pass prints its
-     histogram of nn1 launch shapes (L, Q, R);
+     4d and 4e only, where an overlap rung must have run on the partial
+     boards and nn1 launched the screen rung's 512-lane solve; in 4e one
+     fps launch a batch, one field_ave launch a pair and grid and one
+     field_trim launch a pair, overlap solve and field rung; each pass
+     prints its histogram of nn1 launch shapes (L, Q, R);
   5. a measurement that gates nothing: on each remesh pair's 8³ field, does
      field_dot at "default" (one bf16 pass) keep candidate 0 and the top-6
      set of "highest" and of field_ave?
@@ -83,6 +99,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 FIXTURES = REPO / "fixtures"
 RMSE_BAND = 0.006
+BATCH_PAD = 8192  # register_many's full_pad
 # bench.py:110-112 (bench_config), restated because bench.py needs jax.
 BENCH_KNOBS = dict(max_candidates=6, coarse_points=512, coarse_target_points=512,
                    refine_candidates=2, refine_tier_iterations=12, refine_max_iterations=16)
@@ -150,23 +167,31 @@ def phase_kernels(torch, dev) -> dict:
         return torch.as_tensor(x, device=dev)
 
     cases = []
-    # (lanes, queries, reference rows, reference clouds, label): G = lanes gives
-    # each lane its own cloud through lane_ref = arange, as the overlap screen's
-    # reverse fitness does.
-    for lanes, q_n, r_n, groups, label in (
-            (32, 512, 2048, 1, "screen ICP"), (16, 512, 2048, 1, "escalation screen ICP"),
-            (4, 2048, 2048, 1, "refine ICP"), (1, 3072, 8192, 1, "metric, largest remesh pair"),
-            (1, 65536, 65536, 1, "K4 metric regime"), (512, 512, 2048, 1, "overlap screen ICP"),
-            (512, 2048, 2048, 1, "overlap screen fitness, forward"),
-            (512, 2048, 2048, 512, "overlap screen fitness, reverse: per-lane references")):
+    # (lanes, queries, reference rows, reference clouds, label, valid rows):
+    # G = lanes gives each lane its own cloud through lane_ref = arange, as the
+    # overlap screen's reverse fitness does; 1 < G < lanes gives each of G
+    # pairs lanes / G lanes against its own cloud, as register_many's ICP
+    # stages and metric do, each cloud with a valid prefix drawn from the
+    # remesh 25's range (pnumber 378-1534 of 2048; targets 3951-8000 of 8192).
+    for lanes, q_n, r_n, groups, label, valid in (
+            (32, 512, 2048, 1, "screen ICP", None), (16, 512, 2048, 1, "escalation screen ICP", None),
+            (4, 2048, 2048, 1, "refine ICP", None), (1, 3072, 8192, 1, "metric, largest remesh pair", None),
+            (1, 65536, 65536, 1, "K4 metric regime", None), (512, 512, 2048, 1, "overlap screen ICP", None),
+            (512, 2048, 2048, 1, "overlap screen fitness, forward", None),
+            (512, 2048, 2048, 512, "overlap screen fitness, reverse: per-lane references", None),
+            (25 * 32, 512, 2048, 25, "batch screen ICP: 25 pairs x 32 lanes, a cloud a pair", (378, 1534)),
+            (25 * 4, 2048, 2048, 25, "batch refine ICP: 25 pairs x 4 lanes, a cloud a pair", (378, 1534)),
+            (25, 8192, 8192, 25, "batch metric: lane b against cloud b", (3951, 8000))):
         query = t(np.stack([cloud(rng, q_n) for _ in range(lanes)]))
         ref = t(np.stack([cloud(rng, r_n) for _ in range(groups)]))
         mask = torch.ones((groups, r_n), dtype=torch.bool, device=dev)
-        mask[:, r_n - r_n // 40:] = False  # a padded tail, as 2000 of 2048
-        if groups > 1:
+        if valid is not None:  # each pair's cloud its own valid prefix
+            mask &= torch.arange(r_n, device=dev)[None] < t(rng.integers(*valid, size=(groups, 1)))
+        else:
+            mask[:, r_n - r_n // 40:] = False  # a padded tail, as 2000 of 2048
+        if groups == lanes > 1:
             mask &= t(rng.uniform(size=(groups, r_n)) < 0.7)  # each lane its own inlier mask
-        lane_ref = torch.arange(lanes, dtype=torch.int32, device=dev) if groups > 1 else \
-            torch.zeros((lanes,), dtype=torch.int32, device=dev)
+        lane_ref = torch.arange(groups, dtype=torch.int32, device=dev).repeat_interleave(lanes // groups)
         d2k, ik = nn1(query, ref, mask, lane_ref)
         d2p, ip = nn1_plain(query, ref, mask, lane_ref)
         torch.cuda.synchronize()
@@ -183,14 +208,16 @@ def phase_kernels(torch, dev) -> dict:
             # 4096 queries a call keeps cdist's (Q, R) output at 1 GiB in the K4 regime.
             yard_ms = time_ms(lambda: [torch.cdist(query[:, a:a + 4096], valid).min(-1)
                                        for a in range(0, q_n, 4096)], reps)
-        else:  # masked rows at +inf, 64 lanes a call
-            far = torch.where(mask[..., None], ref, torch.full_like(ref, float("inf")))
-            yard_ms = time_ms(lambda: [torch.cdist(query[a:a + 64], far[a:a + 64]).min(-1)
-                                       for a in range(0, lanes, 64)], reps)
+        else:  # each lane's cloud, masked rows at +inf, (Q, R) outputs of 1 GiB at the most a call
+            far = torch.where(mask[..., None], ref, torch.full_like(ref, float("inf")))[lane_ref.long()]
+            step = max(1, min(64, 2 ** 28 // (q_n * r_n)))
+            yard_ms = time_ms(lambda: [torch.cdist(query[a:a + step], far[a:a + step]).min(-1)
+                                       for a in range(0, lanes, step)], reps)
         # 3 sub + 3 mul + 2 add + 1 compare per query and valid reference row.
         evals = q_n * int(mask.sum()) * (lanes // groups)
         b = bound(9.0 * evals, 4 * (lanes * q_n * 3 + groups * r_n * 3) + groups * r_n + 8 * lanes * q_n)
         cases.append(dict({"shape": f"{lanes}x{q_n}x{r_n}" + (f" G={groups}" if groups > 1 else ""), "label": label,
+                           "lqr": [lanes, q_n, r_n],
                            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": err,
                            "yardstick_ms": yard_ms}, **b))
         log(f"  nn1 {lanes}x{q_n}x{r_n} G={groups} ({label}): indices and d2 identical; kernel {ms:.4f} ms a wrapper "
@@ -212,15 +239,27 @@ def phase_kernels(torch, dev) -> dict:
     from kss_icp_torch.config import DEFAULT_CONFIG
     from kss_icp_torch.core.cloud import PointCloud
 
-    _, src, tgt = max(load_pairs(), key=lambda r: DEFAULT_CONFIG.resample_count(len(r[1]), len(r[2])))
+    remesh = load_pairs()
+    _, src, tgt = max(remesh, key=lambda r: DEFAULT_CONFIG.resample_count(len(r[1]), len(r[2])))
     steps = DEFAULT_CONFIG.resample_count(len(src), len(tgt))
     for points, label in ((src, "remesh source"), (tgt, "remesh target")):
         c = PointCloud.from_points(points, device=dev)
         fps_cases.append((c.points[None].contiguous(), c.mask[None].contiguous(), DEFAULT_CONFIG.resample_pad,
                           steps, label))
+    # register_many's one launch: the remesh 25's sources and targets padded
+    # to full_pad 8192, steps = the largest pnumber; pair b needs pnumber_b picks.
+    counts = [DEFAULT_CONFIG.resample_count(len(a), len(b)) for _, a, b in remesh]
+    clouds = [a for _, a, _ in remesh] + [b for _, _, b in remesh]
+    pts = np.zeros((len(clouds), BATCH_PAD, 3), np.float32)
+    for i, c in enumerate(clouds):
+        pts[i, :len(c)] = c
+    bmask = t(np.arange(BATCH_PAD)[None] < np.array([len(c) for c in clouds])[:, None])
+    fps_cases.append((t(pts), bmask, DEFAULT_CONFIG.resample_pad, max(counts),
+                      "batch resample: the remesh 25's 50 clouds at full_pad 8192", counts + counts))
     cases = []
-    for pts, pmask, s, steps, label in fps_cases:
+    for pts, pmask, s, steps, label, *picks in fps_cases:
         b_n, p_n = pmask.shape
+        picks = np.array(picks[0] if picks else [steps] * b_n)
         ik, smk = fps(pts, pmask, s, steps)
         ip, smp = farthest_point_sampling(pts, pmask, s, steps)
         torch.cuda.synchronize()
@@ -231,7 +270,8 @@ def phase_kernels(torch, dev) -> dict:
         plain_ms = time_ms(lambda: farthest_point_sampling(pts, pmask, s, steps), 2)
         # Per step and valid point: 3 sub + 3 mul + 2 add + 1 min + 1 compare. The
         # steps are a dependency chain the bound does not see (PERF.md).
-        b = bound(10.0 * steps * int(pmask.sum()), 4 * b_n * p_n * 3 + b_n * p_n + b_n * s * 5)
+        b = bound(10.0 * float((picks * pmask.sum(dim=1).cpu().numpy()).sum()),
+                  4 * b_n * p_n * 3 + b_n * p_n + b_n * s * 5)
         cases.append(dict({"shape": f"{b_n}x{p_n}->{s}", "steps": steps, "label": label, "ms": ms,
                            "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": 0.0}, **b))
         log(f"  fps B={b_n} P={p_n} S={s} steps={steps} ({label}): indices identical; {ms:.4f} ms a wrapper call "
@@ -382,12 +422,17 @@ def load_pairs():
 
 
 class StageTimer:
-    """The register_pair `timer` hook: records which stages ran for the
-    current pair and, with sync=True, their seconds (a sync at each border)."""
+    """The register_pair / register_many `timer` hook: records which stages
+    ran for the current pair, the ICP loops' lockstep iterations in each
+    (models/icp.py's counter) and, with sync=True, their seconds (a sync at
+    each border)."""
 
     def __init__(self, torch, sync: bool):
-        self.torch, self.sync = torch, sync
+        from kss_icp_torch.models.icp import icp
+
+        self.torch, self.sync, self.icp = torch, sync, icp
         self.seconds = defaultdict(float)
+        self.iterations = defaultdict(int)
         self.ran = set()
 
     @contextlib.contextmanager
@@ -395,8 +440,9 @@ class StageTimer:
         self.ran.add(name)
         if self.sync:
             self.torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0, it0 = time.perf_counter(), self.icp.lockstep_iterations
         yield
+        self.iterations[name] += self.icp.lockstep_iterations - it0
         if self.sync:
             self.torch.cuda.synchronize()
             self.seconds[name] += time.perf_counter() - t0
@@ -455,6 +501,70 @@ class RungLog:
         return [rung_state(r) for r in self.rungs]
 
 
+class LadderLog:
+    """Records the escalation ladder of one `register_many` call, in either
+    package (kss_icp_torch.escalate, or kss_icp_tpu's in
+    scripts/torch_port_expected.py and the tests): wraps the escalate
+    module's escalate_rerun, polish_rerun and overlap_rerun while entered
+    (register_many imports them at call time). Per row of the batch:
+    `escalated` (flagged for the 16^3 re-solve), `won` (the re-solve kept),
+    `finisher` (the uncapped finisher ran) and `rungs`, one entry per
+    overlap rung the row reached (its fitness above the threshold) in the
+    RungLog format: skipped by the crop gate, run, adopted, with the trimmed
+    fitnesses tf_old and tf_new of a rung that ran."""
+
+    def __init__(self, escalate, n: int):
+        self.escalate = escalate
+        self.escalated, self.won, self.finisher = (np.zeros(n, bool) for _ in range(3))
+        self.rungs = [[] for _ in range(n)]
+        self.in_polish, self.n_rungs = False, 0
+        self.orig = {k: getattr(escalate, k) for k in ("escalate_rerun", "polish_rerun", "overlap_rerun")}
+
+    def __enter__(self):
+        def rerun(resolve, fitness, threshold, pad_multiple, result=None, cap=None, chunk=None, flags=None, **kw):
+            out = self.orig["escalate_rerun"](resolve, fitness, threshold, pad_multiple, result=result, cap=cap,
+                                              chunk=chunk, flags=flags, **kw)
+            if not self.in_polish:  # polish_rerun runs through escalate_rerun
+                self.escalated |= np.asarray(flags, bool) if flags is not None else np.asarray(fitness) > threshold
+                self.won[[gi for gi, _, _ in out[2]]] = True
+            return out
+
+        def polish(resolve, hit_cap, fitness, pad_multiple, result=None, cap=None, chunk=None):
+            self.finisher |= np.asarray(hit_cap, bool)
+            self.in_polish = True
+            try:
+                return self.orig["polish_rerun"](resolve, hit_cap, fitness, pad_multiple, result=result, cap=cap,
+                                                 chunk=chunk)
+            finally:
+                self.in_polish = False
+
+        def overlap(resolve, fitness, threshold, pad_multiple, margin, result=None, cap=None, chunk=None, flags=None):
+            rung, seen = RUNGS[self.n_rungs], {}
+            self.n_rungs += 1
+
+            def resolve_seen(sel):
+                out = resolve(sel)
+                for j, gi in enumerate(np.asarray(sel)):
+                    seen.setdefault(int(gi), (float(out[2][j]), float(out[3][j])))
+                return out
+
+            out = self.orig["overlap_rerun"](resolve_seen, fitness, threshold, pad_multiple, margin, result=result,
+                                             cap=cap, chunk=chunk, flags=flags)
+            adopted = {gi for gi, _, _ in out[2]}
+            for gi in np.nonzero(np.asarray(fitness) > threshold)[0]:
+                tf_new, tf_old = seen.get(int(gi), (None, None))
+                self.rungs[gi].append({"rung": rung, "tf_old": tf_old, "skipped": int(gi) not in seen,
+                                       "ran": int(gi) in seen, "adopted": int(gi) in adopted, "tf_new": tf_new})
+            return out
+
+        self.escalate.escalate_rerun, self.escalate.polish_rerun, self.escalate.overlap_rerun = rerun, polish, overlap
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.escalate, k, fn)
+
+
 def rung_state(r: dict) -> str:
     return "adopted" if r["adopted"] else "ran" if r["ran"] else "skipped"
 
@@ -489,6 +599,7 @@ def drive(torch, dev, cfg, pairs, counters, timer, label, judge, rung_log=None):
         dt = time.perf_counter() - t0
         total += dt
         rows.append(dict(judge(name, src, m, aligned), name=name, s=dt, cand=int(res.chosen_candidate),
+                         transform=[x.cpu().numpy() for x in res.transform],
                          iters=int(res.icp_iterations), escalated="escalate" in timer.ran,
                          won=res.coarse.field.shape[0] == cfg.escalate_rotation_steps and cfg.auto_escalate,
                          finisher="finish" in timer.ran,
@@ -679,8 +790,11 @@ def phase_default_config(torch, dev, kernels: dict, e2e: dict) -> None:
         _, staged, _ = drive(torch, dev, cfg, pairs, counters, timer, label + " staged", judge, rung_log)
         log(f"  [{label}] stage seconds over all pairs (synced pass, {staged:.3f} s): " +
             ", ".join(f"{k} {v:.4f}" for k, v in timer.seconds.items()))
+        log(f"  [{label}] lockstep ICP iterations by stage, summed over the pairs: " +
+            ", ".join(f"{k} {v}" for k, v in timer.iterations.items() if v))
         e2e["passes"][label] = {"pairs_per_s": len(rows) / total, "seconds": total, "launches": launches,
-                                "escalation": counts, "stage_seconds": dict(timer.seconds), "staged_seconds": staged}
+                                "escalation": counts, "stage_seconds": dict(timer.seconds), "staged_seconds": staged,
+                                "stage_iterations": dict(timer.iterations), "rows": rows}
 
         log("== 4d. DEFAULT_CONFIG: the five boards (64 pairs)")
         # Pairs are named board:pair, since partial and partial_hard share pair names.
@@ -732,10 +846,166 @@ def phase_default_config(torch, dev, kernels: dict, e2e: dict) -> None:
         f"{len(rows) / total:.3f} pairs/s (synced)")
     log(f"  [shipped boards] stage seconds (synced pass, {total:.3f} s): " +
         ", ".join(f"{k} {v:.4f}" for k, v in timer.seconds.items()))
+    log("  [shipped boards] lockstep ICP iterations by stage, summed over the pairs: " +
+        ", ".join(f"{k} {v}" for k, v in timer.iterations.items() if v))
     e2e["passes"]["shipped boards"] = {"pairs_per_s": len(rows) / total, "seconds": total, "launches": launches,
                                        "passed": {b: v[0] for b, v in passed.items()}, "rungs_run": runs,
-                                       "rungs_adopted": adopted, "stage_seconds": dict(timer.seconds)}
+                                       "rungs_adopted": adopted, "stage_seconds": dict(timer.seconds),
+                                       "stage_iterations": dict(timer.iterations), "rows": rows}
     kernels["field_trim"]["launches"] = launches["field_trim"]
+
+
+def check_batch_launches(label, launches, n_pairs: int, ladder, cfg) -> None:
+    """register_many's launches: one fps launch for the batch's resample; one
+    field_ave launch a pair on the base grid and an escalated pair on the 16^3
+    grid; one field_trim launch a pair, overlap solve and field rung run."""
+    field_runs = sum(r["ran"] for rows in ladder.rungs for r in rows if r["rung"] != "overlap_screen")
+    want = {"fps": 1, "field_ave": n_pairs + int(ladder.escalated.sum()), "field_dot": 0,
+            "field_trim": cfg.overlap_iterations * field_runs}
+    got = {k: launches[k] for k in want}
+    require(got == want and launches["nn1"] > 0, f"{label}: launches {got}, expected {want} (nn1 {launches['nn1']})")
+
+
+def drive_many(torch, dev, cfg, pairs, counters, timer, label):
+    """One register_many call over `pairs` [(name, src, tgt)], the launch
+    counts zeroed just before it. Returns (result, metrics, ladder, seconds,
+    launches)."""
+    import kss_icp_torch as kt
+    from kss_icp_torch import escalate
+
+    for fn in counters.values():
+        fn.launches = 0
+    counters["nn1"].launch_shapes.clear()
+    with LadderLog(escalate, len(pairs)) as ladder:
+        t0 = time.perf_counter()
+        res, metrics = kt.register_many([(a, b) for _, a, b in pairs], cfg, full_pad=BATCH_PAD, device=dev,
+                                        timer=timer)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    shapes = sorted(counters["nn1"].launch_shapes.items(), key=lambda kv: -kv[1])
+    log(f"  [{label}] kernel launches: {launches}")
+    log(f"  [{label}] nn1 launches by shape (L x Q x R): " + ", ".join(f"{l}x{q}x{r} {n}" for (l, q, r), n in shapes))
+    launches["nn1_shapes"] = {f"{l}x{q}x{r}": n for (l, q, r), n in shapes}
+    return res, metrics, ladder, seconds, launches
+
+
+def report_pair_difference(label, b, name, res, rmse, single) -> str:
+    """Pair b of a register_many result against register_pair's row for it."""
+    tr = [x[b].cpu().numpy() for x in res.transform]
+    pose = max(float(np.abs(a - c).max()) for a, c in zip(tr, single["transform"]))
+    return (f"  [{label}] {name}: vs register_pair: rmse {rmse:.6f} ({single['rmse']:.6f}), cand "
+            f"{int(res.chosen_candidate[b])} ({single['cand']}), transform max|diff| {pose:.2e}")
+
+
+def phase_many(torch, dev, kernels: dict, e2e: dict) -> None:
+    """4e: register_many at the unmodified DEFAULT_CONFIG against
+    fixtures/torch_port_expected_batch.json: the remesh 25 as one batch,
+    then the five boards' 64 pairs as another."""
+    import kss_icp_torch as kt
+    from kss_icp_torch.challenge import BOARDS, transform_rmse
+    from kss_icp_torch.config import DEFAULT_CONFIG as cfg
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
+    from kss_icp_torch.ops.nn_cuda import nn1
+    from kss_icp_torch.ops.resample_cuda import fps
+
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim}
+    exp = json.loads((FIXTURES / "torch_port_expected_batch.json").read_text())
+    pairs = load_pairs()
+    expected = [p for p in exp["pairs"]]
+    require([p["name"] for p in expected] == [n for n, _, _ in pairs], "the batch record's remesh pairs differ")
+    drive_many(torch, dev, cfg, pairs[:5], counters, None, "warm-up")
+    label = "many"
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, metrics, ladder, seconds, launches = drive_many(torch, dev, cfg, pairs, counters, StageTimer(torch, False),
+                                                         label)
+    log(f"  [{label}] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    check_batch_launches(label, launches, len(pairs), ladder, cfg)
+    single = {r["name"]: r for r in e2e["passes"]["shipped"]["rows"]}
+    failures = []
+    for b, (name, src, _) in enumerate(pairs):
+        j, rmse = expected[b], float(metrics["rmse"][b])
+        ok = np.isfinite(rmse) and rmse <= j["rmse"] + RMSE_BAND and bool(ladder.escalated[b]) == j["escalated"]
+        log(f"  [{label}] {name}: rmse {rmse:.6f} (jax {j['rmse']:.6f}) cand {int(res.chosen_candidate[b])} "
+            f"(jax {j['chosen_candidate']}) esc {int(ladder.escalated[b])}/{int(j['escalated'])} "
+            f"won {int(ladder.won[b])} fin {int(ladder.finisher[b])} rungs {rung_outcome(ladder.rungs[b])} "
+            f"(jax {rung_outcome(j['rungs'])}) {'ok' if ok else 'FAIL'}")
+        log(report_pair_difference(label, b, name, res, rmse, single[name]))
+        if not ok:
+            failures.append(name)
+    require(not failures, f"{label}: pairs outside JAX RMSE + {RMSE_BAND} or escalated unlike JAX: {failures}")
+    require(bool(torch.isfinite(res.transform.rotation).all()) and res.transform.rotation.shape == (len(pairs), 3, 3),
+            f"{label}: transforms not finite or of the wrong shape")
+    timer = StageTimer(torch, True)
+    _, _, _, staged, _ = drive_many(torch, dev, cfg, pairs, counters, timer, label + " staged")
+    per_pair = e2e["passes"]["shipped"]["stage_iterations"]
+    log(f"  [{label}] {len(pairs)} pairs in one batch: {len(pairs) / seconds:.3f} pairs/s (no stage syncs; register_pair one "
+        f"pair at a time in this run: {e2e['passes']['shipped']['pairs_per_s']:.3f} pairs/s)")
+    log(f"  [{label}] stage seconds (synced pass, {staged:.3f} s): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in timer.seconds.items()))
+    log(f"  [{label}] lockstep ICP iterations by stage: " +
+        ", ".join(f"{k} {v} (one pair at a time: {per_pair.get(k, 0)})" for k, v in timer.iterations.items() if v))
+    e2e["passes"][label] = {"pairs_per_s": len(pairs) / seconds, "seconds": seconds, "launches": launches,
+                            "stage_seconds": dict(timer.seconds), "staged_seconds": staged,
+                            "stage_iterations": dict(timer.iterations)}
+
+    log("== 4e. register_many at DEFAULT_CONFIG: the five boards (64 pairs) as one batch")
+    board_pairs, gt, threshold, jax_rows = [], {}, {}, {}
+    for board, corpus, thr in BOARDS:
+        for name, src, tgt, g in corpus():
+            board_pairs.append((f"{board}:{name}", src, tgt))
+            gt[f"{board}:{name}"], threshold[f"{board}:{name}"] = g, thr
+        for p in exp["boards"][board]["pairs"]:
+            jax_rows[f"{board}:{p['name']}"] = p
+    label = "many boards"
+    timer = StageTimer(torch, True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, metrics, ladder, seconds, launches = drive_many(torch, dev, cfg, board_pairs, counters, timer, label)
+    log(f"  [{label}] peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    check_batch_launches(label, launches, len(board_pairs), ladder, cfg)
+    single = {r["name"]: r for r in e2e["passes"]["shipped boards"]["rows"]}
+    mismatched, rungs_differ, runs, adopted = [], [], {"port": 0, "jax": 0}, {"port": 0, "jax": 0}
+    for b, (name, src, _) in enumerate(board_pairs):
+        j = jax_rows[name]
+        row = kt.Similarity(*(x[b] for x in res.transform))
+        aligned = kt.apply_similarity(row, torch.as_tensor(src, device=dev)).cpu().numpy()
+        pose = transform_rmse(aligned, src, gt[name])
+        passed = bool(pose <= threshold[name])
+        ours = [(r["rung"], r["ran"], r["adopted"]) for r in ladder.rungs[b]]
+        theirs = [(r["rung"], r["ran"], r["adopted"]) for r in j["rungs"]]
+        for who, rungs in (("port", ladder.rungs[b]), ("jax", j["rungs"])):
+            runs[who] += sum(x["ran"] for x in rungs)
+            adopted[who] += sum(x["adopted"] for x in rungs)
+        log(f"  [{label}] {name}: pose {pose:.4f} {'pass' if passed else 'FAIL'} (jax {j['pose_rmse']:.4f} "
+            f"{'pass' if j['passed'] else 'FAIL'}) esc {int(ladder.escalated[b])}/{int(j['escalated'])} rungs "
+            f"{rung_outcome(ladder.rungs[b])} (jax {rung_outcome(j['rungs'])})"
+            f"{'' if passed == j['passed'] else ' DIFFERS'}")
+        log(report_pair_difference(label, b, name, res, float(metrics["rmse"][b]), single[name]))
+        if passed != j["passed"] and name != f"category:{KNIFE_EDGE}":
+            mismatched.append(name)
+        if ours != theirs or bool(ladder.escalated[b]) != j["escalated"]:
+            rungs_differ.append(name)
+    require(not mismatched, f"{label}: pass/fail differs from JAX's register_many on the CPU: {mismatched}")
+    require(not rungs_differ, f"{label}: escalation or overlap rungs run and adopted unlike JAX: {rungs_differ}")
+    require(runs["port"] > 0, f"{label}: no overlap rung ran")
+    per_pair = e2e["passes"]["shipped boards"]["stage_iterations"]
+    log(f"  [{label}] overlap rungs run {runs['port']} (jax {runs['jax']}), adopted {adopted['port']} "
+        f"(jax {adopted['jax']}); {len(board_pairs) / seconds:.3f} pairs/s (synced; register_pair one pair at a "
+        f"time, synced: {e2e['passes']['shipped boards']['pairs_per_s']:.3f})")
+    log(f"  [{label}] stage seconds (synced pass, {seconds:.3f} s): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in timer.seconds.items()))
+    log(f"  [{label}] lockstep ICP iterations by stage: " +
+        ", ".join(f"{k} {v} (one pair at a time: {per_pair.get(k, 0)})" for k, v in timer.iterations.items() if v))
+    e2e["passes"][label] = {"pairs_per_s": len(board_pairs) / seconds, "seconds": seconds, "launches": launches,
+                            "stage_seconds": dict(timer.seconds), "stage_iterations": dict(timer.iterations),
+                            "rungs_run": runs, "rungs_adopted": adopted}
+    shapes = e2e["passes"]["many"]["launches"]["nn1_shapes"]
+    for case in kernels["nn1"]["cases"]:
+        if case["label"].startswith("batch"):
+            case["launches"] = shapes.get("x".join(map(str, case["lqr"])), 0)
+    for case in kernels["fps"]["cases"]:
+        if case["label"].startswith("batch"):
+            case["launches"] = e2e["passes"]["many"]["launches"]["fps"]
 
 
 def phase_bf16_ranking(torch, dev) -> None:
@@ -817,6 +1087,12 @@ def main() -> int:
     phase_default_config(torch, dev, kernels, e2e)
     log(f"shipped DEFAULT_CONFIG: remesh 25 {p['shipped']['pairs_per_s']:.3f} pairs/s (no stage syncs), "
         f"boards {p['shipped boards']['pairs_per_s']:.3f} pairs/s (synced) ({card})")
+
+    log("== 4e. register_many at DEFAULT_CONFIG: the remesh 25 as one batch")
+    phase_many(torch, dev, kernels, e2e)
+    log(f"register_many at DEFAULT_CONFIG: remesh 25 in one batch {p['many']['pairs_per_s']:.3f} pairs/s (no stage "
+        f"syncs) beside register_pair's {p['shipped']['pairs_per_s']:.3f}; boards {p['many boards']['pairs_per_s']:.3f} "
+        f"pairs/s (synced) beside {p['shipped boards']['pairs_per_s']:.3f} ({card})")
 
     log("== 5. bf16 dot field against the float32 fields (gates nothing)")
     phase_bf16_ranking(torch, dev)

@@ -31,3 +31,11 @@ __all__ = [
     "registration_measure",
     "__version__",
 ]
+
+
+def register_many(*args, **kwargs):
+    """Batched registration of raw cloud pairs: parallel/batch.py::register_many.
+    (Imported at call time, as kss_icp_tpu.register_many is.)"""
+    from kss_icp_torch.parallel.batch import register_many as _impl
+
+    return _impl(*args, **kwargs)

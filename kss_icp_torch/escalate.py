@@ -1,17 +1,17 @@
 """Fitness-gated escalation: flag -> re-solve on the finer grid -> keep-better.
 
-Port of kss_icp_tpu/escalate.py (padded_selection, escalate_rerun and
-polish_rerun; :25-127,197-214), the host logic around the re-solves that
-register_pair runs. Reference intent: KSS_ICP.hpp:99-121 — when the fitness
+Port of kss_icp_tpu/escalate.py (padded_selection, escalate_rerun,
+overlap_rerun and polish_rerun), the host logic around the re-solves that
+register_pair and register_many (parallel/batch.py) run. Reference intent: KSS_ICP.hpp:99-121 — when the fitness
 gate fails, spend more work (here a 16^3 rotation grid with a wider candidate
 budget) and keep the better answer per row.
 
 The JAX version merges winning rows with jax.tree.map; here the trees are
 the port's NamedTuples (or dicts, tuples and lists) of tensors or numpy
 arrays. `near_tie_margin` is not ported: no call site passes a nonzero value
-(ROADMAP.md "Not ported"). The overlap tier's batched `overlap_rerun`
-waits for register_many (ROADMAP.md queue 1 item 9); register_pair runs its
-single-pair ladder (models/kss_icp.py::_overlap_ladder).
+(ROADMAP.md "Not ported"). register_pair runs its single-pair overlap ladder
+(models/kss_icp.py::_overlap_ladder); register_many the batched one through
+`overlap_rerun`.
 """
 
 from __future__ import annotations
@@ -111,6 +111,54 @@ def escalate_rerun(
                 wins.append((int(gi), res2, j))
                 if result is not None:
                     tree_map(lambda full, new, _gi=gi, _j=j: _set_row(full, new, _gi, _j), result, res2)
+    return result, fitness, wins, int(flagged.size)
+
+
+def overlap_rerun(
+    resolve: Callable[[np.ndarray], Tuple[object, np.ndarray, np.ndarray, np.ndarray]],
+    fitness: np.ndarray,
+    threshold: Optional[float],
+    pad_multiple: int,
+    margin: float,
+    result=None,
+    cap: Optional[int] = None,
+    chunk: Optional[int] = None,
+    flags: Optional[np.ndarray] = None,
+):
+    """The overlap tier's rerun (kss_icp_tpu/escalate.py:130-194): rows with
+    fitness > threshold, or the rows of `flags`, are re-solved by
+    `resolve(sel) -> (result_tree, fit_std, tfit_new, tfit_old)`, where the
+    trimmed fitnesses are the bidirectional ones of the overlap solve and of
+    the incumbent. A row is adopted iff tfit_new < margin * tfit_old (a
+    correct partial alignment has a worse untrimmed fitness than a wrong
+    crop-biased one), once at most, and its fitness becomes fit_std.
+    Selection, padding and chunks as in escalate_rerun (no worst-first
+    order). Returns (result, fitness, wins, n_flagged)."""
+    fitness = np.asarray(fitness).copy()
+    b = fitness.shape[0]
+    if flags is not None:
+        flagged = np.nonzero(np.asarray(flags))[0]
+    else:
+        flagged = np.nonzero(fitness > threshold)[0]
+    if flagged.size == 0:
+        return result, fitness, [], 0
+    sel = padded_selection(flagged, pad_multiple, cap if cap is not None else b)
+    if result is not None:
+        result = tree_map(_copy, result)
+    step = chunk if chunk else sel.size
+    wins, adopted = [], set()
+    for c0 in range(0, sel.size, step):
+        csel = sel[c0:c0 + step]
+        res2, *scores = resolve(csel)
+        fit_std, tf_new, tf_old = (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for x in scores)
+        for j, gi in enumerate(csel):
+            if gi in adopted or not tf_new[j] < margin * tf_old[j]:
+                continue
+            adopted.add(int(gi))
+            fitness[gi] = fit_std[j]
+            wins.append((int(gi), res2, j))
+            if result is not None:
+                tree_map(lambda full, new, _gi=gi, _j=j: _set_row(full, new, _gi, _j), result, res2)
     return result, fitness, wins, int(flagged.size)
 
 

@@ -24,12 +24,14 @@ def registration_measure_padded(
     target_points: torch.Tensor,
     target_mask: torch.Tensor,
 ) -> Dict[str, torch.Tensor]:
-    """MSE/RMSE/MAE of padded (Q, 3) aligned points against a padded target."""
+    """MSE/RMSE/MAE of padded (Q, 3) aligned points against a padded (R, 3)
+    target; or of a batch of pairs, (B, Q, 3) against (B, R, 3), as one nn1
+    launch in which lane b queries cloud b, each value of shape (B,)."""
     d2, _ = nn1(aligned_points.contiguous(), target_points.contiguous(), target_mask.contiguous())
     w = aligned_mask.to(d2.dtype)
-    n = w.sum().clamp_min(1.0)
-    mse = (d2 * w).sum() / n
-    mae = (torch.sqrt(d2) * w).sum() / n
+    n = w.sum(dim=-1).clamp_min(1.0)
+    mse = (d2 * w).sum(dim=-1) / n
+    mae = (torch.sqrt(d2) * w).sum(dim=-1) / n
     return {"mse": mse, "rmse": torch.sqrt(mse), "mae": mae}
 
 

@@ -22,7 +22,7 @@ from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
 BIG = 1e30
 
 
-class CoarseResult(NamedTuple):
+class CoarseResult(NamedTuple):  # each field gains a leading B for a batch of pairs
     field: torch.Tensor             # (steps, steps, steps) mean-NN-distance error
     best_angles: torch.Tensor       # (3,) Euler angles of the global minimum
     candidate_angles: torch.Tensor  # (K, 3) local-minimum angles, ascending error
@@ -82,10 +82,12 @@ def score_rotation_field(
 
 
 def local_minima_mask(field: torch.Tensor, radius: int) -> torch.Tensor:
-    """True where field[i,j,k] <= every value in the clamped (2r+1)^3 cube."""
+    """True where field[..., i, j, k] <= every value in the clamped
+    (2r+1)^3 cube; leading axes are a batch of fields."""
     w = 2 * radius + 1
-    pooled = -F.max_pool3d(-field[None, None], kernel_size=w, stride=1, padding=radius)[0, 0]
-    return field <= pooled
+    flat = field.reshape((-1, 1) + field.shape[-3:])
+    pooled = -F.max_pool3d(-flat, kernel_size=w, stride=1, padding=radius)
+    return field <= pooled.reshape(field.shape)
 
 
 def coarse_align(
@@ -106,26 +108,34 @@ def coarse_align(
     """Score the grid, extract local minima, rank candidates by error.
 
     Candidate 0 is the global minimum. Ties keep index order, as
-    jax.lax.top_k does (a stable sort, not torch.topk)."""
-    field = score_rotation_field(source, source_mask, target, target_mask, steps=steps, span=span,
-                                 error_metric=error_metric, method=method, precision=precision,
-                                 trim_fraction=trim_fraction)
+    jax.lax.top_k does (a stable sort, not torch.topk). Clouds with a
+    leading pair axis, (B, P, 3) and (B, P), give a CoarseResult whose
+    fields lead with B: one field launch per pair, the minima and the sort
+    over the batch."""
+    kw = dict(steps=steps, span=span, error_metric=error_metric, method=method, precision=precision,
+              trim_fraction=trim_fraction)
+    if source.dim() == 3:
+        field = torch.stack([score_rotation_field(*clouds, **kw)
+                             for clouds in zip(source, source_mask, target, target_mask)])
+    else:
+        field = score_rotation_field(source, source_mask, target, target_mask, **kw)
     is_min = local_minima_mask(field, radius)
-    masked = torch.where(is_min, field, torch.full_like(field, BIG)).reshape(-1)
-    neg_vals, order = torch.sort(-masked, descending=True, stable=True)
-    flat_idx = order[:max_candidates]
-    cand_errors = -neg_vals[:max_candidates]
+    flat = field.reshape(field.shape[:-3] + (-1,))
+    masked = torch.where(is_min.reshape(flat.shape), flat, torch.full_like(flat, BIG))
+    neg_vals, order = torch.sort(-masked, dim=-1, descending=True, stable=True)
+    flat_idx = order[..., :max_candidates]
+    cand_errors = -neg_vals[..., :max_candidates]
     cand_mask = cand_errors < BIG / 2
 
     unit = span / steps
-    ijk = torch.stack([flat_idx // (steps * steps), (flat_idx // steps) % steps, flat_idx % steps], dim=-1)
-    cand_angles = ijk.to(field.dtype) * unit
-    best_flat = torch.argmin(field.reshape(-1))
-    best = torch.stack([best_flat // (steps * steps), (best_flat // steps) % steps, best_flat % steps])
+
+    def angles(i):
+        return torch.stack([i // (steps * steps), (i // steps) % steps, i % steps], dim=-1).to(field.dtype) * unit
+
     return CoarseResult(
         field=field,
-        best_angles=best.to(field.dtype) * unit,
-        candidate_angles=cand_angles,
+        best_angles=angles(torch.argmin(flat, dim=-1)),
+        candidate_angles=angles(flat_idx),
         candidate_mask=cand_mask,
         candidate_errors=cand_errors,
     )

@@ -9,7 +9,9 @@ and one host sync per iteration for the "any lane active" test. Per-lane
 `iterations` and `converged` equal the reference's.
 
 Correspondences come from the `nn1` kernel (one launch per iteration for all
-lanes). `trim_fraction` and `estimate_scale` give the overlap tier's trimmed
+lanes). Each lane may have its own target cloud (`lane_ref`), so the lanes of
+a batch of pairs run in one loop (models/kss_icp.py::register_batch): JAX
+vmaps the single-pair solve over pairs, which is the same lockstep. `trim_fraction` and `estimate_scale` give the overlap tier's trimmed
 similarity ICP (icp.py:226-232): a per-lane quantile gate on the
 correspondences, the Umeyama scale, and the trimmed mean as fitness.
 Point-to-plane and the sharded point axis are not ported yet (ROADMAP.md
@@ -24,7 +26,7 @@ import torch
 
 from kss_icp_torch.core.transforms import matmul3, matvec3, rotate_points
 from kss_icp_torch.ops.nn import masked_quantile_threshold, trimmed_masked_mean
-from kss_icp_torch.ops.nn_cuda import nn1
+from kss_icp_torch.ops.nn_cuda import lane_refs, nn1
 
 
 class ICPParams(NamedTuple):
@@ -99,13 +101,17 @@ def icp(
     init_scale: Optional[torch.Tensor] = None,
     trim_fraction: float = 0.0,
     estimate_scale: bool = False,
+    lane_ref: Optional[torch.Tensor] = None,
 ) -> ICPResult:
-    """Run ICP on L lanes from identity (or a warm start) against one target.
+    """Run ICP on L lanes from identity (or a warm start).
 
-    source (L, N, 3); source_mask (N,) or (L, N); target (T, 3), target_mask
-    (T,); init_* (L, 3, 3), (L, 3), (L,). Returns the rigid transform of each
-    lane, source -> target, with PCL's convergence tests and getFitnessScore
-    fitness.
+    source (L, N, 3); source_mask (N,) or (L, N); target (T, 3) with
+    target_mask (T,), one target for every lane, or (G, T, 3) with (G, T)
+    and lane_ref (L,) int32 naming each lane's target cloud (default: cloud
+    0 when G == 1, cloud l when G == L); init_* (L, 3, 3), (L, 3), (L,).
+    Returns the rigid transform of each lane, source -> target, with PCL's
+    convergence tests and getFitnessScore fitness. A lane's answer does not
+    depend on the other lanes.
 
     trim_fraction > 0 keeps, each iteration, only the correspondences within
     the lane's trim_fraction-quantile of valid NN distances, and reports the
@@ -115,7 +121,11 @@ def icp(
     lanes = source.shape[0]
     dtype, device = source.dtype, source.device
     smask = source_mask.expand(source.shape[:2])
-    tgt, tmask = target[None].contiguous(), target_mask[None].contiguous()
+    if target.dim() == 2:
+        target, target_mask = target[None], target_mask[None]
+    tgt, tmask = target.contiguous(), target_mask.contiguous()
+    # Each lane's correspondences are gathered from its own cloud.
+    ref_row = lane_refs(lane_ref, lanes, tgt.shape[0], device).long()[:, None]
     big = torch.finfo(dtype).max / 4
     max_d2 = torch.tensor(params.max_correspondence_distance, dtype=dtype) ** 2
     tiny = torch.finfo(dtype).tiny
@@ -135,13 +145,14 @@ def icp(
         active = (iteration < params.max_iterations) & ~converged
         if not bool(active.any()):
             break
+        icp.lockstep_iterations += 1
         cur = positions(rot, trans, scale)
-        d2, idx = nn1(cur, tgt, tmask)
+        d2, idx = nn1(cur, tgt, tmask, lane_ref)
         keep = smask & (d2 <= max_d2)
         if trim_fraction:
             keep = keep & (d2 <= masked_quantile_threshold(d2, smask, trim_fraction)[:, None])
         w = keep.to(dtype)
-        corr = target[idx.long()]
+        corr = tgt[ref_row, idx.long()]
         if estimate_scale:
             dr, dt, ds = kabsch(cur, corr, w, estimate_scale=True)
         else:
@@ -176,7 +187,7 @@ def icp(
         converged = _where(active, new_conv, converged)
         iteration = _where(active, iteration + 1, iteration)
 
-    d2, _ = nn1(positions(rot, trans, scale), tgt, tmask)
+    d2, _ = nn1(positions(rot, trans, scale), tgt, tmask, lane_ref)
     if trim_fraction:
         fitness = trimmed_masked_mean(d2, smask, trim_fraction)
     else:
@@ -184,3 +195,6 @@ def icp(
         fitness = (d2 * w).sum(dim=-1) / w.sum(dim=-1).clamp_min(1.0)
     return ICPResult(rotation=rot, translation=trans, fitness=fitness,
                      iterations=iteration, converged=converged, scale=scale)
+
+
+icp.lockstep_iterations = 0  # loop passes of every call, a counter for measurement

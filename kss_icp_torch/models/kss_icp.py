@@ -12,6 +12,14 @@ KSSICP_Registration (KSS_ICP.hpp:69-131) as batched tensor stages:
      `pose_tiebreak_margin` is set, the symmetric-pose tie-break;
   5. the winning transform composed as one Sim3.
 
+Steps 2-5 take a leading pair axis B (`register_batch`, JAX's vmap of
+register_resampled): the lanes of every pair run in one ICP loop, each
+against its own pair's target, and the gate and lane picks are per-pair
+selects on the device. `register_resampled` is its batch of one, and
+`polish_resampled`, `trimmed_fitness` and the overlap solvers take one
+pair or a batch; `overlap_solve_batch` and `overlap_screen_solve_batch`
+are register_many's rungs (parallel/batch.py).
+
 register_pair adds the escalation ladder of the JAX package: a pair whose
 fitness is above `escalate_threshold`, or whose final converge hit its
 iteration cap, is re-solved on the 16^3 grid (`escalation_config()`), the
@@ -34,6 +42,7 @@ an answer that differs from JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
@@ -44,9 +53,10 @@ from kss_icp_torch.core.cloud import PointCloud
 from kss_icp_torch.core.preshape import middle_align
 from kss_icp_torch.core.transforms import Similarity, apply_similarity, compose, euler_xyz_matrix, rotate_points
 from kss_icp_torch.models.coarse import CoarseResult, coarse_align, rotation_grid
-from kss_icp_torch.models.icp import ICPParams, icp
+from kss_icp_torch.escalate import tree_map
+from kss_icp_torch.models.icp import ICPParams, ICPResult, icp
 from kss_icp_torch.ops.nn import masked_mean, masked_quantile_threshold, trimmed_masked_mean
-from kss_icp_torch.ops.nn_cuda import nn1
+from kss_icp_torch.ops.nn_cuda import MAX_LANES, nn1
 from kss_icp_torch.ops.resample_cuda import fps
 
 BIG = 1e30
@@ -91,33 +101,218 @@ def _stage(timer: Optional[Timer], name: str):
 
 
 def _prefix(points, mask, n):
-    if n and n < points.shape[0]:
-        return points[:n], mask[:n]
+    """The first n rows of (..., P, 3) points and their (..., P) mask."""
+    if n and n < points.shape[-2]:
+        return points[..., :n, :], mask[..., :n]
     return points, mask
 
 
-def _lane(res, k: int):
-    """(rotation, translation, scale) of lane k, kept as 1-lane batches."""
-    return res.rotation[k:k + 1], res.translation[k:k + 1], res.scale[k:k + 1]
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b]] for every pair b: x (B, n, ...), idx (B, m) -> (B, m, ...)."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+def _at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b]] for every pair b: x (B, n, ...), idx (B,) -> (B, ...)."""
+    return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+def _pair_lanes(pairs: int, lanes: int, device) -> Optional[torch.Tensor]:
+    """lane_ref of `lanes` lanes a pair, pair-major: (pairs * lanes,) int32;
+    None for one pair, whose lanes all take cloud 0 (nn1's default)."""
+    if pairs == 1:
+        return None
+    return torch.arange(pairs, dtype=torch.int32, device=device).repeat_interleave(lanes)
+
+
+def _first(tree):
+    """The single-pair view of a batch of one: row 0 of every tensor."""
+    return tree_map(lambda x: x[0], tree)
+
+
+def _one_or_many(fn):
+    """Let `fn`, a function of a batch of pairs ((B, P, 3) clouds, (B,)
+    transforms), also take one pair: unbatched clouds and transforms gain the
+    pair axis, and the result loses it."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        if args[0].dim() == 3:
+            return fn(*args, **kw)
+        return _first(fn(*(tree_map(lambda x: x[None], a) if isinstance(a, (torch.Tensor, Similarity)) else a
+                           for a in args), **kw))
+    return run
+
+
+def _keep(better: torch.Tensor, new, old):
+    """Pair b's rows of `new` where better[b], else of `old`, across a result tree."""
+    return tree_map(lambda n, o: torch.where(better.reshape(better.shape + (1,) * (n.dim() - 1)), n, o), new, old)
 
 
 def _pose_tiebreak_select(
-    fit: torch.Tensor,            # (K,) candidate fitnesses (1e30 = invalid)
-    aligned: torch.Tensor,        # (K, P, 3) candidate-aligned source clouds
-    source_mask: torch.Tensor,    # (P,)
-    target_points: torch.Tensor,
-    target_mask: torch.Tensor,
+    fit: torch.Tensor,            # (B, K) candidate fitnesses (1e30 = invalid), or (K,)
+    aligned: torch.Tensor,        # (B, K, P, 3) candidate-aligned source clouds
+    source_mask: torch.Tensor,    # (B, P)
+    target_points: torch.Tensor,  # (B, T, 3)
+    target_mask: torch.Tensor,    # (B, T)
     cfg: KSSICPConfig,
 ) -> torch.Tensor:
-    """Symmetric-pose tie-break (kss_icp_tpu/models/kss_icp.py:394-419): among
-    the candidates whose fitness is within (1 + pose_tiebreak_margin) of the
-    best, the one with the smallest pose_tiebreak_quantile of its 1-NN
-    distances; first index on ties. A slid symmetric pose barely moves the
-    mean squared distance but lifts the high quantile."""
-    near = fit <= fit.min() * (1.0 + cfg.pose_tiebreak_margin)
-    d2, _ = nn1(aligned.contiguous(), target_points[None].contiguous(), target_mask[None].contiguous())
-    q = masked_quantile_threshold(torch.sqrt(d2), source_mask.expand(d2.shape), cfg.pose_tiebreak_quantile)
-    return torch.argmin(torch.where(near, q, torch.full_like(q, BIG)))
+    """Symmetric-pose tie-break (kss_icp_tpu/models/kss_icp.py:394-419): per
+    pair, among the candidates whose fitness is within
+    (1 + pose_tiebreak_margin) of its best, the one with the smallest
+    pose_tiebreak_quantile of its 1-NN distances; first index on ties. A
+    slid symmetric pose barely moves the mean squared distance but lifts the
+    high quantile. One nn1 launch for the B x K lanes, each against its
+    pair's target. Unbatched inputs, (K,) and (K, P, 3), are one pair."""
+    if fit.dim() == 1:
+        return _pose_tiebreak_select(fit[None], aligned[None], source_mask[None], target_points[None],
+                                     target_mask[None], cfg)[0]
+    b, k, p = aligned.shape[:3]
+    near = fit <= fit.min(dim=1, keepdim=True).values * (1.0 + cfg.pose_tiebreak_margin)
+    d2, _ = nn1(aligned.reshape(b * k, p, 3).contiguous(), target_points.contiguous(), target_mask.contiguous(),
+                _pair_lanes(b, k, fit.device))
+    mask = source_mask[:, None].expand(b, k, p).reshape(b * k, p)
+    q = masked_quantile_threshold(torch.sqrt(d2), mask, cfg.pose_tiebreak_quantile).view(b, k)
+    return torch.argmin(torch.where(near, q, torch.full_like(q, BIG)), dim=1)
+
+
+def register_batch(
+    source_points: torch.Tensor,
+    source_mask: torch.Tensor,
+    target_points: torch.Tensor,
+    target_mask: torch.Tensor,
+    cfg: KSSICPConfig = DEFAULT_CONFIG,
+    timer: Optional[Timer] = None,
+) -> RegistrationResult:
+    """Register B pairs of already-resampled padded clouds (steps 2-5 above):
+    JAX's vmapped register_resampled (kss_icp_tpu/parallel/batch.py:29-74,
+    models/kss_icp.py:64-339).
+
+    Shapes (B, P, 3)/(B, P); every field of the result leads with B. One
+    field launch a pair; every ICP stage runs the lanes of all B pairs in
+    one lockstep loop, each lane against its pair's target (`lane_ref`), so
+    the batch pays its slowest lane's iterations, as JAX's vmapped
+    while_loop does. The gate and the lane picks are per-pair selects on the
+    device. `timer`, when given, is entered around each stage ("coarse",
+    "screen", "refine") — a hook for measurement."""
+    check_supported(cfg)
+    b, p = source_mask.shape
+    dtype, device = source_points.dtype, source_points.device
+    params = ICPParams.from_config(cfg)
+    gate = cfg.multistart_fitness_gate
+    sp, sm, tp, tm = source_points, source_mask, target_points.contiguous(), target_mask.contiguous()
+
+    with _stage(timer, "coarse"):
+        # 2. Kendall pre-shape normalization.
+        sim0, _, _ = middle_align(sp, sm, tp, tm)
+        src_aligned = apply_similarity(sim0, sp)
+        # 3. Rotation-grid coarse search on optional FPS prefixes.
+        score_src, score_mask = _prefix(src_aligned, sm, cfg.coarse_points)
+        score_tgt, score_tmask = _prefix(tp, tm, cfg.coarse_target_points)
+        coarse = coarse_align(
+            score_src.contiguous(), score_mask, score_tgt, score_tmask,
+            steps=cfg.rotation_steps, span=cfg.angle_span, radius=cfg.kernel_radius,
+            max_candidates=cfg.max_candidates, error_metric=cfg.coarse_error_metric,
+            method=cfg.coarse_method, precision=cfg.coarse_precision, trim_fraction=cfg.coarse_trim_fraction)
+        r_cand = euler_xyz_matrix(coarse.candidate_angles)  # (B, K, 3, 3)
+        rotated = rotate_points(r_cand, src_aligned[:, None])  # (B, K, P, 3)
+
+    def solve(lanes, tgt, tmask, prm, init=(None, None, None)):
+        """ICP on (B, n, N, 3) lanes, pair b's against pair b's target; the
+        results and `init` shaped (B, n, ...)."""
+        n, n_pts = lanes.shape[1:3]
+        flat = [None if x is None else x.reshape((b * n,) + x.shape[2:]) for x in init]
+        res = icp(lanes.reshape(b * n, n_pts, 3).contiguous(), sm[:, None, :n_pts].expand(b, n, n_pts).reshape(-1, n_pts),
+                  tgt, tmask, prm, *flat, trim_fraction=cfg.icp_trim_fraction,
+                  estimate_scale=cfg.icp_estimate_scale, lane_ref=_pair_lanes(b, n, device))
+        return ICPResult(*(x.reshape((b, n) + x.shape[1:]) for x in res))
+
+    def pick(fit, judge, res, lanes):
+        """Per pair: lane 0 when the gate passes (KSS_ICP.hpp:99), else
+        argmin fitness, or the pose tie-break among the near-tied lanes
+        where it is on (computed only when some pair fails the gate)."""
+        use_best = judge <= gate
+        best = torch.argmin(fit, dim=1)
+        if cfg.pose_tiebreak_margin and not bool(use_best.all()):
+            aligned = (res.scale[..., None, None] * rotate_points(res.rotation, lanes)
+                       + res.translation[..., None, :])
+            best = _pose_tiebreak_select(fit, aligned, sm, tp, tm, cfg)
+        return torch.where(use_best, torch.zeros_like(best), best)
+
+    def result(res, local, sel, judge, iterations, final_cap):
+        """Compose ICP ∘ R_candidate ∘ preshape for pair b's lane local[b]."""
+        choice = _at(sel, local)
+        icp_sim = Similarity(scale=_at(res.scale, local), rotation=_at(res.rotation, local),
+                             translation=_at(res.translation, local))
+        cand_sim = Similarity.from_rigid(_at(r_cand, choice), torch.zeros((b, 3), dtype=dtype, device=device))
+        return RegistrationResult(
+            transform=compose(icp_sim, compose(cand_sim, sim0)),
+            fitness=_at(res.fitness, local),
+            judge_fitness=judge,
+            used_multistart=judge > gate,
+            chosen_candidate=choice,
+            icp_iterations=iterations,
+            refine_hit_cap=(_at(res.iterations, local) >= final_cap) & ~_at(res.converged, local),
+            coarse=coarse,
+        )
+
+    refine_cap = params.max_iterations
+    if cfg.refine_max_iterations:
+        refine_cap = min(cfg.refine_max_iterations, cfg.max_icp_iterations)
+    refine_params = params._replace(max_iterations=refine_cap)
+    big = torch.full((), BIG, dtype=dtype, device=device)
+
+    if cfg.multistart_mode != "two_phase":  # "full", as any other value is in JAX
+        with _stage(timer, "refine"):
+            k = rotated.shape[1]
+            sel = torch.arange(k, device=device).expand(b, k)
+            res = solve(rotated, tp, tm, refine_params)
+            fit = torch.where(coarse.candidate_mask, res.fitness, big)
+            local = pick(fit, fit[:, 0], res, rotated)
+            out = result(res, local, sel, fit[:, 0], _at(res.iterations, local), refine_cap)
+        return out._replace(fitness=_at(fit, local))
+
+    # Two-phase: screen every candidate with a short solve on the source's
+    # first screen_points rows (an FPS prefix is a uniform subsample).
+    with _stage(timer, "screen"):
+        sp_n = min(cfg.screen_points, p)
+        screen_tgt, screen_tmask = _prefix(tp, tm, cfg.screen_target_points)
+        res1 = solve(rotated[:, :, :sp_n], screen_tgt.contiguous(), screen_tmask.contiguous(),
+                     params._replace(max_iterations=cfg.screen_iterations))
+        fit1 = torch.where(coarse.candidate_mask, res1.fitness, big)
+        # Candidate 0 (the best grid angle) always survives: the gate is defined on it.
+        n_refine = min(cfg.refine_candidates, fit1.shape[1])
+        fit1[:, 0] = -float("inf")
+        sel = torch.argsort(fit1, dim=1, stable=True)[:, :n_refine]  # (B, n_refine), row-wise as JAX :173
+        init = tuple(_take(x, sel) for x in (res1.rotation, res1.translation, res1.scale))
+        lanes = _take(rotated, sel)
+        sel_mask = _take(coarse.candidate_mask, sel)
+
+    with _stage(timer, "refine"):
+        if not cfg.refine_tier_iterations:
+            res = solve(lanes, tp, tm, refine_params, init)
+            fit = torch.where(sel_mask, res.fitness, big)
+            local = pick(fit, fit[:, 0], res, lanes)
+            out = result(res, local, sel, fit[:, 0], _at(res.iterations, local), refine_cap)
+            return out._replace(fitness=_at(fit, local))
+
+        # Two-tier refine: a capped solve on every selected lane ranks them,
+        # then only each pair's winner converges fully.
+        cap_tgt, cap_tmask = _prefix(tp, tm, cfg.refine_tier_target_points)
+        res_a = solve(lanes, cap_tgt.contiguous(), cap_tmask.contiguous(),
+                      params._replace(max_iterations=cfg.refine_tier_iterations), init)
+        fit_a = torch.where(sel_mask, res_a.fitness, big)
+        judge_a = fit_a[:, 0]
+        if cap_tgt.shape[1] < tp.shape[1]:
+            # The gate is absolute and a prefix target inflates fitness:
+            # re-evaluate candidate 0 on the full target (no ICP steps).
+            probe = solve(lanes[:, :1], tp, tm, params._replace(max_iterations=0),
+                          (res_a.rotation[:, :1], res_a.translation[:, :1], res_a.scale[:, :1]))
+            judge_a = torch.where(sel_mask[:, 0], probe.fitness[:, 0], big)
+        win = pick(fit_a, judge_a, res_a, lanes)
+        res = solve(_at(lanes, win)[:, None], tp, tm, refine_params,
+                    tuple(_at(x, win)[:, None] for x in (res_a.rotation, res_a.translation, res_a.scale)))
+        return result(res, torch.zeros_like(win), _at(sel, win)[:, None], judge_a,
+                      _at(res_a.iterations, win) + res.iterations[:, 0], refine_cap)
 
 
 def register_resampled(
@@ -128,117 +323,10 @@ def register_resampled(
     cfg: KSSICPConfig = DEFAULT_CONFIG,
     timer: Optional[Timer] = None,
 ) -> RegistrationResult:
-    """Register two already-resampled padded clouds (steps 2-5 above).
-
-    Shapes (P, 3)/(P,). `timer`, when given, is entered around each stage
-    ("coarse", "screen", "refine") — a hook for measurement."""
-    check_supported(cfg)
-    dtype = source_points.dtype
-    zero3 = torch.zeros((3,), dtype=dtype, device=source_points.device)
-    params = ICPParams.from_config(cfg)
-    gate = cfg.multistart_fitness_gate
-
-    with _stage(timer, "coarse"):
-        # 2. Kendall pre-shape normalization.
-        sim0, _, _ = middle_align(source_points, source_mask, target_points, target_mask)
-        src_aligned = apply_similarity(sim0, source_points)
-        # 3. Rotation-grid coarse search on optional FPS prefixes.
-        score_src, score_mask = _prefix(src_aligned, source_mask, cfg.coarse_points)
-        score_tgt, score_tmask = _prefix(target_points, target_mask, cfg.coarse_target_points)
-        coarse = coarse_align(
-            score_src.contiguous(), score_mask, score_tgt, score_tmask,
-            steps=cfg.rotation_steps, span=cfg.angle_span, radius=cfg.kernel_radius,
-            max_candidates=cfg.max_candidates, error_metric=cfg.coarse_error_metric,
-            method=cfg.coarse_method, precision=cfg.coarse_precision, trim_fraction=cfg.coarse_trim_fraction)
-        r_cand = euler_xyz_matrix(coarse.candidate_angles)  # (K, 3, 3)
-        rotated = rotate_points(r_cand, src_aligned[None]).contiguous()  # (K, P, 3)
-
-    def result(res_lane, k_local, sel, judge, iterations, final_cap):
-        """Compose ICP ∘ R_candidate ∘ preshape for local lane k_local."""
-        choice = sel[k_local]
-        icp_sim = Similarity(scale=res_lane.scale[k_local], rotation=res_lane.rotation[k_local],
-                             translation=res_lane.translation[k_local])
-        cand_sim = Similarity.from_rigid(r_cand[choice], zero3)
-        return RegistrationResult(
-            transform=compose(icp_sim, compose(cand_sim, sim0)),
-            fitness=res_lane.fitness[k_local],
-            judge_fitness=judge,
-            used_multistart=judge > gate,
-            chosen_candidate=choice,
-            icp_iterations=iterations,
-            refine_hit_cap=(res_lane.iterations[k_local] >= final_cap) & ~res_lane.converged[k_local],
-            coarse=coarse,
-        )
-
-    def pick(fit, judge, res_lanes, lanes):
-        """Lane 0 when the gate passes (KSS_ICP.hpp:99), else argmin fitness,
-        or the pose tie-break among the near-tied lanes where it is on."""
-        if bool(judge <= gate):
-            return 0
-        if not cfg.pose_tiebreak_margin:
-            return int(torch.argmin(fit))
-        aligned = (res_lanes.scale[:, None, None] * rotate_points(res_lanes.rotation, lanes)
-                   + res_lanes.translation[:, None, :])
-        return int(_pose_tiebreak_select(fit, aligned, source_mask, target_points, target_mask, cfg))
-
-    def solve(*a):  # every solve of the pipeline: trimmed and scaled in the overlap configs
-        return icp(*a, trim_fraction=cfg.icp_trim_fraction, estimate_scale=cfg.icp_estimate_scale)
-
-    refine_cap = params.max_iterations
-    if cfg.refine_max_iterations:
-        refine_cap = min(cfg.refine_max_iterations, cfg.max_icp_iterations)
-    refine_params = params._replace(max_iterations=refine_cap)
-    big = torch.full((), BIG, dtype=dtype, device=source_points.device)
-
-    if cfg.multistart_mode != "two_phase":  # "full", as any other value is in JAX
-        with _stage(timer, "refine"):
-            sel = torch.arange(rotated.shape[0], device=rotated.device)
-            res = solve(rotated, source_mask, target_points, target_mask, refine_params)
-            fit = torch.where(coarse.candidate_mask, res.fitness, big)
-            k = pick(fit, fit[0], res, rotated)
-            out = result(res, k, sel, fit[0], res.iterations[k], refine_cap)
-        return out._replace(fitness=fit[k])
-
-    # Two-phase: screen every candidate with a short solve on the source's
-    # first screen_points rows (an FPS prefix is a uniform subsample).
-    with _stage(timer, "screen"):
-        sp_n = min(cfg.screen_points, source_points.shape[0])
-        screen_tgt, screen_tmask = _prefix(target_points, target_mask, cfg.screen_target_points)
-        res1 = solve(rotated[:, :sp_n].contiguous(), source_mask[:sp_n], screen_tgt, screen_tmask,
-                     params._replace(max_iterations=cfg.screen_iterations))
-        fit1 = torch.where(coarse.candidate_mask, res1.fitness, big)
-        # Candidate 0 (the best grid angle) always survives: the gate is defined on it.
-        n_refine = min(cfg.refine_candidates, fit1.shape[0])
-        fit1 = fit1.clone()
-        fit1[0] = -float("inf")
-        sel = torch.argsort(fit1, stable=True)[:n_refine]
-        init = (res1.rotation[sel], res1.translation[sel], res1.scale[sel])
-
-    with _stage(timer, "refine"):
-        if not cfg.refine_tier_iterations:
-            res = solve(rotated[sel], source_mask, target_points, target_mask, refine_params, *init)
-            fit = torch.where(coarse.candidate_mask[sel], res.fitness, big)
-            k = pick(fit, fit[0], res, rotated[sel])
-            out = result(res, k, sel, fit[0], res.iterations[k], refine_cap)
-            return out._replace(fitness=fit[k])
-
-        # Two-tier refine: a capped solve on every selected lane ranks them,
-        # then only the winner converges fully.
-        cap_tgt, cap_tmask = _prefix(target_points, target_mask, cfg.refine_tier_target_points)
-        res_a = solve(rotated[sel], source_mask, cap_tgt, cap_tmask,
-                      params._replace(max_iterations=cfg.refine_tier_iterations), *init)
-        fit_a = torch.where(coarse.candidate_mask[sel], res_a.fitness, big)
-        judge_a = fit_a[0]
-        if cap_tgt.shape[0] < target_points.shape[0]:
-            # The gate is absolute and a prefix target inflates fitness:
-            # re-evaluate candidate 0 on the full target (no ICP steps).
-            probe = solve(rotated[sel[:1]], source_mask, target_points, target_mask,
-                          params._replace(max_iterations=0), *_lane(res_a, 0))
-            judge_a = torch.where(coarse.candidate_mask[sel[0]], probe.fitness[0], big)
-        k = pick(fit_a, judge_a, res_a, rotated[sel])
-        res = solve(rotated[sel[k:k + 1]], source_mask, target_points, target_mask, refine_params,
-                    *_lane(res_a, k))
-        return result(res, 0, sel[k:k + 1], judge_a, res_a.iterations[k] + res.iterations[0], refine_cap)
+    """Register two already-resampled padded clouds, shapes (P, 3)/(P,):
+    register_batch on a batch of one pair, and its result's row."""
+    return _first(register_batch(source_points[None], source_mask[None], target_points[None], target_mask[None],
+                                 cfg, timer))
 
 
 def resample_batch(
@@ -274,12 +362,14 @@ def resample_pairs(
     pnumber: torch.Tensor,
     cfg: KSSICPConfig = DEFAULT_CONFIG,
     pad: Optional[int] = None,
+    steps: Optional[int] = None,
 ):
-    """Resample B source + target pairs (same padded N) as one 2B-cloud batch.
-    Returns ((src_pts, src_mask), (tgt_pts, tgt_mask))."""
+    """Resample B source + target pairs (same padded N) as one 2B-cloud batch,
+    one `fps` launch (`steps` as in resample_batch: the largest pnumber
+    gives the full run's bits). Returns ((src_pts, src_mask), (tgt_pts, tgt_mask))."""
     pts = torch.cat([source_points, target_points], dim=0)
     msk = torch.cat([source_mask, target_mask], dim=0)
-    rp, rm = resample_batch(pts, msk, torch.cat([pnumber, pnumber], dim=0), cfg, pad)
+    rp, rm = resample_batch(pts, msk, torch.cat([pnumber, pnumber], dim=0), cfg, pad, steps)
     b = source_points.shape[0]
     return (rp[:b], rm[:b]), (rp[b:], rm[b:])
 
@@ -287,10 +377,11 @@ def resample_pairs(
 def _device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("register_pair(device='cuda') needs a CUDA device; pass device='cpu' for the plain path")
+        raise RuntimeError("device='cuda' needs a CUDA device; pass device='cpu' for the plain path")
     return device
 
 
+@_one_or_many
 def polish_resampled(
     source_points: torch.Tensor,
     source_mask: torch.Tensor,
@@ -304,15 +395,18 @@ def polish_resampled(
     min(refine_polish_iterations or max_icp_iterations, max_icp_iterations)
     more steps. Correspondences depend only on the current positions, so
     this continues the iteration sequence the cap cut short. Used as the
-    escalation's uncapped finisher. Returns (transform, fitness, iterations)."""
+    escalation's uncapped finisher. Returns (transform, fitness, iterations).
+
+    Clouds (P, 3)/(P,) with one transform, or a batch of pairs (B, P, 3)/(B, P)
+    with (B,) transforms: one lane a pair, in one lockstep loop."""
     check_supported(cfg)
     current = apply_similarity(transform, source_points)
     cap = min(cfg.refine_polish_iterations or cfg.max_icp_iterations, cfg.max_icp_iterations)
-    res = icp(current[None].contiguous(), source_mask, target_points, target_mask,
+    res = icp(current.contiguous(), source_mask, target_points.contiguous(), target_mask.contiguous(),
               ICPParams.from_config(cfg)._replace(max_iterations=cap),
               trim_fraction=cfg.icp_trim_fraction, estimate_scale=cfg.icp_estimate_scale)
-    step = Similarity(scale=res.scale[0], rotation=res.rotation[0], translation=res.translation[0])
-    return compose(step, transform), res.fitness[0], res.iterations[0]
+    step = Similarity(scale=res.scale, rotation=res.rotation, translation=res.translation)
+    return compose(step, transform), res.fitness, res.iterations
 
 
 def trimmed_fitness(
@@ -329,7 +423,7 @@ def trimmed_fitness(
     (kss_icp_tpu/models/kss_icp.py:422-451): the overlap tier's goodness
     metric, blind to the non-overlap points of a correct partial alignment;
     the reverse direction exposes a slid pose that leaves target regions
-    uncovered."""
+    uncovered. Unbatched clouds, or a batch of pairs with (B,) transforms."""
     aligned = apply_similarity(transform, source_points).contiguous()
     d2, _ = nn1(aligned, target_points.contiguous(), target_mask.contiguous())
     fwd = trimmed_masked_mean(d2, source_mask, trim_fraction)
@@ -343,6 +437,7 @@ def _overlap_cfg(cfg: KSSICPConfig) -> KSSICPConfig:
     return cfg if cfg.overlap_mode else cfg.overlap_config()
 
 
+@_one_or_many
 def register_overlap_resampled(
     source_points: torch.Tensor,
     source_mask: torch.Tensor,
@@ -351,32 +446,35 @@ def register_overlap_resampled(
     cfg: KSSICPConfig = DEFAULT_CONFIG,
 ) -> RegistrationResult:
     """Overlap-robust registration of two resampled padded clouds
-    (kss_icp_tpu/models/kss_icp.py:454-520): register_resampled at the
-    overlap config (the trimmed field, trimmed similarity ICP), then
+    (kss_icp_tpu/models/kss_icp.py:454-520): register_batch at the overlap
+    config (the trimmed field, trimmed similarity ICP), then
     overlap_iterations - 1 re-solves on mutual-inlier masks (the source
     points within the q-quantile of their distance to the target, and the
     target points within that of theirs to the aligned source), the
-    pre-shape re-estimated on them. Keep-better by the bidirectional trimmed
-    fitness on the original masks, one host sync a re-solve. The returned
-    fitness is that trimmed fitness."""
+    pre-shape re-estimated on them. Keep-better per pair by the
+    bidirectional trimmed fitness on the original masks, a device select as
+    in JAX's fori_loop. The returned fitness is that trimmed fitness.
+    Clouds (P, 3)/(P,), or a batch of pairs (B, P, 3)/(B, P)."""
     ocfg = _overlap_cfg(cfg)
     q = ocfg.overlap_trim_fraction
-    clouds = (source_points, source_mask, target_points, target_mask)
-    res = register_resampled(*clouds, ocfg)
+    tp, tm = target_points.contiguous(), target_mask.contiguous()
+    clouds = (source_points, source_mask, tp, tm)
+    res = register_batch(*clouds, ocfg)
     best = trimmed_fitness(res.transform, *clouds, q)
     for _ in range(ocfg.overlap_iterations - 1):
         aligned = apply_similarity(res.transform, source_points).contiguous()
-        d2s, _ = nn1(aligned, target_points.contiguous(), target_mask.contiguous())
-        sm_in = source_mask & (d2s <= masked_quantile_threshold(d2s, source_mask, q))
-        d2t, _ = nn1(target_points.contiguous(), aligned, source_mask.contiguous())
-        tm_in = target_mask & (d2t <= masked_quantile_threshold(d2t, target_mask, q))
-        res2 = register_resampled(source_points, sm_in, target_points, tm_in, ocfg)
+        d2s, _ = nn1(aligned, tp, tm)
+        sm_in = source_mask & (d2s <= masked_quantile_threshold(d2s, source_mask, q)[:, None])
+        d2t, _ = nn1(tp, aligned, source_mask.contiguous())
+        tm_in = tm & (d2t <= masked_quantile_threshold(d2t, tm, q)[:, None])
+        res2 = register_batch(source_points, sm_in, tp, tm_in, ocfg)
         fit2 = trimmed_fitness(res2.transform, *clouds, q)
-        if bool(fit2 < best):
-            res, best = res2, fit2
+        better = fit2 < best
+        res, best = _keep(better, res2, res), torch.where(better, fit2, best)
     return res._replace(fitness=best)
 
 
+@_one_or_many
 def register_overlap_screen_resampled(
     source_points: torch.Tensor,
     source_mask: torch.Tensor,
@@ -394,61 +492,128 @@ def register_overlap_screen_resampled(
     overlap_screen_topk best lanes (a stable sort) converge fully as one
     ICP. Every lane runs in one batch, so no answer depends on
     overlap_screen_batch. Returns the best pose with fitness = its
-    bidirectional trimmed fitness."""
+    bidirectional trimmed fitness.
+
+    Clouds (P, 3)/(P,), or a batch of pairs (B, P, 3)/(B, P), whose B x G
+    screen lanes run in one ICP. nn1 takes at most 65535 lanes a launch, so
+    a batch runs in chunks of at most 65535 // G pairs (127 on the 8^3
+    grid), each chunk one screen."""
     ocfg = _overlap_cfg(cfg)
     q = ocfg.overlap_trim_fraction
-    dev = source_points.device
-    sim0, _, _ = middle_align(source_points, source_mask, target_points, target_mask)
+    dtype, dev = source_points.dtype, source_points.device
+    grid = rotation_grid(cfg.overlap_screen_steps, ocfg.angle_span, dev).to(dtype)
+    g = grid.shape[0]
+    chunk = MAX_LANES // g
+    if source_points.shape[0] > chunk:
+        parts = [register_overlap_screen_resampled(*(x[i:i + chunk] for x in (source_points, source_mask,
+                                                                                 target_points, target_mask)), cfg)
+                 for i in range(0, source_points.shape[0], chunk)]
+        return tree_map(lambda *xs: torch.cat(xs), *parts)
+    (b, p), t_n = source_mask.shape, target_mask.shape[1]
+    sm, tp, tm = source_mask, target_points.contiguous(), target_mask.contiguous()
+    sim0, _, _ = middle_align(source_points, sm, tp, tm)
     src_al = apply_similarity(sim0, source_points)
-    grid = rotation_grid(cfg.overlap_screen_steps, ocfg.angle_span, dev).to(source_points.dtype)
     rots = euler_xyz_matrix(grid)  # (G, 3, 3)
     params = ICPParams.from_config(ocfg)
-    lanes = rots.shape[0]
-    tgt, tmask = target_points.contiguous(), target_mask.contiguous()
+    lane_ref = _pair_lanes(b, g, dev)
 
-    sp_n = min(cfg.screen_points, source_points.shape[0])
-    seeded = rotate_points(rots, src_al[None])  # (G, P, 3)
-    res = icp(seeded[:, :sp_n].contiguous(), source_mask[:sp_n], tgt, tmask,
+    def lanes_of(x, n):  # (B, ...) -> (B * n, ...), pair b's row for each of its n lanes
+        return x[:, None].expand((b, n) + x.shape[1:]).reshape((b * n,) + x.shape[1:])
+
+    sp_n = min(cfg.screen_points, p)
+    seeded = rotate_points(rots, src_al[:, None])  # (B, G, P, 3)
+    res = icp(seeded[:, :, :sp_n].reshape(b * g, sp_n, 3).contiguous(), lanes_of(sm[:, :sp_n], g), tp, tm,
               params._replace(max_iterations=cfg.overlap_screen_iters),
-              trim_fraction=ocfg.icp_trim_fraction, estimate_scale=True)
-    full = (res.scale[:, None, None] * rotate_points(res.rotation, seeded)
+              trim_fraction=ocfg.icp_trim_fraction, estimate_scale=True, lane_ref=lane_ref)
+    full = (res.scale[:, None, None] * rotate_points(res.rotation, seeded.reshape(b * g, p, 3))
             + res.translation[:, None, :]).contiguous()
-    d2, _ = nn1(full, tgt[None], tmask[None])
-    fwd = trimmed_masked_mean(d2, source_mask.expand(d2.shape), q)
+    lane_sm = lanes_of(sm, g)
+    d2, _ = nn1(full, tp, tm, lane_ref)
+    fwd = trimmed_masked_mean(d2, lane_sm, q)
     # The reverse direction: lane l's target queries lane l's screened source.
-    d2r, _ = nn1(tgt[None].expand(lanes, -1, -1).contiguous(), full,
-                 source_mask[None].expand(lanes, -1).contiguous(),
-                 torch.arange(lanes, dtype=torch.int32, device=dev))
-    tfit_all = fwd + trimmed_masked_mean(d2r, tmask.expand(d2r.shape), q)
+    d2r, _ = nn1(lanes_of(tp, g).contiguous(), full, lane_sm.contiguous(),
+                 torch.arange(b * g, dtype=torch.int32, device=dev))
+    tfit_all = (fwd + trimmed_masked_mean(d2r, lanes_of(tm, g), q)).view(b, g)
 
-    k = min(cfg.overlap_screen_topk, lanes)
-    top = torch.argsort(tfit_all, stable=True)[:k]
-    res = icp(seeded[top].contiguous(), source_mask, tgt, tmask, params,
-              trim_fraction=ocfg.icp_trim_fraction, estimate_scale=True)
+    k = min(cfg.overlap_screen_topk, g)
+    top = torch.argsort(tfit_all, dim=1, stable=True)[:, :k]  # (B, k)
+    res = icp(_take(seeded, top).reshape(b * k, p, 3), lanes_of(sm, k), tp, tm, params,
+              trim_fraction=ocfg.icp_trim_fraction, estimate_scale=True, lane_ref=_pair_lanes(b, k, dev))
     icp_sim = Similarity(scale=res.scale, rotation=res.rotation, translation=res.translation)
-    zero3 = torch.zeros((k, 3), dtype=source_points.dtype, device=dev)
-    tots = compose(icp_sim, compose(Similarity.from_rigid(rots[top], zero3), sim0))
-    tbs = torch.stack([trimmed_fitness(Similarity(*(x[i] for x in tots)), source_points, source_mask,
-                                       target_points, target_mask, q) for i in range(k)])
-    best = int(torch.argmin(tbs))
+    cand_sim = Similarity.from_rigid(rots[top.reshape(-1)], torch.zeros((b * k, 3), dtype=dtype, device=dev))
+    tots = tree_map(lambda x: x.reshape((b, k) + x.shape[1:]),
+                    compose(icp_sim, compose(cand_sim, tree_map(lambda x: lanes_of(x, k), sim0))))
+    # One call a top lane, each over the pairs: at one pair, the calls and
+    # bits of the single-pair solve.
+    tbs = torch.stack([trimmed_fitness(Similarity(*(x[:, i] for x in tots)), source_points, sm, tp, tm, q)
+                       for i in range(k)], dim=1)
+    best = torch.argmin(tbs, dim=1)
+
+    def pick(x):
+        return _at(x, best)
+
     coarse = CoarseResult(
-        field=torch.zeros((1, 1, 1), dtype=source_points.dtype, device=dev),
-        best_angles=grid[top[best]],
+        field=torch.zeros((b, 1, 1, 1), dtype=dtype, device=dev),
+        best_angles=grid[pick(top)],
         candidate_angles=grid[top],
-        candidate_mask=torch.ones((k,), dtype=torch.bool, device=dev),
+        candidate_mask=torch.ones((b, k), dtype=torch.bool, device=dev),
         candidate_errors=tbs,
     )
-    no = torch.zeros((), dtype=torch.bool, device=dev)
+    no = torch.zeros((b,), dtype=torch.bool, device=dev)
     return RegistrationResult(
-        transform=Similarity(*(x[best] for x in tots)),
-        fitness=tbs[best],
-        judge_fitness=tbs[best],
+        transform=Similarity(*(pick(x) for x in tots)),
+        fitness=pick(tbs),
+        judge_fitness=pick(tbs),
         used_multistart=~no,
-        chosen_candidate=top[best],
-        icp_iterations=res.iterations[best],
+        chosen_candidate=pick(top),
+        icp_iterations=pick(res.iterations.view(b, k)),
         refine_hit_cap=no,
         coarse=coarse,
     )
+
+
+def _overlap_scores(res: RegistrationResult, clouds, baseline: Similarity, q: float):
+    """(transform, fit_std, tfit_new, tfit_old) of an overlap solve: its
+    plain mean squared NN distance, its trimmed fitness, and the incumbent
+    `baseline`'s trimmed fitness (escalate.overlap_rerun's contract)."""
+    sp, sm, tp, tm = clouds
+    tf_old = trimmed_fitness(baseline, *clouds, q)
+    d2, _ = nn1(apply_similarity(res.transform, sp).contiguous(), tp.contiguous(), tm.contiguous())
+    return res.transform, masked_mean(d2, sm), res.fitness, tf_old
+
+
+def overlap_solve_batch(
+    source_points: torch.Tensor,
+    source_mask: torch.Tensor,
+    target_points: torch.Tensor,
+    target_mask: torch.Tensor,
+    baseline: Similarity,
+    cfg: KSSICPConfig = DEFAULT_CONFIG,
+):
+    """The batched overlap rung (kss_icp_tpu/models/kss_icp.py:670-694):
+    register_overlap_resampled over B flagged pairs (B, P, 3)/(B, P), with
+    (B,) incumbent transforms `baseline`. Returns (transform, fit_std,
+    tfit_new, tfit_old), each leading with B. cfg must already be an overlap
+    config (cfg.overlap_config() or its escalation's)."""
+    clouds = (source_points, source_mask, target_points, target_mask)
+    res = register_overlap_resampled(*clouds, cfg)
+    return _overlap_scores(res, clouds, baseline, cfg.overlap_trim_fraction)
+
+
+def overlap_screen_solve_batch(
+    source_points: torch.Tensor,
+    source_mask: torch.Tensor,
+    target_points: torch.Tensor,
+    target_mask: torch.Tensor,
+    baseline: Similarity,
+    cfg: KSSICPConfig = DEFAULT_CONFIG,
+):
+    """The batched screen rung (kss_icp_tpu/models/kss_icp.py:640-667):
+    register_overlap_screen_resampled over B flagged pairs, with
+    overlap_solve_batch's contract."""
+    clouds = (source_points, source_mask, target_points, target_mask)
+    res = register_overlap_screen_resampled(*clouds, cfg)
+    return _overlap_scores(res, clouds, baseline, _overlap_cfg(cfg).overlap_trim_fraction)
 
 
 def _overlap_ladder(res: RegistrationResult, clouds, cfg: KSSICPConfig, timer: Optional[Timer]) -> RegistrationResult:

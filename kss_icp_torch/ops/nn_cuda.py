@@ -20,6 +20,7 @@ SMS = 132  # streaming multiprocessors of an H100 SXM: the plan's default where 
 MIN_SLICE = 256  # reference rows a cluster block scans at the least
 MAX_CLUSTER = 8  # the portable cluster size
 TILE_QUERIES = 256  # queries a block: 128 threads x 2 (csrc/nn.cu)
+MAX_LANES = 65535  # lanes a launch: the grid's y extent (csrc/nn.cu)
 
 
 class NN1Plan(NamedTuple):
@@ -50,7 +51,9 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _lane_ref(lane_ref: Optional[torch.Tensor], lanes: int, groups: int, device) -> torch.Tensor:
+def lane_refs(lane_ref: Optional[torch.Tensor], lanes: int, groups: int, device) -> torch.Tensor:
+    """Each lane's reference cloud: `lane_ref` as given, else cloud 0 for
+    every lane when one cloud serves them all, or cloud l for lane l."""
     if lane_ref is not None:
         if lane_ref.shape != (lanes,):
             raise ValueError(f"lane_ref must be ({lanes},), got {tuple(lane_ref.shape)}")
@@ -67,7 +70,7 @@ def nn1_plain(query, ref, ref_mask, lane_ref=None) -> Tuple[torch.Tensor, torch.
     lanes, groups = query.shape[0], ref.shape[0]
     if lane_ref is None and groups in (1, lanes):
         return nn_plain.nearest_neighbor(query, ref, ref_mask)
-    sel = _lane_ref(lane_ref, lanes, groups, query.device).long()
+    sel = lane_refs(lane_ref, lanes, groups, query.device).long()
     return nn_plain.nearest_neighbor(query, ref[sel], ref_mask[sel])
 
 
@@ -98,7 +101,7 @@ def nn1(
         raise ValueError(f"nn1 runs on cpu or cuda tensors, not {query.device}")
     lanes, q_n = query.shape[:2]
     groups, r_n = ref.shape[:2]
-    lane_ref = _lane_ref(lane_ref, lanes, groups, query.device)
+    lane_ref = lane_refs(lane_ref, lanes, groups, query.device)
     _require(query, torch.float32, "query")
     _require(ref, torch.float32, "ref")
     _require(ref_mask, torch.bool, "ref_mask")
@@ -106,8 +109,8 @@ def nn1(
     for t in (ref, ref_mask, lane_ref):
         if t.device != query.device:
             raise ValueError(f"nn1 inputs on different devices: {query.device} and {t.device}")
-    if r_n == 0 or lanes > 65535:
-        raise ValueError(f"nn1 needs 1 <= R and L <= 65535, got R={r_n}, L={lanes}")
+    if r_n == 0 or lanes > MAX_LANES:
+        raise ValueError(f"nn1 needs 1 <= R and L <= {MAX_LANES}, got R={r_n}, L={lanes}")
     d2 = torch.empty((lanes, q_n), dtype=torch.float32, device=query.device)
     idx = torch.empty((lanes, q_n), dtype=torch.int32, device=query.device)
     plan = nn1_plan(lanes, q_n, r_n, sm_count(query.device.index))

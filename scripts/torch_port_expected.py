@@ -16,7 +16,14 @@ Three records, each a JSON file under fixtures/:
   deform 8, scale 8, partial_hard 8), written to
   fixtures/torch_port_expected_overlap.json. On the CPU the partial
   boards' pairs take about 460 s each; `--shard I/N` runs every Nth pair,
-  so N processes can share the work, and `--merge` joins their records.
+  so N processes can share the work, and `--merge` joins their records;
+* `--batch`: the batched path, `kss_icp_tpu.register_many` at the
+  unmodified DEFAULT_CONFIG with full_pad 8192, on the remesh 25 as one
+  batch and on the 64 pairs of the five boards as another, written to
+  fixtures/torch_port_expected_batch.json. Per-pair answers do not depend
+  on the batch's other pairs (tests/test_torch_batch.py), so a `--shard
+  I/N` run registers its pairs as a sub-batch of each, and `--merge`
+  joins the records as for `--overlap`.
 
 Per pair: the chosen candidate, ICP fitness, ICP iteration count, the
 hit-cap flag, the similarity transform and the full-resolution RMSE; with
@@ -28,10 +35,15 @@ board's threshold. With `--overlap`, each pair also lists the overlap
 tier's rungs (`overlap8`, `overlap16`, `overlap_screen`) that register_pair
 reached, each with the incumbent's trimmed fitness `tf_old`, whether the
 crop-signature gate skipped it, and, for a rung that ran, its trimmed
-fitness `tf_new` and whether it was adopted. chip_smoke.py and tests/test_torch_expected.py hold the
+fitness `tf_new` and whether it was adopted. With `--batch` the same keys
+come from wrapping register_many's escalate_rerun, polish_rerun and
+overlap_rerun (chip_smoke.LadderLog); a rung is listed where the pair's
+fitness was above overlap_threshold when the rung began. chip_smoke.py and tests/test_torch_expected.py hold the
 port to these records.
 
-    JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation | --overlap] [--limit N] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation | --overlap | --batch] [--limit N]
+        [--shard I/N] [--out PATH]
+    python scripts/torch_port_expected.py [--overlap | --batch] --merge SHARD.json ... [--out PATH]
 
 About 16 s per remesh pair at DEFAULT_CONFIG and 8 s at the bench config on
 an 8-core x86 CPU with escalation off.
@@ -51,6 +63,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "fixtures"
 BOARDS = ("category", "deform", "scale")
+FULL_PAD = 8192  # register_many's default pad, which the remesh targets (up to 8000 points) fit
 
 ESCALATION_NOTE = (
     "JAX on the CPU scores the rotation field on its XLA path whatever coarse_method says "
@@ -117,6 +130,8 @@ def main() -> int:
                       help="record escalation on (overlap_escalate=False), boards included")
     mode.add_argument("--overlap", action="store_true",
                       help="record the unmodified DEFAULT_CONFIG (the overlap tier on), all five boards")
+    mode.add_argument("--batch", action="store_true",
+                      help="record register_many at the unmodified DEFAULT_CONFIG: remesh 25, all five boards")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--limit", type=int, default=0,
                     help="only the first N pairs of each corpus (0 = all)")
@@ -128,6 +143,7 @@ def main() -> int:
     args = ap.parse_args()
     out_path = args.out or FIXTURES / ("torch_port_expected_escalation.json" if args.escalation else
                                        "torch_port_expected_overlap.json" if args.overlap else
+                                       "torch_port_expected_batch.json" if args.batch else
                                        "torch_port_expected.json")
     if args.merge:
         return merge(args.merge, out_path)
@@ -202,11 +218,82 @@ def main() -> int:
                   f"({time.perf_counter() - t0:.1f} s)", file=sys.stderr, flush=True)
         return pairs
 
+    def run_batch(cfg, items):
+        """One register_many call over items [(index, (name, src, tgt, gt), board or None)]."""
+        from chip_smoke import LadderLog
+        from kss_icp_tpu.parallel.batch import register_many
+
+        if not items:
+            return []
+        t0 = time.perf_counter()
+        pairs = [(src, tgt) for _, (_, src, tgt, _), _ in items]
+        with LadderLog(escalate, len(pairs)) as ladder:
+            res, metrics = register_many(pairs, cfg, full_pad=FULL_PAD)
+        tr = res.transform
+        rows = []
+        for b, (index, (name, src, tgt, gt), board) in enumerate(items):
+            src_pad = np.asarray(src, np.float32)[:FULL_PAD]
+            aligned = np.asarray(apply_similarity(type(tr)(*(x[b] for x in tr)), src_pad))
+            rec = {
+                "name": name,
+                "index": index,
+                "n_source": int(src.shape[0]),
+                "n_target": int(tgt.shape[0]),
+                "chosen_candidate": int(res.chosen_candidate[b]),
+                "fitness": float(res.fitness[b]),
+                "icp_iterations": int(res.icp_iterations[b]),
+                "refine_hit_cap": bool(res.refine_hit_cap[b]),
+                "scale": float(tr.scale[b]),
+                "rotation": np.asarray(tr.rotation[b], np.float64).tolist(),
+                "translation": np.asarray(tr.translation[b], np.float64).tolist(),
+                "rmse": float(metrics["rmse"][b]),
+                "escalated": bool(ladder.escalated[b]),
+                "escalation_won": bool(ladder.won[b]),
+                "finisher": bool(ladder.finisher[b]),
+                "rungs": ladder.rungs[b],
+            }
+            if board is not None:
+                pose = transform_rmse(aligned, src_pad, gt)
+                rec.update(board=board[0], pose_rmse=float(pose), passed=bool(pose <= board[1]))
+            rows.append(rec)
+            extra = "".join(f" {r['rung']}={'adopted' if r['adopted'] else 'ran' if r['ran'] else 'skipped'}"
+                            for r in rec["rungs"])
+            print(f"{'' if board is None else board[0] + ':'}{name}: cand={rec['chosen_candidate']} "
+                  f"fit={rec['fitness']:.6g} rmse={rec['rmse']:.6f} escalated={rec['escalated']} "
+                  f"won={rec['escalation_won']} finisher={rec['finisher']}"
+                  f"{'' if board is None else ' pose_rmse=%.4f' % rec['pose_rmse']}{extra}",
+                  file=sys.stderr, flush=True)
+        print(f"register_many over {len(items)} pairs: {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+        return rows
+
     remesh = remesh_corpus()
+    platform = "jax " + jax.__version__ + " on cpu"
+    if args.batch:
+        out = {
+            "platform": platform,
+            "note": ESCALATION_NOTE,
+            "rmse_band": 0.006,
+            "config": "DEFAULT_CONFIG (escalation and the overlap tier on) through register_many, full_pad 8192",
+            "full_pad": FULL_PAD,
+        }
+        out["pairs"] = run_batch(DEFAULT_CONFIG, [(i, p, None) for i, p in limit(list(enumerate(remesh)))])
+        boards = challenge_corpus(include_hard=True)
+        # A shard takes every Nth pair of the 64, so the 16 partial pairs spread over the shards.
+        flat = [(i, p, (b, thr)) for b, corpus, thr in boards for i, p in enumerate(corpus)]
+        flat = [item for k, item in enumerate(flat) if k % shards == shard]
+        if args.limit:
+            flat = [item for item in flat if item[0] < args.limit]
+        rows = run_batch(DEFAULT_CONFIG, flat)
+        out["boards"] = {b: {"threshold": thr, "pairs": []} for b, _, thr in boards}
+        for r in rows:
+            out["boards"][r.pop("board")]["pairs"].append(r)
+        out["seconds"] = time.perf_counter() - t_start
+        out_path.write_text(json.dumps(out, indent=1) + "\n")
+        print(f"wrote {out_path} in {out['seconds']:.0f} s", file=sys.stderr)
+        return 0
     bench = bench_config()
     knobs = {f.name: getattr(bench, f.name) for f in dataclasses.fields(bench)
              if getattr(bench, f.name) != getattr(DEFAULT_CONFIG, f.name)}
-    platform = "jax " + jax.__version__ + " on cpu"
     if not (args.escalation or args.overlap):
         no_esc = dict(auto_escalate=False)
         out = {

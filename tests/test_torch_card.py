@@ -529,3 +529,58 @@ def test_unbuilt_or_foreign_inputs_raise(cuda_device):
         nn1(q, q.cpu(), torch.ones((1, 4), dtype=torch.bool))
     with pytest.raises(ValueError):
         nn1(q[:, ::2], q, torch.ones((1, 4), dtype=torch.bool, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs, lanes, q_n, r_n", [(3, 32, 512, 2048), (3, 4, 2048, 2048), (3, 1, 8192, 8192),
+                                                    (5, 3, 301, 777)])
+def test_nn1_kernel_matches_plain_with_a_cloud_a_pair(cuda_device, pairs, lanes, q_n, r_n):
+    """The batched path's shapes: pair b's lanes against pair b's cloud
+    (lane_ref = the lane's pair), each cloud with its own padded tail."""
+    rng = np.random.default_rng(pairs * lanes + q_n)
+    q = _t(np.stack([random_cloud(rng, q_n) for _ in range(pairs * lanes)]).astype(np.float32), cuda_device)
+    r = _t(np.stack([random_cloud(rng, r_n) for _ in range(pairs)]).astype(np.float32), cuda_device)
+    m = torch.ones((pairs, r_n), dtype=torch.bool, device=cuda_device)
+    for b in range(pairs):
+        m[b, r_n - (b + 1) * r_n // 11:] = False
+    lane_ref = torch.arange(pairs, dtype=torch.int32, device=cuda_device).repeat_interleave(lanes)
+    _same_nn(nn1(q, r, m, lane_ref), nn1_plain(q, r, m, lane_ref))
+
+
+@pytest.mark.cuda
+def test_register_many_on_the_card_matches_cpu(cuda_device):
+    """Three partial pairs through register_many and the whole ladder at tiny
+    sizes: the same ladder and poses on the card as on the CPU, one fps
+    launch for the batch's resample and one field launch a pair and grid."""
+    from chip_smoke import LadderLog
+    from kss_icp_torch import escalate
+    from kss_icp_torch.challenge import partial_corpus
+    from kss_icp_torch.ops.coarse_cuda import field_trim
+
+    cfg = KSSICPConfig(rotation_steps=4, max_candidates=4, max_resample_points=160, resample_pad=192,
+                       max_icp_iterations=12, screen_points=64, refine_candidates=2, escalate_rotation_steps=5,
+                       escalate_max_candidates=5, escalate_coarse_points=64, escalate_coarse_target_points=64,
+                       overlap_screen_steps=4, overlap_screen_iters=4, overlap_iterations=2,
+                       escalate_threshold=1e-9, overlap_threshold=1e-9, overlap_adopt_margin=0.8)
+    pairs = [(s, t) for i, (_, s, t, _) in enumerate(partial_corpus(n_points=1500)) if i in (0, 2, 7)]
+    runs = []
+    for device in ("cpu", cuda_device):
+        for counter in (nn1, fps, field_ave, field_trim):
+            counter.launches = 0
+        with LadderLog(escalate, len(pairs)) as ladder:
+            res, metrics = kt.register_many(pairs, cfg, full_pad=1536, device=device)
+        runs.append((res, metrics, ladder, {c.__name__: c.launches for c in (nn1, fps, field_ave, field_trim)}))
+    (cpu, m_cpu, l_cpu, _), (gpu, m_gpu, l_gpu, launches) = runs
+    for f in ("escalated", "won", "finisher"):
+        assert getattr(l_gpu, f).tolist() == getattr(l_cpu, f).tolist(), f
+    assert [[(r["ran"], r["adopted"]) for r in rows] for rows in l_gpu.rungs] == \
+        [[(r["ran"], r["adopted"]) for r in rows] for rows in l_cpu.rungs]
+    for f in ("rotation", "translation", "scale"):
+        np.testing.assert_allclose(getattr(gpu.transform, f).cpu().numpy(), getattr(cpu.transform, f).numpy(),
+                                   atol=1e-4)
+    np.testing.assert_allclose(m_gpu["rmse"], m_cpu["rmse"], atol=1e-4)
+    field_rungs = sum(r["ran"] for rows in l_gpu.rungs for r in rows if r["rung"] != "overlap_screen")
+    # fps once; field_ave on the base and the escalation grid for each pair;
+    # field_trim twice (overlap_iterations) a pair and field rung that ran.
+    assert launches["fps"] == 1 and launches["nn1"] > 0
+    assert launches["field_ave"] == 2 * len(pairs) and launches["field_trim"] == 2 * field_rungs > 0
