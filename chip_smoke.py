@@ -16,12 +16,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and at the overlap screen rung's: 512 lanes x 512 x 2048, the forward
      fitness 512 x 2048 x 2048 and the reverse one against 512 per-lane
      references (lane_ref = arange); and at register_many's shapes, a cloud
-     a pair (lane_ref = the lane's pair): the batch screen (25 x 32) x 512 x
-     2048, the batch refine (25 x 4) x 2048 x 2048 and the batch metric
-     25 x 8192 x 8192;
+     a pair (lane_ref = the lane's pair): on the remesh batch the screen
+     (25 x 32) x 512 x 2048, the refine (25 x 4) x 2048 x 2048 and the
+     metric 25 x 8192 x 8192; on the board batch the screen (64 x 32) x 512
+     x 2048, the refine (64 x 4) x 2048 x 2048, the screen rung's ICP over
+     16 pairs (16 x 512) x 512 x 2048, its forward fitness (16 x 512) x 2048
+     x 2048 against 16 clouds and its reverse one against 8192, and the
+     metric 64 x 8192 x 8192; each batch case reports its launches from the
+     4e pass that runs it;
      fps at B=2 x 8192 -> 2048, at the largest remesh pair's padded
      source and target with steps = pnumber, and over the remesh 25's 50
-     clouds at full_pad 8192 with steps = the largest pnumber; field_ave, and field_dot at
+     and the boards' 128 clouds at full_pad 8192 with steps = the largest
+     pnumber; field_ave, and field_dot at
      "highest" and "default", on the base grid C=512, P=T=2048 and the
      escalation grid C=4096, P=T=512, mostly valid, and on the base grid
      with both clouds suffix-masked to the largest and smallest remesh
@@ -87,6 +93,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -150,7 +157,14 @@ def bound(ops: float, nbytes: float, bf16_ops: float = 0.0) -> dict:
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def shape_key(lanes: int, q_n: int, r_n: int, groups: int) -> str:
+    """An nn1 launch shape as printed and as the `kernels` line's cases name it."""
+    return f"{lanes}x{q_n}x{r_n}" + (f" G={groups}" if groups > 1 else "")
+
+
 def phase_kernels(torch, dev) -> dict:
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.core.cloud import PointCloud
     from kss_icp_torch.core.transforms import euler_xyz_matrix
     from kss_icp_torch.models.coarse import rotation_grid
     from kss_icp_torch.ops.coarse_cuda import (dot_operands, field_ave, field_ave_plain, field_dot,
@@ -167,21 +181,37 @@ def phase_kernels(torch, dev) -> dict:
         return torch.as_tensor(x, device=dev)
 
     cases = []
-    # (lanes, queries, reference rows, reference clouds, label, valid rows):
+    # register_many's valid rows: the resampled clouds' pnumber of 2048 and
+    # the full clouds padded to 8192, on the remesh 25 and on the five boards.
+    boards = load_boards()
+    board_pn = [DEFAULT_CONFIG.resample_count(len(a), len(b)) for _, a, b, *_ in boards]
+    board_n = [len(c) for _, a, b, *_ in boards for c in (a, b)]
+    board_valid, board_full = (min(board_pn), max(board_pn) + 1), (min(board_n), max(board_n) + 1)
+    # (lanes, queries, reference rows, reference clouds, label, valid rows,
+    # the phase 4e pass whose launches at this shape the case reports):
     # G = lanes gives each lane its own cloud through lane_ref = arange, as the
     # overlap screen's reverse fitness does; 1 < G < lanes gives each of G
     # pairs lanes / G lanes against its own cloud, as register_many's ICP
     # stages and metric do, each cloud with a valid prefix drawn from the
-    # remesh 25's range (pnumber 378-1534 of 2048; targets 3951-8000 of 8192).
-    for lanes, q_n, r_n, groups, label, valid in (
-            (32, 512, 2048, 1, "screen ICP", None), (16, 512, 2048, 1, "escalation screen ICP", None),
-            (4, 2048, 2048, 1, "refine ICP", None), (1, 3072, 8192, 1, "metric, largest remesh pair", None),
-            (1, 65536, 65536, 1, "K4 metric regime", None), (512, 512, 2048, 1, "overlap screen ICP", None),
-            (512, 2048, 2048, 1, "overlap screen fitness, forward", None),
-            (512, 2048, 2048, 512, "overlap screen fitness, reverse: per-lane references", None),
-            (25 * 32, 512, 2048, 25, "batch screen ICP: 25 pairs x 32 lanes, a cloud a pair", (378, 1534)),
-            (25 * 4, 2048, 2048, 25, "batch refine ICP: 25 pairs x 4 lanes, a cloud a pair", (378, 1534)),
-            (25, 8192, 8192, 25, "batch metric: lane b against cloud b", (3951, 8000))):
+    # corpus's range (remesh pnumber 378-1534 of 2048, targets 3951-8000 of
+    # 8192; board pnumber and cloud sizes from the boards themselves).
+    for lanes, q_n, r_n, groups, label, valid, batch in (
+            (32, 512, 2048, 1, "screen ICP", None, None), (16, 512, 2048, 1, "escalation screen ICP", None, None),
+            (4, 2048, 2048, 1, "refine ICP", None, None), (1, 3072, 8192, 1, "metric, largest remesh pair", None, None),
+            (1, 65536, 65536, 1, "K4 metric regime", None, None), (512, 512, 2048, 1, "overlap screen ICP", None, None),
+            (512, 2048, 2048, 1, "overlap screen fitness, forward", None, None),
+            (512, 2048, 2048, 512, "overlap screen fitness, reverse: per-lane references", None, None),
+            (25 * 32, 512, 2048, 25, "batch screen ICP: 25 pairs x 32 lanes, a cloud a pair", (378, 1534), "many"),
+            (25 * 4, 2048, 2048, 25, "batch refine ICP: 25 pairs x 4 lanes, a cloud a pair", (378, 1534), "many"),
+            (25, 8192, 8192, 25, "batch metric: lane b against cloud b", (3951, 8000), "many"),
+            (64 * 32, 512, 2048, 64, "boards batch screen ICP: 64 pairs x 32 lanes", board_valid, "many boards"),
+            (64 * 4, 2048, 2048, 64, "boards batch refine ICP: 64 pairs x 4 lanes", board_valid, "many boards"),
+            (16 * 512, 512, 2048, 16, "boards batch overlap screen ICP: 16 pairs x 512 lanes", board_valid,
+             "many boards"),
+            (16 * 512, 2048, 2048, 16, "boards batch overlap screen fitness, forward", board_valid, "many boards"),
+            (16 * 512, 2048, 2048, 16 * 512, "boards batch overlap screen fitness, reverse: per-lane references",
+             board_valid, "many boards"),
+            (64, 8192, 8192, 64, "boards batch metric: lane b against cloud b", board_full, "many boards")):
         query = t(np.stack([cloud(rng, q_n) for _ in range(lanes)]))
         ref = t(np.stack([cloud(rng, r_n) for _ in range(groups)]))
         mask = torch.ones((groups, r_n), dtype=torch.bool, device=dev)
@@ -216,8 +246,7 @@ def phase_kernels(torch, dev) -> dict:
         # 3 sub + 3 mul + 2 add + 1 compare per query and valid reference row.
         evals = q_n * int(mask.sum()) * (lanes // groups)
         b = bound(9.0 * evals, 4 * (lanes * q_n * 3 + groups * r_n * 3) + groups * r_n + 8 * lanes * q_n)
-        cases.append(dict({"shape": f"{lanes}x{q_n}x{r_n}" + (f" G={groups}" if groups > 1 else ""), "label": label,
-                           "lqr": [lanes, q_n, r_n],
+        cases.append(dict({"shape": shape_key(lanes, q_n, r_n, groups), "label": label, "batch_pass": batch,
                            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": err,
                            "yardstick_ms": yard_ms}, **b))
         log(f"  nn1 {lanes}x{q_n}x{r_n} G={groups} ({label}): indices and d2 identical; kernel {ms:.4f} ms a wrapper "
@@ -233,31 +262,31 @@ def phase_kernels(torch, dev) -> dict:
     pmask = torch.ones((b_n, p_n), dtype=torch.bool, device=dev)
     pmask[0, 8000:] = False
     pmask[1, 6201:] = False
-    fps_cases = [(pts, pmask, s, s, "table shape")]
+    fps_cases = [(pts, pmask, s, s, "table shape", None)]
     # register_pair's two launches on the remesh pair with the most picks,
     # padded as PointCloud.from_points pads them.
-    from kss_icp_torch.config import DEFAULT_CONFIG
-    from kss_icp_torch.core.cloud import PointCloud
-
     remesh = load_pairs()
     _, src, tgt = max(remesh, key=lambda r: DEFAULT_CONFIG.resample_count(len(r[1]), len(r[2])))
     steps = DEFAULT_CONFIG.resample_count(len(src), len(tgt))
     for points, label in ((src, "remesh source"), (tgt, "remesh target")):
         c = PointCloud.from_points(points, device=dev)
         fps_cases.append((c.points[None].contiguous(), c.mask[None].contiguous(), DEFAULT_CONFIG.resample_pad,
-                          steps, label))
-    # register_many's one launch: the remesh 25's sources and targets padded
-    # to full_pad 8192, steps = the largest pnumber; pair b needs pnumber_b picks.
-    counts = [DEFAULT_CONFIG.resample_count(len(a), len(b)) for _, a, b in remesh]
-    clouds = [a for _, a, _ in remesh] + [b for _, _, b in remesh]
-    pts = np.zeros((len(clouds), BATCH_PAD, 3), np.float32)
-    for i, c in enumerate(clouds):
-        pts[i, :len(c)] = c
-    bmask = t(np.arange(BATCH_PAD)[None] < np.array([len(c) for c in clouds])[:, None])
-    fps_cases.append((t(pts), bmask, DEFAULT_CONFIG.resample_pad, max(counts),
-                      "batch resample: the remesh 25's 50 clouds at full_pad 8192", counts + counts))
+                          steps, label, None))
+    # register_many's one launch a batch: each corpus's sources and targets
+    # padded to full_pad 8192, steps = the largest pnumber; pair b needs
+    # pnumber_b picks.
+    for corpus, label, batch in ((remesh, "batch resample: the remesh 25's 50 clouds at full_pad 8192", "many"),
+                                 ([(n, a, b) for n, a, b, *_ in boards],
+                                  "batch resample: the boards' 128 clouds at full_pad 8192", "many boards")):
+        counts = [DEFAULT_CONFIG.resample_count(len(a), len(b)) for _, a, b in corpus]
+        clouds = [a for _, a, _ in corpus] + [b for _, _, b in corpus]
+        pts = np.zeros((len(clouds), BATCH_PAD, 3), np.float32)
+        for i, c in enumerate(clouds):
+            pts[i, :len(c)] = c
+        bmask = t(np.arange(BATCH_PAD)[None] < np.array([len(c) for c in clouds])[:, None])
+        fps_cases.append((t(pts), bmask, DEFAULT_CONFIG.resample_pad, max(counts), label, batch, counts + counts))
     cases = []
-    for pts, pmask, s, steps, label, *picks in fps_cases:
+    for pts, pmask, s, steps, label, batch, *picks in fps_cases:
         b_n, p_n = pmask.shape
         picks = np.array(picks[0] if picks else [steps] * b_n)
         ik, smk = fps(pts, pmask, s, steps)
@@ -272,7 +301,7 @@ def phase_kernels(torch, dev) -> dict:
         # steps are a dependency chain the bound does not see (PERF.md).
         b = bound(10.0 * float((picks * pmask.sum(dim=1).cpu().numpy()).sum()),
                   4 * b_n * p_n * 3 + b_n * p_n + b_n * s * 5)
-        cases.append(dict({"shape": f"{b_n}x{p_n}->{s}", "steps": steps, "label": label, "ms": ms,
+        cases.append(dict({"shape": f"{b_n}x{p_n}->{s}", "steps": steps, "label": label, "batch_pass": batch, "ms": ms,
                            "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": 0.0}, **b))
         log(f"  fps B={b_n} P={p_n} S={s} steps={steps} ({label}): indices identical; {ms:.4f} ms a wrapper call "
             f"back to back, {device_ms:.4f} ms on the device (graph replay; centroid and mask ops included), "
@@ -414,6 +443,16 @@ def phase_field_trim(torch, dev, rng) -> dict:
                 yardstick="torch.cdist(rotated, valid_target).amin(-1), 64 rotations a call")
 
 
+@functools.lru_cache(maxsize=None)
+def load_boards():
+    """The five boards' 64 pairs, [(board:name, source, target, ground truth)]
+    (partial and partial_hard share pair names), and each pair's threshold."""
+    from kss_icp_torch.challenge import BOARDS
+
+    return tuple((f"{board}:{name}", src, tgt, gt, thr) for board, corpus, thr in BOARDS
+                 for name, src, tgt, gt in corpus())
+
+
 def load_pairs():
     meta = json.loads((FIXTURES / "remesh_transfer.json").read_text())
     with np.load(FIXTURES / "remesh_transfer.npz") as z:
@@ -448,131 +487,12 @@ class StageTimer:
             self.seconds[name] += time.perf_counter() - t0
 
 
-RUNGS = ("overlap8", "overlap16", "overlap_screen")
-
-
-class RungLog:
-    """Records the overlap rungs that `module.register_pair` reaches, in
-    either package (kss_icp_torch.models.kss_icp, or kss_icp_tpu's in the
-    tests and scripts/torch_port_expected.py): a trimmed fitness computed
-    outside the solvers opens a rung (the incumbent's tf_old), a solver call
-    marks it run (tf_new); a rung is adopted when tf_new < margin x tf_old.
-    Wraps the module's functions while entered; `rungs` is reset by the
-    caller between pairs."""
-
-    def __init__(self, module, margin: float):
-        self.module, self.margin, self.depth, self.rungs = module, margin, 0, []
-        self.orig = {n: getattr(module, n) for n in ("trimmed_fitness", "register_overlap_resampled",
-                                                      "register_overlap_screen_resampled")}
-
-    def __enter__(self):
-        def fitness(*a, **kw):
-            out = self.orig["trimmed_fitness"](*a, **kw)
-            if not self.depth:
-                self.rungs.append({"rung": RUNGS[len(self.rungs)], "tf_old": float(out), "skipped": True,
-                                   "ran": False, "adopted": False, "tf_new": None})
-            return out
-
-        def solver(name):
-            def run(*a, **kw):
-                self.depth += 1
-                try:
-                    res = self.orig[name](*a, **kw)
-                finally:
-                    self.depth -= 1
-                if self.rungs:  # overlap_mode=True calls the solver with no rung open
-                    r = self.rungs[-1]
-                    r.update(skipped=False, ran=True, tf_new=float(res.fitness))
-                    r["adopted"] = r["tf_new"] < self.margin * r["tf_old"]
-                return res
-            return run
-
-        self.module.trimmed_fitness = fitness
-        for n in ("register_overlap_resampled", "register_overlap_screen_resampled"):
-            setattr(self.module, n, solver(n))
-        return self
-
-    def __exit__(self, *exc):
-        for n, fn in self.orig.items():
-            setattr(self.module, n, fn)
-
-    def outcomes(self) -> list:
-        """'skipped', 'ran' or 'adopted' for each rung reached."""
-        return [rung_state(r) for r in self.rungs]
-
-
-class LadderLog:
-    """Records the escalation ladder of one `register_many` call, in either
-    package (kss_icp_torch.escalate, or kss_icp_tpu's in
-    scripts/torch_port_expected.py and the tests): wraps the escalate
-    module's escalate_rerun, polish_rerun and overlap_rerun while entered
-    (register_many imports them at call time). Per row of the batch:
-    `escalated` (flagged for the 16^3 re-solve), `won` (the re-solve kept),
-    `finisher` (the uncapped finisher ran) and `rungs`, one entry per
-    overlap rung the row reached (its fitness above the threshold) in the
-    RungLog format: skipped by the crop gate, run, adopted, with the trimmed
-    fitnesses tf_old and tf_new of a rung that ran."""
-
-    def __init__(self, escalate, n: int):
-        self.escalate = escalate
-        self.escalated, self.won, self.finisher = (np.zeros(n, bool) for _ in range(3))
-        self.rungs = [[] for _ in range(n)]
-        self.in_polish, self.n_rungs = False, 0
-        self.orig = {k: getattr(escalate, k) for k in ("escalate_rerun", "polish_rerun", "overlap_rerun")}
-
-    def __enter__(self):
-        def rerun(resolve, fitness, threshold, pad_multiple, result=None, cap=None, chunk=None, flags=None, **kw):
-            out = self.orig["escalate_rerun"](resolve, fitness, threshold, pad_multiple, result=result, cap=cap,
-                                              chunk=chunk, flags=flags, **kw)
-            if not self.in_polish:  # polish_rerun runs through escalate_rerun
-                self.escalated |= np.asarray(flags, bool) if flags is not None else np.asarray(fitness) > threshold
-                self.won[[gi for gi, _, _ in out[2]]] = True
-            return out
-
-        def polish(resolve, hit_cap, fitness, pad_multiple, result=None, cap=None, chunk=None):
-            self.finisher |= np.asarray(hit_cap, bool)
-            self.in_polish = True
-            try:
-                return self.orig["polish_rerun"](resolve, hit_cap, fitness, pad_multiple, result=result, cap=cap,
-                                                 chunk=chunk)
-            finally:
-                self.in_polish = False
-
-        def overlap(resolve, fitness, threshold, pad_multiple, margin, result=None, cap=None, chunk=None, flags=None):
-            rung, seen = RUNGS[self.n_rungs], {}
-            self.n_rungs += 1
-
-            def resolve_seen(sel):
-                out = resolve(sel)
-                for j, gi in enumerate(np.asarray(sel)):
-                    seen.setdefault(int(gi), (float(out[2][j]), float(out[3][j])))
-                return out
-
-            out = self.orig["overlap_rerun"](resolve_seen, fitness, threshold, pad_multiple, margin, result=result,
-                                             cap=cap, chunk=chunk, flags=flags)
-            adopted = {gi for gi, _, _ in out[2]}
-            for gi in np.nonzero(np.asarray(fitness) > threshold)[0]:
-                tf_new, tf_old = seen.get(int(gi), (None, None))
-                self.rungs[gi].append({"rung": rung, "tf_old": tf_old, "skipped": int(gi) not in seen,
-                                       "ran": int(gi) in seen, "adopted": int(gi) in adopted, "tf_new": tf_new})
-            return out
-
-        self.escalate.escalate_rerun, self.escalate.polish_rerun, self.escalate.overlap_rerun = rerun, polish, overlap
-        return self
-
-    def __exit__(self, *exc):
-        for k, fn in self.orig.items():
-            setattr(self.escalate, k, fn)
-
-
-def rung_state(r: dict) -> str:
-    return "adopted" if r["adopted"] else "ran" if r["ran"] else "skipped"
-
-
-def rung_outcome(rungs) -> str:
-    """'8:adopted 16:ran screen:skipped' for a pair's rungs; '-' where none ran."""
-    short = {"overlap8": "8", "overlap16": "16", "overlap_screen": "screen"}
-    return " ".join(f"{short[r['rung']]}:{rung_state(r)}" for r in rungs) or "-"
+def nn1_histogram(nn1, label: str) -> dict:
+    """nn1's launches since its counts were zeroed, by shape_key: logged, and returned."""
+    shapes = sorted(nn1.launch_shapes.items(), key=lambda kv: -kv[1])
+    log(f"  [{label}] nn1 launches by shape (L x Q x R, G reference clouds): " +
+        ", ".join(f"{shape_key(*k)} {n}" for k, n in shapes))
+    return {shape_key(*k): n for k, n in shapes}
 
 
 def drive(torch, dev, cfg, pairs, counters, timer, label, judge, rung_log=None):
@@ -606,9 +526,7 @@ def drive(torch, dev, cfg, pairs, counters, timer, label, judge, rung_log=None):
                          rungs=[] if rung_log is None else rung_log.rungs))
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"  [{label}] kernel launches: {launches}")
-    shapes = sorted(counters["nn1"].launch_shapes.items(), key=lambda kv: -kv[1])
-    log(f"  [{label}] nn1 launches by shape (L x Q x R): " + ", ".join(f"{l}x{q}x{r} {n}" for (l, q, r), n in shapes))
-    launches["nn1_shapes"] = {f"{l}x{q}x{r}": n for (l, q, r), n in shapes}
+    launches["nn1_shapes"] = nn1_histogram(counters["nn1"], label)
     return rows, total, launches
 
 
@@ -774,6 +692,7 @@ def phase_default_config(torch, dev, kernels: dict, e2e: dict) -> None:
     expected = {p["name"]: p for p in exp["pairs"]}
     judge = remesh_judge(torch, expected)
     label = "shipped"
+    from kss_icp_torch.ladder_log import RungLog, rung_outcome
     from kss_icp_torch.models import kss_icp as tk
 
     with RungLog(tk, cfg.overlap_adopt_margin) as rung_log:
@@ -872,6 +791,7 @@ def drive_many(torch, dev, cfg, pairs, counters, timer, label):
     launches)."""
     import kss_icp_torch as kt
     from kss_icp_torch import escalate
+    from kss_icp_torch.ladder_log import LadderLog
 
     for fn in counters.values():
         fn.launches = 0
@@ -883,10 +803,8 @@ def drive_many(torch, dev, cfg, pairs, counters, timer, label):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    shapes = sorted(counters["nn1"].launch_shapes.items(), key=lambda kv: -kv[1])
     log(f"  [{label}] kernel launches: {launches}")
-    log(f"  [{label}] nn1 launches by shape (L x Q x R): " + ", ".join(f"{l}x{q}x{r} {n}" for (l, q, r), n in shapes))
-    launches["nn1_shapes"] = {f"{l}x{q}x{r}": n for (l, q, r), n in shapes}
+    launches["nn1_shapes"] = nn1_histogram(counters["nn1"], label)
     return res, metrics, ladder, seconds, launches
 
 
@@ -903,8 +821,9 @@ def phase_many(torch, dev, kernels: dict, e2e: dict) -> None:
     fixtures/torch_port_expected_batch.json: the remesh 25 as one batch,
     then the five boards' 64 pairs as another."""
     import kss_icp_torch as kt
-    from kss_icp_torch.challenge import BOARDS, transform_rmse
+    from kss_icp_torch.challenge import transform_rmse
     from kss_icp_torch.config import DEFAULT_CONFIG as cfg
+    from kss_icp_torch.ladder_log import rung_outcome
     from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
     from kss_icp_torch.ops.nn_cuda import nn1
     from kss_icp_torch.ops.resample_cuda import fps
@@ -950,13 +869,11 @@ def phase_many(torch, dev, kernels: dict, e2e: dict) -> None:
                             "stage_iterations": dict(timer.iterations)}
 
     log("== 4e. register_many at DEFAULT_CONFIG: the five boards (64 pairs) as one batch")
-    board_pairs, gt, threshold, jax_rows = [], {}, {}, {}
-    for board, corpus, thr in BOARDS:
-        for name, src, tgt, g in corpus():
-            board_pairs.append((f"{board}:{name}", src, tgt))
-            gt[f"{board}:{name}"], threshold[f"{board}:{name}"] = g, thr
-        for p in exp["boards"][board]["pairs"]:
-            jax_rows[f"{board}:{p['name']}"] = p
+    board_pairs = [(name, src, tgt) for name, src, tgt, _, _ in load_boards()]
+    gt = {name: g for name, _, _, g, _ in load_boards()}
+    threshold = {name: thr for name, _, _, _, thr in load_boards()}
+    jax_rows = {f"{board}:{p['name']}": p for board, rec in exp["boards"].items() for p in rec["pairs"]}
+    require(sorted(jax_rows) == sorted(gt), "the batch record's board pairs differ")
     label = "many boards"
     timer = StageTimer(torch, True)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -999,13 +916,12 @@ def phase_many(torch, dev, kernels: dict, e2e: dict) -> None:
     e2e["passes"][label] = {"pairs_per_s": len(board_pairs) / seconds, "seconds": seconds, "launches": launches,
                             "stage_seconds": dict(timer.seconds), "stage_iterations": dict(timer.iterations),
                             "rungs_run": runs, "rungs_adopted": adopted}
-    shapes = e2e["passes"]["many"]["launches"]["nn1_shapes"]
-    for case in kernels["nn1"]["cases"]:
-        if case["label"].startswith("batch"):
-            case["launches"] = shapes.get("x".join(map(str, case["lqr"])), 0)
-    for case in kernels["fps"]["cases"]:
-        if case["label"].startswith("batch"):
-            case["launches"] = e2e["passes"]["many"]["launches"]["fps"]
+    # Each batch shape of phase 3 takes its launches from the pass that runs it.
+    for name in ("nn1", "fps"):
+        for case in kernels[name]["cases"]:
+            if case["batch_pass"]:
+                launches = e2e["passes"][case["batch_pass"]]["launches"]
+                case["launches"] = launches["nn1_shapes"].get(case["shape"], 0) if name == "nn1" else launches["fps"]
 
 
 def phase_bf16_ranking(torch, dev) -> None:

@@ -1,17 +1,16 @@
 """Fitness-gated escalation: flag -> re-solve on the finer grid -> keep-better.
 
 Port of kss_icp_tpu/escalate.py (padded_selection, escalate_rerun,
-overlap_rerun and polish_rerun), the host logic around the re-solves that
-register_pair and register_many (parallel/batch.py) run. Reference intent: KSS_ICP.hpp:99-121 — when the fitness
+overlap_rerun and polish_rerun), the host logic around the re-solves of the
+escalation ladder. Reference intent: KSS_ICP.hpp:99-121 — when the fitness
 gate fails, spend more work (here a 16^3 rotation grid with a wider candidate
 budget) and keep the better answer per row.
 
 The JAX version merges winning rows with jax.tree.map; here the trees are
 the port's NamedTuples (or dicts, tuples and lists) of tensors or numpy
 arrays. `near_tie_margin` is not ported: no call site passes a nonzero value
-(ROADMAP.md "Not ported"). register_pair runs its single-pair overlap ladder
-(models/kss_icp.py::_overlap_ladder); register_many the batched one through
-`overlap_rerun`.
+(ROADMAP.md "Not ported"). register_pair and register_many both climb
+models/kss_icp.py::escalation_ladder, which calls these three.
 """
 
 from __future__ import annotations

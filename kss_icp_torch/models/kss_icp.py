@@ -18,11 +18,12 @@ against its own pair's target, and the gate and lane picks are per-pair
 selects on the device. `register_resampled` is its batch of one, and
 `polish_resampled`, `trimmed_fitness` and the overlap solvers take one
 pair or a batch; `overlap_solve_batch` and `overlap_screen_solve_batch`
-are register_many's rungs (parallel/batch.py).
+are JAX's batched rungs (parallel/batch.py::overlap_batch).
 
-register_pair adds the escalation ladder of the JAX package: a pair whose
-fitness is above `escalate_threshold`, or whose final converge hit its
-iteration cap, is re-solved on the 16^3 grid (`escalation_config()`), the
+`escalation_ladder`, which register_pair (at B=1) and register_many
+(parallel/batch.py) both climb, is the escalation of the JAX package: a
+pair whose fitness is above `escalate_threshold`, or whose final converge
+hit its iteration cap, is re-solved on the 16^3 grid (`escalation_config()`), the
 better result is kept, and a result still at its cap is finished by an
 uncapped warm-started ICP (`polish_resampled`). A pair still above
 `overlap_threshold` then climbs the overlap tier: two trimmed, scaled,
@@ -149,7 +150,7 @@ def _keep(better: torch.Tensor, new, old):
 
 
 def _pose_tiebreak_select(
-    fit: torch.Tensor,            # (B, K) candidate fitnesses (1e30 = invalid), or (K,)
+    fit: torch.Tensor,            # (B, K) candidate fitnesses (1e30 = invalid)
     aligned: torch.Tensor,        # (B, K, P, 3) candidate-aligned source clouds
     source_mask: torch.Tensor,    # (B, P)
     target_points: torch.Tensor,  # (B, T, 3)
@@ -162,10 +163,7 @@ def _pose_tiebreak_select(
     pose_tiebreak_quantile of its 1-NN distances; first index on ties. A
     slid symmetric pose barely moves the mean squared distance but lifts the
     high quantile. One nn1 launch for the B x K lanes, each against its
-    pair's target. Unbatched inputs, (K,) and (K, P, 3), are one pair."""
-    if fit.dim() == 1:
-        return _pose_tiebreak_select(fit[None], aligned[None], source_mask[None], target_points[None],
-                                     target_mask[None], cfg)[0]
+    pair's target."""
     b, k, p = aligned.shape[:3]
     near = fit <= fit.min(dim=1, keepdim=True).values * (1.0 + cfg.pose_tiebreak_margin)
     d2, _ = nn1(aligned.reshape(b * k, p, 3).contiguous(), target_points.contiguous(), target_mask.contiguous(),
@@ -572,14 +570,12 @@ def register_overlap_screen_resampled(
     )
 
 
-def _overlap_scores(res: RegistrationResult, clouds, baseline: Similarity, q: float):
-    """(transform, fit_std, tfit_new, tfit_old) of an overlap solve: its
-    plain mean squared NN distance, its trimmed fitness, and the incumbent
-    `baseline`'s trimmed fitness (escalate.overlap_rerun's contract)."""
-    sp, sm, tp, tm = clouds
-    tf_old = trimmed_fitness(baseline, *clouds, q)
-    d2, _ = nn1(apply_similarity(res.transform, sp).contiguous(), tp.contiguous(), tm.contiguous())
-    return res.transform, masked_mean(d2, sm), res.fitness, tf_old
+def _plain_fitness(transform: Similarity, source_points, source_mask, target_points, target_mask) -> torch.Tensor:
+    """The mean squared NN distance of the transformed source: an adopted
+    overlap solve's fitness (escalate.overlap_rerun's fit_std)."""
+    d2, _ = nn1(apply_similarity(transform, source_points).contiguous(), target_points.contiguous(),
+                target_mask.contiguous())
+    return masked_mean(d2, source_mask)
 
 
 def overlap_solve_batch(
@@ -597,7 +593,8 @@ def overlap_solve_batch(
     config (cfg.overlap_config() or its escalation's)."""
     clouds = (source_points, source_mask, target_points, target_mask)
     res = register_overlap_resampled(*clouds, cfg)
-    return _overlap_scores(res, clouds, baseline, cfg.overlap_trim_fraction)
+    return (res.transform, _plain_fitness(res.transform, *clouds), res.fitness,
+            trimmed_fitness(baseline, *clouds, cfg.overlap_trim_fraction))
 
 
 def overlap_screen_solve_batch(
@@ -613,32 +610,125 @@ def overlap_screen_solve_batch(
     overlap_solve_batch's contract."""
     clouds = (source_points, source_mask, target_points, target_mask)
     res = register_overlap_screen_resampled(*clouds, cfg)
-    return _overlap_scores(res, clouds, baseline, _overlap_cfg(cfg).overlap_trim_fraction)
+    return (res.transform, _plain_fitness(res.transform, *clouds), res.fitness,
+            trimmed_fitness(baseline, *clouds, _overlap_cfg(cfg).overlap_trim_fraction))
 
 
-def _overlap_ladder(res: RegistrationResult, clouds, cfg: KSSICPConfig, timer: Optional[Timer]) -> RegistrationResult:
-    """The overlap tier of register_pair (kss_icp_tpu/models/kss_icp.py:938-976):
-    the 8^3 and 16^3 overlap solves, then the screen rung. A rung runs only
-    when the incumbent's error has a heavy tail, its bidirectional trimmed
-    fitness tf_old below overlap_gate_ratio x its fitness (the crop
-    signature), and is adopted when its own trimmed fitness is below
-    overlap_adopt_margin x tf_old; the adopted result's fitness is then its
-    plain mean squared NN distance. `timer` sees one stage a rung that runs."""
+def escalation_ladder(
+    res: RegistrationResult,
+    clouds: tuple,
+    cfg: KSSICPConfig = DEFAULT_CONFIG,
+    threshold: Optional[float] = None,
+    ecfg: Optional[KSSICPConfig] = None,
+    timer: Optional[Timer] = None,
+    pair: bool = False,
+) -> RegistrationResult:
+    """The escalation ladder over a base result `res` of register_batch on
+    its resampled `clouds`, (B, P, 3)/(B, P) source and target: register_many's
+    (kss_icp_tpu/parallel/batch.py:209-337) and, with pair=True at B=1,
+    register_pair's (kss_icp_tpu/models/kss_icp.py:905-976).
+
+    1. "escalate": the pairs above `threshold` (cfg.escalate_threshold) or
+       at their refine cap are re-solved at `ecfg` (cfg.escalation_config())
+       and the better fitness kept;
+    2. "finish": a pair still at its cap is finished uncapped
+       (polish_resampled);
+    3. with cfg.overlap_escalate, a pair above overlap_threshold climbs the
+       overlap rungs "overlap8", "overlap16" (register_overlap_resampled at
+       cfg.overlap_config() and ecfg.overlap_config()) and "overlap_screen"
+       (register_overlap_screen_resampled), each behind the crop-signature
+       gate (the incumbent's trimmed fitness below overlap_gate_ratio x its
+       fitness) and adopted when the rung's trimmed fitness is below
+       overlap_adopt_margin x the incumbent's; an adopted rung's fitness is
+       its plain mean squared NN distance.
+
+    The two JAX entry points differ in two ways, and `pair` keeps both
+    answers: register_pair enters the overlap tier once and then offers it
+    every rung, where register_many re-checks overlap_threshold before each
+    rung; and in register_pair a re-solve that wins becomes the whole
+    result, its coarse field and chosen candidate included, where
+    register_many keeps the base pass's candidate fields and takes the
+    re-solve's transform, fitness and hit-cap flag.
+
+    The re-solves go through the `escalate` module's escalate_rerun,
+    polish_rerun and overlap_rerun, looked up at call time so that a
+    measurement can wrap them (ladder_log.LadderLog). Selections are neither
+    padded by repetition nor chunked: JAX does that for XLA's program
+    shapes, and no answer depends on it. `timer` sees a stage only where
+    some pair runs it."""
+    from kss_icp_torch import escalate as esc
+
+    device = clouds[0].device
+    threshold = cfg.escalate_threshold if threshold is None else threshold
+    ecfg = ecfg or cfg.escalation_config()
+    solved = []  # each re-solve's whole result; register_pair takes the one that won
+
+    def rows(sel, transform=None):
+        """The clouds of the pairs `sel`, and their rows of `transform`."""
+        idx = torch.as_tensor(np.asarray(sel), device=device)
+        sub = tuple(x[idx] for x in clouds)
+        return sub if transform is None else sub + (tree_map(lambda x: x[idx], transform),)
+
+    def won(res, wins):
+        return solved[-1] if pair and wins else res
+
+    def resolve(sel):
+        r2 = register_batch(*rows(sel), ecfg)
+        solved.append(r2)
+        return (r2.transform, r2.refine_hit_cap), r2.fitness.cpu().numpy()
+
+    # The hit-cap fold: a pair still unconverged after the capped final
+    # converge is re-solved whatever its fitness.
+    fitness = res.fitness.cpu().numpy()
+    flags = (fitness > threshold) | res.refine_hit_cap.cpu().numpy()
+    with _stage(timer if flags.any() else None, "escalate"):
+        (transform, hit_cap), fitness, wins, _ = esc.escalate_rerun(
+            resolve, fitness, threshold, 1, result=(res.transform, res.refine_hit_cap), flags=flags)
+    res = won(res, wins)._replace(transform=transform, fitness=torch.as_tensor(fitness, device=device),
+                                  refine_hit_cap=hit_cap)
+
+    hit = hit_cap.cpu().numpy()
+    if hit.any():
+        # The escalation solve runs capped too: finish the kept rows uncapped.
+        def finish(sel):
+            tot, fit2, _ = polish_resampled(*rows(sel, res.transform), ecfg)
+            return tot, fit2.cpu().numpy()
+
+        with _stage(timer, "finish"):
+            transform, fitness, _, _ = esc.polish_rerun(finish, hit, fitness, 1, result=res.transform)
+        res = res._replace(transform=transform, fitness=torch.as_tensor(fitness, device=device),
+                           refine_hit_cap=torch.zeros_like(hit_cap))
+
+    if not cfg.overlap_escalate or (pair and not fitness[0] > cfg.overlap_threshold):
+        return res
+    # register_pair's rungs are all reached once the tier is entered.
+    reach = -np.inf if pair else cfg.overlap_threshold
+    q = cfg.overlap_trim_fraction  # overlap_config() and escalation_config() keep it
     rungs = [("overlap8", cfg.overlap_config(), register_overlap_resampled),
-             ("overlap16", cfg.escalation_config().overlap_config(), register_overlap_resampled)]
+             ("overlap16", ecfg.overlap_config(), register_overlap_resampled)]
     if cfg.overlap_screen_rung:
         rungs.append(("overlap_screen", cfg.overlap_config(), register_overlap_screen_resampled))
-    src_pts, src_mask, tgt_pts, tgt_mask = clouds
-    for stage, ocfg, solver in rungs:
-        tf_old = float(trimmed_fitness(res.transform, *clouds, ocfg.overlap_trim_fraction))
-        if tf_old >= cfg.overlap_gate_ratio * float(res.fitness):
-            continue
-        with _stage(timer, stage):
-            res_o = solver(*clouds, ocfg)
-            if float(res_o.fitness) < cfg.overlap_adopt_margin * tf_old:
-                aligned = apply_similarity(res_o.transform, src_pts).contiguous()
-                d2, _ = nn1(aligned, tgt_pts.contiguous(), tgt_mask.contiguous())
-                res = res_o._replace(fitness=masked_mean(d2, src_mask))
+    for stage, ocfg, solve in rungs:
+        flags = fitness > reach
+        tf_old = np.full(fitness.shape, np.nan, np.float32)
+        idx = np.nonzero(flags)[0]
+        if idx.size:
+            *sub, base = rows(idx, res.transform)
+            tf_old[idx] = trimmed_fitness(base, *sub, q).cpu().numpy()
+            flags[idx] = tf_old[idx] < cfg.overlap_gate_ratio * fitness[idx]
+
+        def solve_rung(sel, ocfg=ocfg, solve=solve, tf_old=tf_old):
+            """overlap_solve_batch's contract, the incumbent's trimmed fitness
+            taken from the gate."""
+            sub = rows(sel)
+            r = solve(*sub, ocfg)
+            solved.append(r)
+            return r.transform, _plain_fitness(r.transform, *sub), r.fitness, tf_old[np.asarray(sel)]
+
+        with _stage(timer if flags.any() else None, stage):
+            transform, fitness, wins, _ = esc.overlap_rerun(
+                solve_rung, fitness, reach, 1, cfg.overlap_adopt_margin, result=res.transform, flags=flags)
+        res = won(res, wins)._replace(transform=transform, fitness=torch.as_tensor(fitness, device=device))
     return res
 
 
@@ -652,24 +742,22 @@ def register_pair(
     """Single-pair registration (the reference `main` path) with escalation.
 
     Accepts (N, 3) arrays or padded PointClouds; resamples both by FPS and
-    runs register_resampled on `device`. The returned transform maps the
-    full-resolution source into the target frame: apply it with
-    `apply_similarity` and measure with `metrics.registration_measure`.
+    runs register_batch on a batch of this one pair on `device`. The
+    returned transform maps the full-resolution source into the target
+    frame: apply it with `apply_similarity` and measure with
+    `metrics.registration_measure`.
 
-    With cfg.auto_escalate, a pair whose fitness exceeds escalate_threshold
-    or whose final converge hit its cap is re-solved on the same resampled
-    clouds with cfg.escalation_config() and the better fitness wins; a
-    result still at its cap is then finished by polish_resampled
-    (kss_icp_tpu/models/kss_icp.py:905-937). With cfg.overlap_escalate too,
-    a pair whose fitness is still above overlap_threshold climbs the overlap
-    tier (`_overlap_ladder`). cfg.overlap_mode runs
-    register_overlap_resampled alone, and its result's fitness is trimmed.
+    With cfg.auto_escalate, the pair climbs `escalation_ladder` as
+    register_pair does in JAX (pair=True): the 16^3 re-solve, the uncapped
+    finisher and, with cfg.overlap_escalate, the overlap tier. A result that
+    a re-solve won carries that solve's coarse field and candidates.
+    cfg.overlap_mode runs register_overlap_resampled alone, and its result's
+    fitness is trimmed.
 
     `timer` is entered around each stage: "resample", those of the base
-    register_resampled, then "escalate" (the whole re-solve) when the pair
-    is flagged, "finish" when the finisher runs, and "overlap8",
-    "overlap16" and "overlap_screen" for each overlap rung that runs. A
-    result that the re-solve won carries its 16^3 `coarse` field."""
+    register_batch, then "escalate" when the pair is flagged, "finish" when
+    the finisher runs, and "overlap8", "overlap16" and "overlap_screen" for
+    each overlap rung that runs ("overlap" with overlap_mode)."""
     check_supported(cfg, pair=True)
     device = _device(device)
     if not isinstance(source, PointCloud):
@@ -680,39 +768,13 @@ def register_pair(
     pnumber = cfg.resample_count(int(source.count), int(target.count))
     pn = torch.tensor([pnumber], device=device)
     with _stage(timer, "resample"):
-        src_pts, src_mask = resample_batch(source.points[None], source.mask[None], pn, cfg, steps=pnumber)
-        tgt_pts, tgt_mask = resample_batch(target.points[None], target.mask[None], pn, cfg, steps=pnumber)
-    clouds = (src_pts[0], src_mask[0], tgt_pts[0], tgt_mask[0])
+        clouds = resample_batch(source.points[None], source.mask[None], pn, cfg, steps=pnumber)
+        clouds += resample_batch(target.points[None], target.mask[None], pn, cfg, steps=pnumber)
     if cfg.overlap_mode:
         # The caller knows the scans overlap partially: the overlap solve alone.
         with _stage(timer, "overlap"):
-            return register_overlap_resampled(*clouds, cfg)
-    res = register_resampled(*clouds, cfg, timer=timer)
-    if not cfg.auto_escalate:
-        return res
-    from kss_icp_torch.escalate import escalate_rerun
-
-    ecfg = cfg.escalation_config()
-
-    def resolve(_sel):
-        r2 = register_resampled(*clouds, ecfg)
-        return r2, r2.fitness.reshape(1).cpu().numpy()
-
-    # The hit-cap fold: a lane still unconverged after the capped final
-    # converge is re-solved whatever its fitness.
-    if float(res.fitness) > cfg.escalate_threshold or bool(res.refine_hit_cap):
-        with _stage(timer, "escalate"):
-            _, _, wins, _ = escalate_rerun(resolve, res.fitness.reshape(1).cpu().numpy(),
-                                           cfg.escalate_threshold, pad_multiple=1, flags=np.asarray([True]))
-        if wins:
-            res = wins[-1][1]
-    if bool(res.refine_hit_cap):
-        # The escalation solve runs capped too: finish the kept lane uncapped.
-        with _stage(timer, "finish"):
-            total, fit2, _ = polish_resampled(*clouds, res.transform, ecfg)
-            if float(fit2) < float(res.fitness):
-                res = res._replace(transform=total, fitness=fit2)
-            res = res._replace(refine_hit_cap=torch.zeros((), dtype=torch.bool, device=device))
-    if cfg.overlap_escalate and float(res.fitness) > cfg.overlap_threshold:
-        res = _overlap_ladder(res, clouds, cfg, timer)
-    return res
+            return _first(register_overlap_resampled(*clouds, cfg))
+    res = register_batch(*clouds, cfg, timer)
+    if cfg.auto_escalate:
+        res = escalation_ladder(res, clouds, cfg, timer=timer, pair=True)
+    return _first(res)

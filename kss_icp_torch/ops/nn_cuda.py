@@ -123,12 +123,12 @@ def nn1(
                            lanes, q_n, groups, r_n, plan.cluster, plan.slice, d2.data_ptr(), idx.data_ptr(), stream)
     _build.check(code, "nn1")
     nn1.launches += 1
-    nn1.launch_shapes[(lanes, q_n, r_n)] += 1
+    nn1.launch_shapes[(lanes, q_n, r_n, groups)] += 1
     return d2, idx
 
 
 nn1.launches = 0
-nn1.launch_shapes = Counter()  # (L, Q, R) -> launches, counted beside `launches`
+nn1.launch_shapes = Counter()  # (L, Q, R, G) -> launches, counted beside `launches`
 
 
 def _require(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:

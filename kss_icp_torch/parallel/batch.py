@@ -8,8 +8,8 @@ models/kss_icp.py takes the pair axis itself. One `fps` launch resamples all
 stage runs the lanes of all B pairs in one lockstep loop, each lane against
 its own pair's target, so the host pays an iteration once for the batch.
 A device mesh (multi-GPU) is not ported: ROADMAP.md queue 1 item 13.
-register_many calls the ladder through the `escalate` module's attributes,
-so that a measurement can wrap them (chip_smoke.LadderLog).
+The escalation ladder after the base pass is models/kss_icp.py::
+escalation_ladder, which register_pair runs too.
 """
 
 from __future__ import annotations
@@ -21,8 +21,6 @@ import torch
 
 from kss_icp_torch.config import DEFAULT_CONFIG, KSSICPConfig
 from kss_icp_torch.core.transforms import Similarity, apply_similarity
-from kss_icp_torch import escalate as esc
-from kss_icp_torch.escalate import tree_map
 from kss_icp_torch.metrics import registration_measure_padded
 from kss_icp_torch.models import kss_icp as kss
 from kss_icp_torch.models.kss_icp import RegistrationResult, Timer, _stage, check_supported
@@ -88,17 +86,12 @@ def register_many(
     the 2B clouds), registers the batch (register_batch), applies each
     transform to its padded full-resolution source and measures it against
     its target (one nn1 launch). With escalation (cfg.auto_escalate by
-    default): the pairs above escalate_threshold or at their refine cap are
-    re-solved at `escalate_cfg` (cfg.escalation_config()) and the better
-    fitness kept; a result still at its cap is finished uncapped
-    (polish_resampled); with cfg.overlap_escalate, the pairs still above
-    overlap_threshold climb the three overlap rungs, each behind the crop
-    gate (trimmed fitness at cfg.overlap_trim_fraction below
-    overlap_gate_ratio x fitness) and adopted by overlap_adopt_margin.
-    Selections are neither padded by repetition nor chunked: JAX does that
-    for XLA's program shapes, and no answer depends on it. The returned
-    result keeps the base pass's candidate fields; the transform, fitness
-    and refine_hit_cap are the ladder's.
+    default), the batch climbs models/kss_icp.py::escalation_ladder at
+    `escalate_threshold` and `escalate_cfg` (cfg.escalation_config()): the
+    16^3 re-solve, the uncapped finisher and, with cfg.overlap_escalate, the
+    three overlap rungs, overlap_threshold re-checked before each. The
+    returned result keeps the base pass's candidate fields; the transform,
+    fitness and refine_hit_cap are the ladder's.
 
     `timer` is entered around each stage: "resample", "coarse", "screen",
     "refine", then "escalate", "finish", "overlap8", "overlap16" and
@@ -109,8 +102,6 @@ def register_many(
     device = kss._device(device)
     if escalate is None:
         escalate = cfg.auto_escalate
-    if escalate_threshold is None:
-        escalate_threshold = cfg.escalate_threshold
 
     def padded(clouds):
         pts = np.zeros((len(clouds), full_pad, 3), np.float32)
@@ -127,64 +118,8 @@ def register_many(
         (sp, sm), (tp, tm) = kss.resample_pairs(s_pts, s_msk, t_pts, t_msk, torch.tensor(counts, device=device),
                                                 cfg, steps=max(counts))
     res = kss.register_batch(sp, sm, tp, tm, cfg, timer)
-
-    def rows(sel, transform=None):
-        """The resampled clouds of the pairs `sel`, and their rows of `transform`."""
-        idx = torch.as_tensor(np.asarray(sel), device=device)
-        clouds = tuple(x[idx] for x in (sp, sm, tp, tm))
-        return clouds if transform is None else clouds + (tree_map(lambda x: x[idx], transform),)
-
     if escalate:
-        ecfg = escalate_cfg or cfg.escalation_config()
-
-        def resolve(sel):
-            r2 = kss.register_batch(*rows(sel), ecfg)
-            return (r2.transform, r2.refine_hit_cap), r2.fitness.cpu().numpy()
-
-        # The hit-cap fold: a pair still unconverged after the capped final
-        # converge is re-solved whatever its fitness.
-        fitness = res.fitness.cpu().numpy()
-        flags = (fitness > escalate_threshold) | res.refine_hit_cap.cpu().numpy()
-        with _stage(timer if flags.any() else None, "escalate"):
-            (transform, hit_cap), fitness, _, _ = esc.escalate_rerun(
-                resolve, fitness, escalate_threshold, 1, result=(res.transform, res.refine_hit_cap), flags=flags)
-        res = res._replace(transform=transform, fitness=torch.as_tensor(fitness, device=device), refine_hit_cap=hit_cap)
-
-        hit = hit_cap.cpu().numpy()
-        if hit.any():
-            # The escalation solve runs capped too: finish the kept rows uncapped.
-            def finish(sel):
-                tot, fit2, _ = kss.polish_resampled(*rows(sel, res.transform), ecfg)
-                return tot, fit2.cpu().numpy()
-
-            with _stage(timer, "finish"):
-                transform, fitness, _, _ = esc.polish_rerun(finish, hit, fitness, 1, result=res.transform)
-            res = res._replace(transform=transform, fitness=torch.as_tensor(fitness, device=device),
-                               refine_hit_cap=torch.zeros_like(hit_cap))
-
-        if cfg.overlap_escalate:
-            def gated_flags():
-                """The crop-signature gate: the rows above overlap_threshold
-                whose trimmed fitness is below overlap_gate_ratio x fitness."""
-                flags = fitness > cfg.overlap_threshold
-                idx = np.nonzero(flags)[0]
-                if idx.size:
-                    *clouds, transform = rows(idx, res.transform)
-                    tf = kss.trimmed_fitness(transform, *clouds, cfg.overlap_trim_fraction).cpu().numpy()
-                    flags[idx] = tf < cfg.overlap_gate_ratio * fitness[idx]
-                return flags
-
-            rungs = [("overlap8", cfg.overlap_config(), "field"), ("overlap16", ecfg.overlap_config(), "field")]
-            if cfg.overlap_screen_rung:
-                rungs.append(("overlap_screen", cfg.overlap_config(), "screen"))
-            for stage, ocfg, solver in rungs:
-                flags = gated_flags()
-                with _stage(timer if flags.any() else None, stage):
-                    transform, fitness, _, _ = esc.overlap_rerun(
-                        lambda sel: overlap_batch(*rows(sel, res.transform), ocfg, solver=solver), fitness,
-                        cfg.overlap_threshold, 1, cfg.overlap_adopt_margin, result=res.transform, flags=flags)
-                res = res._replace(transform=transform, fitness=torch.as_tensor(fitness, device=device))
-
+        res = kss.escalation_ladder(res, (sp, sm, tp, tm), cfg, escalate_threshold, escalate_cfg, timer)
     with _stage(timer, "metric"):
         metrics = registration_measure_padded(apply_similarity(res.transform, s_pts), s_msk, t_pts, t_msk)
     return res, {k: v.cpu().numpy() for k, v in metrics.items()}

@@ -20,10 +20,13 @@ Three records, each a JSON file under fixtures/:
 * `--batch`: the batched path, `kss_icp_tpu.register_many` at the
   unmodified DEFAULT_CONFIG with full_pad 8192, on the remesh 25 as one
   batch and on the 64 pairs of the five boards as another, written to
-  fixtures/torch_port_expected_batch.json. Per-pair answers do not depend
-  on the batch's other pairs (tests/test_torch_batch.py), so a `--shard
-  I/N` run registers its pairs as a sub-batch of each, and `--merge`
-  joins the records as for `--overlap`.
+  fixtures/torch_port_expected_batch.json. Per-pair answers depend on
+  the batch's other pairs by float rounding only (tests/test_torch_batch.py),
+  so a `--shard I/N` run registers its pairs as a sub-batch of each, and
+  `--merge` joins the records as for `--overlap`; the record lists each
+  shard's sub-batches under `batches`. JAX on the CPU holds about 2 GiB a
+  pair in flight (each batch's peak RSS is printed), so the remesh 25 as
+  one batch needs about 50 GiB.
 
 Per pair: the chosen candidate, ICP fitness, ICP iteration count, the
 hit-cap flag, the similarity transform and the full-resolution RMSE; with
@@ -37,7 +40,7 @@ reached, each with the incumbent's trimmed fitness `tf_old`, whether the
 crop-signature gate skipped it, and, for a rung that ran, its trimmed
 fitness `tf_new` and whether it was adopted. With `--batch` the same keys
 come from wrapping register_many's escalate_rerun, polish_rerun and
-overlap_rerun (chip_smoke.LadderLog); a rung is listed where the pair's
+overlap_rerun (kss_icp_torch.ladder_log.LadderLog); a rung is listed where the pair's
 fitness was above overlap_threshold when the rung began. chip_smoke.py and tests/test_torch_expected.py hold the
 port to these records.
 
@@ -54,6 +57,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import resource
 import sys
 import time
 from pathlib import Path
@@ -102,9 +106,29 @@ class _Counts:
         self.kss.polish_resampled = self.orig_polish
 
 
+BATCH_CONFIG = (
+    "DEFAULT_CONFIG (escalation and the overlap tier on) through register_many, full_pad 8192, in the "
+    "sub-batches listed under `batches`: each shard made one register_many call over its remesh pairs and one "
+    "over its board pairs. A pair's answer moves with the batch's other pairs by float rounding only "
+    "(tests/test_torch_batch.py).")
+
+
+def batch_items(remesh, boards, shard: int, shards: int, limit: int = 0):
+    """The pairs of `--batch` shard I/N: the remesh pairs whose index is I
+    mod N, and every Nth of the boards' 64 pairs from the Ith on (so the 16
+    partial pairs spread over the shards), each item (index in its corpus,
+    pair, (board, threshold) or None); `limit` keeps the first pairs of each
+    corpus."""
+    remesh_items = [(i, p, None) for i, p in enumerate(remesh[:limit or None]) if i % shards == shard]
+    flat = [(i, p, (b, thr)) for b, corpus, thr in boards for i, p in enumerate(corpus)]
+    board_items = [item for k, item in enumerate(flat) if k % shards == shard and (not limit or item[0] < limit)]
+    return remesh_items, board_items
+
+
 def merge(paths, out_path) -> int:
     """One record from the shards' records: every list of pairs joined and
-    put back in corpus order, the seconds summed."""
+    put back in corpus order, the shards' batches listed, the seconds
+    summed."""
     parts = [json.loads(p.read_text()) for p in paths]
     out = parts[0]
 
@@ -117,6 +141,10 @@ def merge(paths, out_path) -> int:
         out["bench_config"]["pairs"] = join(lambda part: part["bench_config"]["pairs"])
     for b in out.get("boards", {}):
         out["boards"][b]["pairs"] = join(lambda part: part["boards"][b]["pairs"])
+    if "batches" in out:
+        out["batches"] = sorted((b for part in parts for b in part["batches"]),
+                                key=lambda b: int(b["shard"].split("/")[0]))
+        out["shards"] = len(out["batches"])
     out["seconds"] = sum(part["seconds"] for part in parts)
     out_path.write_text(json.dumps(out, indent=1) + "\n")
     print(f"wrote {out_path} from {len(parts)} shards", file=sys.stderr)
@@ -171,7 +199,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     counts = _Counts(kss, escalate)
-    from chip_smoke import RungLog  # jax-free; the port's smoke run records the card's rungs the same way
+    from kss_icp_torch.ladder_log import RungLog  # jax-free; the port is recorded the same way
 
     rungs = RungLog(kss, DEFAULT_CONFIG.overlap_adopt_margin)
 
@@ -220,7 +248,7 @@ def main() -> int:
 
     def run_batch(cfg, items):
         """One register_many call over items [(index, (name, src, tgt, gt), board or None)]."""
-        from chip_smoke import LadderLog
+        from kss_icp_torch.ladder_log import LadderLog
         from kss_icp_tpu.parallel.batch import register_many
 
         if not items:
@@ -263,27 +291,28 @@ def main() -> int:
                   f"won={rec['escalation_won']} finisher={rec['finisher']}"
                   f"{'' if board is None else ' pose_rmse=%.4f' % rec['pose_rmse']}{extra}",
                   file=sys.stderr, flush=True)
-        print(f"register_many over {len(items)} pairs: {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB on Linux
+        print(f"register_many over {len(items)} pairs: {time.perf_counter() - t0:.1f} s, the process's peak RSS so far "
+              f"{rss:.1f} GiB", file=sys.stderr, flush=True)
         return rows
 
     remesh = remesh_corpus()
     platform = "jax " + jax.__version__ + " on cpu"
     if args.batch:
+        boards = challenge_corpus(include_hard=True)
+        remesh_items, board_items = batch_items(remesh, boards, shard, shards, args.limit)
         out = {
             "platform": platform,
             "note": ESCALATION_NOTE,
             "rmse_band": 0.006,
-            "config": "DEFAULT_CONFIG (escalation and the overlap tier on) through register_many, full_pad 8192",
+            "config": BATCH_CONFIG,
             "full_pad": FULL_PAD,
+            "shards": shards,
+            "batches": [{"shard": f"{shard}/{shards}", "remesh": [p[0] for _, p, _ in remesh_items],
+                         "boards": [f"{b[0]}:{p[0]}" for _, p, b in board_items]}],
         }
-        out["pairs"] = run_batch(DEFAULT_CONFIG, [(i, p, None) for i, p in limit(list(enumerate(remesh)))])
-        boards = challenge_corpus(include_hard=True)
-        # A shard takes every Nth pair of the 64, so the 16 partial pairs spread over the shards.
-        flat = [(i, p, (b, thr)) for b, corpus, thr in boards for i, p in enumerate(corpus)]
-        flat = [item for k, item in enumerate(flat) if k % shards == shard]
-        if args.limit:
-            flat = [item for item in flat if item[0] < args.limit]
-        rows = run_batch(DEFAULT_CONFIG, flat)
+        out["pairs"] = run_batch(DEFAULT_CONFIG, remesh_items)
+        rows = run_batch(DEFAULT_CONFIG, board_items)
         out["boards"] = {b: {"threshold": thr, "pairs": []} for b, _, thr in boards}
         for r in rows:
             out["boards"][r.pop("board")]["pairs"].append(r)

@@ -24,7 +24,7 @@ import kss_icp_torch as kt
 import kss_icp_torch.escalate as te
 import kss_icp_torch.models.icp  # noqa: F401  (the module, behind models/__init__'s `icp`)
 import kss_icp_tpu.escalate as je
-from chip_smoke import LadderLog
+from kss_icp_torch.ladder_log import LadderLog, RungLog
 from helpers import random_cloud
 from kss_icp_torch.challenge import partial_corpus
 from kss_icp_torch.config import from_reference
@@ -34,6 +34,7 @@ from kss_icp_torch.metrics import registration_measure_padded
 from kss_icp_torch.models import kss_icp as tk
 from kss_icp_torch.parallel import batch as tb
 from kss_icp_tpu.config import KSSICPConfig
+from kss_icp_tpu.core.transforms import Similarity as JSim
 from kss_icp_tpu.models import kss_icp as jk
 from kss_icp_tpu.parallel import batch as jb
 
@@ -68,7 +69,13 @@ def _remesh_batch(cfg):
     """The NAMES pairs resampled by JAX's FPS, stacked: the same clouds in
     both packages."""
     with np.load(FIXTURES / "remesh_transfer.npz") as z:
-        pairs = [(np.asarray(z[n + "_src"], np.float32), np.asarray(z[n + "_tgt"], np.float32)) for n in NAMES]
+        return _resampled([(np.asarray(z[n + "_src"], np.float32), np.asarray(z[n + "_tgt"], np.float32))
+                           for n in NAMES], cfg)
+
+
+def _resampled(pairs, cfg):
+    """[(source, target)] resampled by JAX's FPS, stacked (source points,
+    mask, target points, mask)."""
     rows = []
     for src, tgt in pairs:
         pn = jnp.asarray([cfg.resample_count(len(src), len(tgt))])
@@ -245,6 +252,46 @@ def test_register_many_matches_jax(many_runs, label):
         for rows_t, rows_j in zip(tl.rungs, jl.rungs):
             np.testing.assert_allclose([[r["tf_old"], r["tf_new"]] for r in rows_t],
                                        [[r["tf_old"], r["tf_new"]] for r in rows_j], rtol=1e-3)
+
+
+def test_register_pair_and_register_many_reach_the_rungs_as_jax():
+    """The two entry points' ladders differ, in JAX and in the port alike
+    (models/kss_icp.py::escalation_ladder's `pair`): on partial pair 7, with
+    overlap_threshold between its fitness before (0.0186) and after (0.0179)
+    the 16^3 rung's adoption, register_pair still offers the screen rung
+    (the tier is entered once) and register_many does not (the threshold is
+    re-checked before each rung)."""
+    cfg = dataclasses.replace(LADDER, overlap_threshold=0.0182)
+    _, src, tgt, _ = partial_corpus(n_points=1500)[7]
+    with RungLog(jk, cfg.overlap_adopt_margin) as jr:
+        jk.register_pair(src, tgt, cfg)
+    with RungLog(tk, cfg.overlap_adopt_margin) as tr:
+        tk.register_pair(src, tgt, from_reference(cfg), device="cpu")
+    assert jr.outcomes()[:2] == ["ran", "adopted"] and len(jr.outcomes()) == 3
+    assert tr.outcomes() == jr.outcomes()
+    rungs = [[(r["rung"], r["ran"], r["adopted"]) for r in _many(package, [(src, tgt)], cfg, full_pad=1536)[2].rungs[0]]
+             for package in ("jax", "torch")]
+    assert rungs[0] == rungs[1] == [("overlap8", True, False), ("overlap16", True, True)]
+
+
+@pytest.mark.parametrize("solver", ["field", "screen"])
+def test_overlap_batch_matches_jax(solver):
+    """overlap_batch, the batched rung of JAX's register_many (the port's
+    ladder runs its pieces inline, its incumbent's trimmed fitness taken
+    from the crop gate), on three partial pairs against identity
+    incumbents: the same pose, and fit_std, tfit_new and tfit_old within
+    rtol 1e-3."""
+    pairs = [(s, t) for i, (_, s, t, _) in enumerate(partial_corpus(n_points=1500)) if i in PARTIAL]
+    clouds = _resampled(pairs, LADDER)
+    b = len(pairs)
+    incumbent = (np.ones(b, np.float32), np.tile(np.eye(3, dtype=np.float32), (b, 1, 1)),
+                 np.zeros((b, 3), np.float32))
+    ocfg = LADDER.overlap_config()
+    want = jb.overlap_batch(*_j(*clouds), JSim(*_j(*incumbent)), ocfg, solver=solver)
+    got = tb.overlap_batch(*_t(*clouds), TSim(*_t(*incumbent)), from_reference(ocfg), solver=solver)
+    _same_transform(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-3)
 
 
 @pytest.mark.parametrize("package", ["jax", "torch"])

@@ -552,7 +552,7 @@ def test_register_many_on_the_card_matches_cpu(cuda_device):
     """Three partial pairs through register_many and the whole ladder at tiny
     sizes: the same ladder and poses on the card as on the CPU, one fps
     launch for the batch's resample and one field launch a pair and grid."""
-    from chip_smoke import LadderLog
+    from kss_icp_torch.ladder_log import LadderLog
     from kss_icp_torch import escalate
     from kss_icp_torch.challenge import partial_corpus
     from kss_icp_torch.ops.coarse_cuda import field_trim

@@ -132,9 +132,9 @@ def test_pose_tiebreak_select_matches_jax(rng, fit, want):
     fit = np.asarray(fit, np.float32)
     j = jk._pose_tiebreak_select(jnp.asarray(fit), jnp.asarray(aligned), jnp.asarray(smask), jnp.asarray(tgt),
                                  jnp.asarray(tmask), cfg)
-    t = tk._pose_tiebreak_select(*(torch.as_tensor(x) for x in (fit, aligned, smask, tgt, tmask)),
+    t = tk._pose_tiebreak_select(*(torch.as_tensor(x)[None] for x in (fit, aligned, smask, tgt, tmask)),
                                  from_reference(cfg))
-    assert int(t) == int(j) == want
+    assert t.shape == (1,) and int(t[0]) == int(j) == want
 
 
 def test_polish_resampled_matches_jax(rng):
@@ -182,20 +182,32 @@ class _Branches:
     """Counts the escalation branches register_pair takes in one package, and
     records for each re-solve whether its multistart gate failed, which is
     where the escalation config's pose tie-break picks the lane. In the port
-    the tie-break's calls are counted too (JAX traces it inside jit)."""
+    the tie-break's calls are counted too (JAX traces it inside jit). The
+    port's re-solve returns only the rows it merges, so its gate is read
+    from register_batch calls made inside the re-solve; its finisher runs
+    through polish_rerun, whose escalate_rerun call is not a re-solve."""
 
     def __init__(self, monkeypatch, esc_mod, kss_mod):
         self.flagged = self.won = self.finished = self.tiebreaks = 0
         self.multistart = []
-        rerun, polish = esc_mod.escalate_rerun, kss_mod.polish_resampled
+        self.resolving = self.polishing = False
+        rerun, polish, polish_rerun = esc_mod.escalate_rerun, kss_mod.polish_resampled, esc_mod.polish_rerun
 
         def counted_rerun(resolve, *a, **kw):
+            if self.polishing:
+                return rerun(resolve, *a, **kw)
+
             def recorded(sel):
                 r2, fit2 = resolve(sel)
-                self.multistart.append(bool(r2.used_multistart))
+                if kss_mod is not tk:
+                    self.multistart.append(bool(r2.used_multistart))
                 return r2, fit2
 
-            out = rerun(recorded, *a, **kw)
+            self.resolving = True
+            try:
+                out = rerun(recorded, *a, **kw)
+            finally:
+                self.resolving = False
             self.flagged += out[3]
             self.won += len(out[2])
             return out
@@ -204,16 +216,31 @@ class _Branches:
             self.finished += 1
             return polish(*a, **kw)
 
+        def marked_polish_rerun(*a, **kw):
+            self.polishing = True
+            try:
+                return polish_rerun(*a, **kw)
+            finally:
+                self.polishing = False
+
         monkeypatch.setattr(esc_mod, "escalate_rerun", counted_rerun)
+        monkeypatch.setattr(esc_mod, "polish_rerun", marked_polish_rerun)
         monkeypatch.setattr(kss_mod, "polish_resampled", counted_polish)
         if kss_mod is tk:
-            select = tk._pose_tiebreak_select
+            select, batch = tk._pose_tiebreak_select, tk.register_batch
 
             def counted_select(*a, **kw):
                 self.tiebreaks += 1
                 return select(*a, **kw)
 
+            def recorded_batch(*a, **kw):
+                r = batch(*a, **kw)
+                if self.resolving:
+                    self.multistart += [bool(x) for x in r.used_multistart]
+                return r
+
             monkeypatch.setattr(tk, "_pose_tiebreak_select", counted_select)
+            monkeypatch.setattr(tk, "register_batch", recorded_batch)
 
     def key(self):
         return self.flagged, self.won, self.finished, tuple(self.multistart)

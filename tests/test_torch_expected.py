@@ -89,7 +89,7 @@ def test_board_pair_passes_as_jax(board, index):
 def _rungs():
     """Records the port's overlap rungs as scripts/torch_port_expected.py
     records JAX's."""
-    from chip_smoke import RungLog
+    from kss_icp_torch.ladder_log import RungLog
     from kss_icp_torch.models import kss_icp as tk
 
     return RungLog(tk, DEFAULT_CONFIG.overlap_adopt_margin)

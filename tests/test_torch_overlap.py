@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import RungLog
+from kss_icp_torch.ladder_log import RungLog
 from helpers import random_cloud
 import kss_icp_torch.models.icp
 import kss_icp_tpu.models.icp
