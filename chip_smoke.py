@@ -23,11 +23,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
      16 pairs (16 x 512) x 512 x 2048, its forward fitness (16 x 512) x 2048
      x 2048 against 16 clouds and its reverse one against 8192, and the
      metric 64 x 8192 x 8192; each batch case reports its launches from the
-     4e pass that runs it;
+     4e pass that runs it; and the large-scan metric, 1 x 200704 x 200704,
+     the normalized source of the Room seed with the widest compacted pad
+     moved by JAX's recorded transform against its target, with its
+     launches from the 4f pass;
      fps at B=2 x 8192 -> 2048, at the largest remesh pair's padded
-     source and target with steps = pnumber, and over the remesh 25's 50
+     source and target with steps = pnumber, over the remesh 25's 50
      and the boards' 128 clouds at full_pad 8192 with steps = the largest
-     pnumber; field_ave, and field_dot at
+     pnumber, and at the large-scan resample: both compacted octree
+     survivor clouds of that seed (B=2 x 151552 -> 2048, 2000 steps),
+     with its launches from the 4f pass; field_ave, and field_dot at
      "highest" and "default", on the base grid C=512, P=T=2048 and the
      escalation grid C=4096, P=T=512, mostly valid, and on the base grid
      with both clouds suffix-masked to the largest and smallest remesh
@@ -72,6 +77,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
           equal to JAX's, se/7 excepted, every pair escalated and its
           overlap rungs run and adopted as in JAX; each pair's difference
           from register_pair (4d) printed;
+       f. large scans: kss_icp_torch.largescan.run_largescan(200_000,
+          80_000, DEFAULT_CONFIG, seed) for seeds 0, 1 and 2 (seed 0 with
+          repeats=2, as bench.py runs it) against
+          fixtures/torch_port_expected_largescan.json (JAX's run_largescan
+          pieces on the CPU): the octree survivor counts n_s and n_t and the
+          pnumber equal to JAX's, escalated as JAX, the unit-scale RMSE
+          within JAX's + 0.006 and the pose error under 0.1 m (JAX's printed
+          beside it); per seed the stage seconds, the kernels' launches (one
+          fps launch and one 1 x 200704 x 200704 nn1 launch a run), the peak
+          device memory and the card;
      every pass zeroes the kernels' launch counts before it and checks them
      after: nn1 and fps on every pass, field_ave on the "vpu" passes only,
      field_dot on the dot pass only and on both of its grids, field_trim on
@@ -180,6 +195,7 @@ def phase_kernels(torch, dev) -> dict:
     def t(x):
         return torch.as_tensor(x, device=dev)
 
+    scan = largescan_inputs(torch, dev)
     cases = []
     # register_many's valid rows: the resampled clouds' pnumber of 2048 and
     # the full clouds padded to 8192, on the remesh 25 and on the five boards.
@@ -211,11 +227,15 @@ def phase_kernels(torch, dev) -> dict:
             (16 * 512, 2048, 2048, 16, "boards batch overlap screen fitness, forward", board_valid, "many boards"),
             (16 * 512, 2048, 2048, 16 * 512, "boards batch overlap screen fitness, reverse: per-lane references",
              board_valid, "many boards"),
-            (64, 8192, 8192, 64, "boards batch metric: lane b against cloud b", board_full, "many boards")):
+            (64, 8192, 8192, 64, "boards batch metric: lane b against cloud b", board_full, "many boards"),
+            (1, scan["metric"][0].shape[1], scan["metric"][1].shape[1], 1,
+             f"large-scan metric: Room seed {scan['seed']}, aligned source against target", None, "largescan")):
         query = t(np.stack([cloud(rng, q_n) for _ in range(lanes)]))
         ref = t(np.stack([cloud(rng, r_n) for _ in range(groups)]))
         mask = torch.ones((groups, r_n), dtype=torch.bool, device=dev)
-        if valid is not None:  # each pair's cloud its own valid prefix
+        if batch == "largescan":  # the scan itself: 200000 valid target rows of 200704
+            query, ref, mask = scan["metric"]
+        elif valid is not None:  # each pair's cloud its own valid prefix
             mask &= torch.arange(r_n, device=dev)[None] < t(rng.integers(*valid, size=(groups, 1)))
         else:
             mask[:, r_n - r_n // 40:] = False  # a padded tail, as 2000 of 2048
@@ -285,6 +305,10 @@ def phase_kernels(torch, dev) -> dict:
             pts[i, :len(c)] = c
         bmask = t(np.arange(BATCH_PAD)[None] < np.array([len(c) for c in clouds])[:, None])
         fps_cases.append((t(pts), bmask, DEFAULT_CONFIG.resample_pad, max(counts), label, batch, counts + counts))
+    # run_largescan's one launch a run: both compacted survivor clouds, steps = pnumber.
+    s_pts, s_mask, s_steps = scan["fps"]
+    fps_cases.append((s_pts, s_mask, DEFAULT_CONFIG.resample_pad, s_steps,
+                      f"large-scan resample: Room seed {scan['seed']}'s compacted octree survivors", "largescan"))
     cases = []
     for pts, pmask, s, steps, label, batch, *picks in fps_cases:
         b_n, p_n = pmask.shape
@@ -451,6 +475,39 @@ def load_boards():
 
     return tuple((f"{board}:{name}", src, tgt, gt, thr) for board, corpus, thr in BOARDS
                  for name, src, tgt, gt in corpus())
+
+
+@functools.lru_cache(maxsize=None)
+def load_largescan() -> dict:
+    """JAX's large-scan record: per Room seed, the survivors, escalation, transform and answers."""
+    return json.loads((FIXTURES / "torch_port_expected_largescan.json").read_text())
+
+
+def largescan_inputs(torch, dev):
+    """Phase 3's inputs at the large-scan path's shapes, made as run_largescan
+    makes them, from the Room seed with the widest compacted pad: both
+    compacted octree survivor clouds and their pnumber (fps), and the
+    normalized source moved by JAX's recorded transform with the target (the
+    metric's nn1)."""
+    from kss_icp_torch import largescan
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.core.transforms import Similarity, apply_similarity
+    from kss_icp_torch.ops.simplify import octree_simplify
+
+    record = load_largescan()
+    rec = max(record["seeds"], key=lambda r: r["ds_pad"])
+    scan = largescan.normalized_pair(record["n_points"], rec["seed"], dev)
+    clouds = [octree_simplify(p, m, record["pre_downsample"]) for p, m in (scan.source, scan.target)]
+    counts = [int(keep.sum()) for _, keep in clouds]
+    pad = largescan.compacted_pad(*counts)
+    pts, mask = zip(*(largescan.compact(p, keep, pad) for p, keep in clouds))
+    pnumber = DEFAULT_CONFIG.resample_count(*counts)
+    transform = Similarity(*(torch.tensor(rec[k], dtype=torch.float32, device=dev)
+                             for k in ("scale", "rotation", "translation")))
+    aligned = apply_similarity(transform, scan.source[0])
+    return {"seed": rec["seed"], "fps": (torch.stack(pts), torch.stack(mask), pnumber),
+            "metric": (aligned[None].contiguous(), scan.target[0][None].contiguous(),
+                       scan.target[1][None].contiguous())}
 
 
 def load_pairs():
@@ -916,12 +973,83 @@ def phase_many(torch, dev, kernels: dict, e2e: dict) -> None:
     e2e["passes"][label] = {"pairs_per_s": len(board_pairs) / seconds, "seconds": seconds, "launches": launches,
                             "stage_seconds": dict(timer.seconds), "stage_iterations": dict(timer.iterations),
                             "rungs_run": runs, "rungs_adopted": adopted}
-    # Each batch shape of phase 3 takes its launches from the pass that runs it.
+
+
+def attach_pass_launches(kernels: dict, e2e: dict) -> None:
+    """Each batch and large-scan shape of phase 3 takes its launches from the
+    pass that runs it (`batch_pass`); nn1's `launch_shapes` (the esc-default
+    pass's histogram) gains the large-scan metric's shape, which only 4f
+    launches, and fps's lists its cases' launches."""
     for name in ("nn1", "fps"):
         for case in kernels[name]["cases"]:
             if case["batch_pass"]:
                 launches = e2e["passes"][case["batch_pass"]]["launches"]
                 case["launches"] = launches["nn1_shapes"].get(case["shape"], 0) if name == "nn1" else launches["fps"]
+    scan_shapes = e2e["passes"]["largescan"]["launches"]["nn1_shapes"]
+    kernels["nn1"]["launch_shapes"] = dict(kernels["nn1"]["launch_shapes"], **{
+        case["shape"]: scan_shapes.get(case["shape"], 0)
+        for case in kernels["nn1"]["cases"] if case["batch_pass"] == "largescan"})
+    kernels["fps"]["launch_shapes"] = {case["shape"]: case["launches"] for case in kernels["fps"]["cases"]
+                                       if "launches" in case}
+
+
+def phase_largescan(torch, dev, e2e: dict, card: str) -> None:
+    """4f: run_largescan at 200k points and DEFAULT_CONFIG on Room seeds 0-2
+    against fixtures/torch_port_expected_largescan.json."""
+    from kss_icp_torch.config import DEFAULT_CONFIG as cfg
+    from kss_icp_torch.largescan import run_largescan
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
+    from kss_icp_torch.ops.nn_cuda import nn1
+    from kss_icp_torch.ops.resample_cuda import fps
+
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim}
+    record = load_largescan()
+    total, shapes, rows, failures = defaultdict(int), defaultdict(int), [], []
+    for rec in record["seeds"]:
+        seed = rec["seed"]
+        repeats = 2 if seed == 0 else 1  # bench.py:581-595
+        label = f"largescan seed {seed}"
+        for fn in counters.values():
+            fn.launches = 0
+        nn1.launch_shapes.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = run_largescan(record["n_points"], record["pre_downsample"], cfg, seed, repeats=repeats, device=dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        launches = {k: fn.launches for k, fn in counters.items()}
+        log(f"  [{label}] kernel launches ({repeats} run{'s' if repeats > 1 else ''}): {launches}")
+        hist = nn1_histogram(nn1, label)
+        metric = shape_key(1, rec["pad"], rec["pad"], 1)
+        require(launches["fps"] == repeats and hist.get(metric, 0) == repeats and launches["nn1"] > repeats
+                and launches["field_ave"] >= repeats and launches["field_dot"] == 0 and launches["field_trim"] == 0,
+                f"{label}: launches {launches}, nn1 at {metric}: {hist.get(metric, 0)}; expected one fps launch "
+                f"and one metric launch a run, the ICP's nn1 and field_ave, no field_dot or field_trim")
+        for k, v in launches.items():
+            total[k] += v
+        for k, v in hist.items():
+            shapes[k] += v
+        checks = {
+            "survivors": (out["n_s"], out["n_t"], out["resample_count"]) == (rec["n_s"], rec["n_t"], rec["pnumber"]),
+            "escalation": out["escalated"] == rec["escalated"],
+            "rmse": bool(np.isfinite(out["unit_rmse"])) and out["unit_rmse"] <= rec["unit_rmse"] + RMSE_BAND,
+            "pose": bool(np.isfinite(out["pose_rmse"])) and out["pose_rmse"] < record["pose_bar"],
+        }
+        log(f"  [{label}] n_s {out['n_s']} n_t {out['n_t']} pnumber {out['resample_count']} (jax {rec['n_s']} "
+            f"{rec['n_t']} {rec['pnumber']}); fitness {out['base_fitness']:.6g} -> {out['fitness']:.6g}, escalated "
+            f"{int(out['escalated'])} won {int(out['escalation_won'])} (jax {rec['base_fitness']:.6g} -> "
+            f"{rec['fitness']:.6g}, escalated {int(rec['escalated'])} won {int(rec['escalation_won'])}); unit RMSE "
+            f"{out['unit_rmse']:.6f} (jax {rec['unit_rmse']:.6f}), RMSE {out['rmse']:.6f} m (jax {rec['rmse']:.6f}); "
+            f"pose {out['pose_rmse']:.6f} m (jax on the CPU {rec['pose_rmse']:.6f}, bar {record['pose_bar']}) "
+            + " ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+        log(f"  [{label}] stage seconds (best of {repeats}): octree {out['octree_s']:.4f}, register "
+            f"{out['register_s']:.4f}, metric {out['metric_s']:.4f}, total {out['total_s']:.4f}; first run "
+            f"{out['compile_first_total_s']:.2f}; metric {out['metric_tflops']:.3f} TFLOP/s by JAX's count; fps "
+            f"{launches['fps']} and nn1 {launches['nn1']} launches; peak device memory {peak:.1f} MiB ({card})")
+        if not all(checks.values()):
+            failures.append((seed, [k for k, v in checks.items() if not v]))
+        rows.append(dict(out, seed=seed, repeats=repeats, launches=launches, peak_mib=peak))
+    require(not failures, f"largescan: seeds failing their gates against JAX's record: {failures}")
+    e2e["passes"]["largescan"] = {"launches": dict(total, nn1_shapes=dict(shapes)), "seeds": rows}
 
 
 def phase_bf16_ranking(torch, dev) -> None:
@@ -1009,6 +1137,13 @@ def main() -> int:
     log(f"register_many at DEFAULT_CONFIG: remesh 25 in one batch {p['many']['pairs_per_s']:.3f} pairs/s (no stage "
         f"syncs) beside register_pair's {p['shipped']['pairs_per_s']:.3f}; boards {p['many boards']['pairs_per_s']:.3f} "
         f"pairs/s (synced) beside {p['shipped boards']['pairs_per_s']:.3f} ({card})")
+
+    log("== 4f. large scans: run_largescan at 200k points, DEFAULT_CONFIG, Room seeds 0-2")
+    phase_largescan(torch, dev, e2e, card)
+    attach_pass_launches(kernels, e2e)
+    log("large scans: " + "; ".join(f"seed {r['seed']} total {r['total_s']:.4f} s (octree {r['octree_s']:.4f}, register "
+                                    f"{r['register_s']:.4f}, metric {r['metric_s']:.4f})"
+                                    for r in p["largescan"]["seeds"]) + f" ({card})")
 
     log("== 5. bf16 dot field against the float32 fields (gates nothing)")
     phase_bf16_ranking(torch, dev)

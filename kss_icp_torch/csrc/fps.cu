@@ -35,6 +35,14 @@
 //     index) to a slot double-buffered by the round's parity, and every warp
 //     reduces all slots itself (no second barrier, no broadcast);
 //   - after the seed pick, valid scores become +inf, so every step is a min.
+// The large-scan path (kss_icp_torch/largescan.py) runs the K = 0 path at
+// B = 2 and P up to 151552 (the wrapper takes P <= 2^18): one block a cloud,
+// so two SMs work, each thread walking about 300 float4 a step in the
+// workspace (2 x 151552 x 16 B = 4.8 MB, in L2) over ~2000 dependent steps.
+// Measured there at about 62 us a step, some 400 cycles a point a thread
+// (PERF.md): the loop stores to the buffer it loads from, so its L2 loads go
+// out about one at a time and latency, not bytes, sets the time. Every index
+// fits an int: the largest, 3 * P, is below 2^20; per-cloud offsets are size_t.
 // Distances round without FMA (-fmad=false and __f*_rn), so picks equal the
 // plain version's.
 

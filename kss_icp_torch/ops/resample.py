@@ -1,15 +1,34 @@
-"""Plain PyTorch farthest-point sampling (port of kss_icp_tpu/ops/resample.py).
+"""Plain PyTorch farthest-point sampling and the voxel downsample (port of
+kss_icp_tpu/ops/resample.py).
 
-The CPU path of the `fps` wrapper and the reference of its CUDA kernel
-(ops/resample_cuda.py, csrc/fps.cu). Squared distances are summed in the
-kernel's order, (dx² + dy²) + dz², so index sequences agree exactly.
+`farthest_point_sampling` is the CPU path of the `fps` wrapper and the
+reference of its CUDA kernel (ops/resample_cuda.py, csrc/fps.cu). Squared
+distances are summed in the kernel's order, (dx² + dy²) + dz², so index
+sequences agree exactly.
+
+`voxel_downsample` keeps, per occupied voxel, the real point nearest the
+voxel centre (Method_Octree.hpp:20-108): a sort by (voxel key, distance to
+the centre), the first point of each key run surviving. It gives JAX's
+survivors bit for bit on the CPU and on the card, which takes two details:
+
+  - JAX's `jnp.lexsort((d2c, k2, k1, k0))` becomes four stable sorts, by d2c
+    and then by k2, k1 and k0. `lax.sort` is not stable, so points of one
+    voxel at equal d2c (duplicates) may survive otherwise in JAX;
+  - XLA's CPU backend contracts a multiply feeding an add into one fused
+    multiply-add, and so the voxel centre, lo + (ijk + 0.5) * cell, and the
+    sum of squares d2c round once where eager torch ops round twice.
+    `fma32` rounds them as XLA does.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
+
+BIG = 1e30
+VOXEL_CLIP = 2_000_000    # voxel indices are clipped to [0, VOXEL_CLIP]
+VOXEL_PAD_KEY = 2_100_000  # the key of padding rows: past the clip, so they sort last
 
 
 def sqdist3(points: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -66,3 +85,38 @@ def farthest_point_sampling(points: torch.Tensor, mask: torch.Tensor, num_sample
         d2 = torch.where(mask, sqdist3(points, points[rows, sel]), neg)
         score = d2 if s == 0 else torch.minimum(score, d2)
     return idx.to(torch.int32), sample_mask(mask, num_samples, steps)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c of float32 tensors, rounded to float32 once, as a fused
+    multiply-add rounds it. The float64 product of two float32 values is
+    exact; the float64 sum rounds before the float32 rounding, which can
+    differ from one rounding only when the float64 sum lands on a float32
+    midpoint (a chance near 2^-29 a value)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def voxel_downsample(points: torch.Tensor, mask: torch.Tensor,
+                     cell_size: Union[float, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keep, per occupied voxel of edge `cell_size`, the valid point of (P, 3)
+    `points` nearest the voxel centre (kss_icp_tpu/ops/resample.py:78-113).
+
+    Returns (points, keep) of the input's padded shape: the points sorted by
+    (voxel key, distance to the centre), survivors marked in `keep` and every
+    other row zeroed."""
+    dtype = points.dtype
+    lo = torch.where(mask[:, None], points, BIG).amin(dim=0)
+    cell = torch.as_tensor(cell_size, dtype=dtype, device=points.device).clamp_min(torch.finfo(dtype).tiny)
+    ijk = torch.floor((points - lo) / cell).to(torch.int32).clamp(0, VOXEL_CLIP)
+    center = fma32(ijk.to(dtype) + 0.5, cell, lo)
+    d = points - center
+    d2c = fma32(d[:, 2], d[:, 2], fma32(d[:, 1], d[:, 1], d[:, 0] * d[:, 0]))  # XLA's reduction of the squares
+    key = torch.where(mask[:, None], ijk, VOXEL_PAD_KEY)
+    order = torch.argsort(d2c, stable=True)
+    for col in (2, 1, 0):
+        order = order[torch.argsort(key[order, col], stable=True)]
+    k_sorted = key[order]
+    is_first = torch.ones_like(mask)
+    is_first[1:] = (k_sorted[1:] != k_sorted[:-1]).any(dim=-1)
+    keep = is_first & mask[order]
+    return points[order] * keep[:, None].to(dtype), keep

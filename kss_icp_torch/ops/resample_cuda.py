@@ -14,7 +14,9 @@ import torch
 
 from kss_icp_torch.ops.resample import check_steps, farthest_point_sampling, fps_centroid, sample_mask
 
-MAX_POINTS = 65536
+# Points a cloud: the large-scan path's compacted octree survivors pad to
+# 135168-151552 (kss_icp_torch/largescan.py); 2^18 leaves room for other seeds.
+MAX_POINTS = 1 << 18
 # Threads a block, and points a thread keeps in registers: 16 points (x, y,
 # z, score) fit the 128 registers a thread has at 512 threads, so clouds up
 # to 8192 points stay in registers. At the remesh clouds (3072 and 8192
@@ -45,7 +47,7 @@ def fps(points: torch.Tensor, mask: torch.Tensor, num_samples: int,
 
     Makes the first `steps` picks (default num_samples) of S = num_samples.
     Returns (indices (B, S) int32, sample_mask (B, S) bool), index for index
-    the plain version's. Clouds wider than 65536 points raise on CUDA."""
+    the plain version's. Clouds wider than MAX_POINTS raise on CUDA."""
     if points.dim() != 3 or points.shape[-1] != 3 or mask.shape != points.shape[:2]:
         raise ValueError(f"expected points (B, P, 3) and mask (B, P), got {tuple(points.shape)}, {tuple(mask.shape)}")
     steps = check_steps(num_samples, steps)

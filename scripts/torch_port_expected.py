@@ -26,7 +26,20 @@ Three records, each a JSON file under fixtures/:
   `--merge` joins the records as for `--overlap`; the record lists each
   shard's sub-batches under `batches`. JAX on the CPU holds about 2 GiB a
   pair in flight (each batch's peak RSS is printed), so the remesh 25 as
-  one batch needs about 50 GiB.
+  one batch needs about 50 GiB;
+* `--largescan`: the large-scan path of kss_icp_tpu/largescan.py at
+  DEFAULT_CONFIG, 200k-point Room pairs and an 80k pre-downsample, for seeds
+  0, 1 and 2, written to fixtures/torch_port_expected_largescan.json. The
+  script calls JAX's own pieces in run_largescan's order (octree_simplify,
+  the compaction, resample_pairs, register_resampled and largescan's own
+  escalation rule, registration_measure_padded) and records, per seed,
+  `nscale`, the survivor counts `n_s` and `n_t`, a SHA-256 of each side's
+  survivors (the kept points in sorted order, float32 bytes), `pnumber`,
+  the base fitness, whether the pair escalated and the re-solve won, the
+  final fitness, the transform, the unit-scale and scene RMSE and
+  `pose_rmse`; then it runs run_largescan itself and checks that its dict
+  agrees. About 400 s a seed on an 8-core CPU, most of it the two
+  full-resolution metrics.
 
 Per pair: the chosen candidate, ICP fitness, ICP iteration count, the
 hit-cap flag, the similarity transform and the full-resolution RMSE; with
@@ -44,8 +57,8 @@ overlap_rerun (kss_icp_torch.ladder_log.LadderLog); a rung is listed where the p
 fitness was above overlap_threshold when the rung began. chip_smoke.py and tests/test_torch_expected.py hold the
 port to these records.
 
-    JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation | --overlap | --batch] [--limit N]
-        [--shard I/N] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation | --overlap | --batch | --largescan]
+        [--limit N] [--shard I/N] [--out PATH]
     python scripts/torch_port_expected.py [--overlap | --batch] --merge SHARD.json ... [--out PATH]
 
 About 16 s per remesh pair at DEFAULT_CONFIG and 8 s at the bench config on
@@ -68,6 +81,8 @@ REPO = Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "fixtures"
 BOARDS = ("category", "deform", "scale")
 FULL_PAD = 8192  # register_many's default pad, which the remesh targets (up to 8000 points) fit
+# run_largescan's arguments as the CLI's largescan subcommand and bench.py pass them.
+LARGESCAN = dict(n_points=200_000, pre_downsample=80_000, seeds=(0, 1, 2))
 
 ESCALATION_NOTE = (
     "JAX on the CPU scores the rotation field on its XLA path whatever coarse_method says "
@@ -125,6 +140,96 @@ def batch_items(remesh, boards, shard: int, shards: int, limit: int = 0):
     return remesh_items, board_items
 
 
+def survivor_digest(points: np.ndarray, keep: np.ndarray) -> str:
+    """SHA-256 of the survivors of a voxel downsample: the kept rows of its
+    sorted output, in order, as float32 bytes (tests/test_torch_largescan.py
+    computes the same of the port's)."""
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(points, np.float32)[np.asarray(keep)]).tobytes()).hexdigest()
+
+
+def record_largescan(seed: int, n_points: int, pre_downsample: int) -> dict:
+    """kss_icp_tpu/largescan.py::run_largescan's stages for one seed at
+    DEFAULT_CONFIG, piece by piece, then run_largescan itself, whose dict must
+    agree with the pieces."""
+    import jax
+    import jax.numpy as jnp
+
+    from kss_icp_tpu.challenge import transform_rmse
+    from kss_icp_tpu.config import DEFAULT_CONFIG as cfg
+    from kss_icp_tpu.core.transforms import apply_similarity
+    from kss_icp_tpu.largescan import _pad, room_pair, run_largescan
+    from kss_icp_tpu.metrics import registration_measure_padded
+    from kss_icp_tpu.models.kss_icp import register_resampled, resample_pairs
+    from kss_icp_tpu.ops.simplify import octree_simplify
+
+    t0 = time.perf_counter()
+    src, tgt, gt = room_pair(n_points, seed)
+    center = tgt.mean(axis=0)
+    nscale = float(np.abs(tgt - center).max())
+    src_n = ((src - center) / nscale).astype(np.float32)
+    tgt_n = ((tgt - center) / nscale).astype(np.float32)
+    pad = ((max(len(src), len(tgt)) + 4095) // 4096) * 4096
+    sp, sm = (jnp.asarray(x) for x in _pad(src_n, pad))
+    tp, tm = (jnp.asarray(x) for x in _pad(tgt_n, pad))
+    octree = jax.jit(octree_simplify, static_argnames=("target_points",))  # as run_largescan jits it
+    s_ds, skeep = octree(sp, sm, target_points=pre_downsample)
+    t_ds, tkeep = octree(tp, tm, target_points=pre_downsample)
+    n_s, n_t = int(jnp.sum(skeep)), int(jnp.sum(tkeep))
+    pnumber = cfg.resample_count(n_s, n_t)
+    ds_pad = ((max(n_s, n_t) + 4095) // 4096) * 4096
+
+    @jax.jit
+    def compact(pts, keep):
+        order = jnp.argsort(jnp.logical_not(keep), stable=True)
+        return pts[order][:ds_pad], keep[order][:ds_pad]
+
+    s_c, sk_c = compact(s_ds, skeep)
+    t_c, tk_c = compact(t_ds, tkeep)
+    (rs, rsm), (rt, rtm) = resample_pairs(s_c[None], sk_c[None], t_c[None], tk_c[None],
+                                          jnp.asarray([pnumber], jnp.int32), cfg)
+    res = register_resampled(rs[0], rsm[0], rt[0], rtm[0], cfg)
+    base_fit = fit = float(res.fitness)
+    escalated = bool(cfg.auto_escalate and fit > cfg.escalate_threshold)
+    won = False
+    if escalated:
+        res2 = register_resampled(rs[0], rsm[0], rt[0], rtm[0], cfg.escalation_config())
+        won = float(res2.fitness) < fit
+        if won:
+            res, fit = res2, float(res2.fitness)
+    aligned = apply_similarity(res.transform, sp)
+    m = registration_measure_padded(aligned, sm, tp, tm, chunk=4096, use_pallas=False)
+    unit_rmse = float(m["rmse"])
+    aligned_np = np.asarray(apply_similarity(res.transform, jnp.asarray(src_n))) * nscale + center
+    pose = transform_rmse(aligned_np, src, gt)
+    tr = res.transform
+    rec = {
+        "seed": seed, "n_points": int(len(src)), "pad": pad, "nscale": nscale,
+        "n_s": n_s, "n_t": n_t, "ds_pad": ds_pad, "pnumber": pnumber,
+        "survivors_sha256": {"source": survivor_digest(s_ds, skeep), "target": survivor_digest(t_ds, tkeep)},
+        "base_fitness": base_fit, "escalated": escalated, "escalation_won": won, "fitness": fit,
+        "chosen_candidate": int(res.chosen_candidate), "icp_iterations": int(res.icp_iterations),
+        "scale": float(tr.scale), "rotation": np.asarray(tr.rotation, np.float64).tolist(),
+        "translation": np.asarray(tr.translation, np.float64).tolist(),
+        "unit_rmse": unit_rmse, "rmse": unit_rmse * nscale, "pose_rmse": float(pose),
+    }
+    pieces_s = time.perf_counter() - t0
+    out = run_largescan(n_points, pre_downsample, cfg, seed, repeats=1)
+    agree = {"fitness": round(fit, 8), "rmse": round(unit_rmse * nscale, 6), "pose_rmse": round(pose, 6),
+             "pnumber": cfg.resample_count(pre_downsample, pre_downsample), "n_points": int(len(src))}
+    differ = {k: (v, out[k]) for k, v in agree.items() if out[k] != v}
+    if differ:
+        raise SystemExit(f"seed {seed}: run_largescan's dict disagrees with its pieces: {differ}")
+    rec["run_largescan"] = out
+    rec["seconds"] = {"pieces": pieces_s, "run_largescan": time.perf_counter() - t0 - pieces_s}
+    print(f"seed {seed}: n_s={n_s} n_t={n_t} pnumber={pnumber} ds_pad={ds_pad} base_fit={base_fit:.6g} "
+          f"escalated={escalated} won={won} fit={fit:.6g} unit_rmse={unit_rmse:.6f} rmse={rec['rmse']:.6f} "
+          f"pose_rmse={pose:.6f} ({pieces_s:.0f} s + {rec['seconds']['run_largescan']:.0f} s)",
+          file=sys.stderr, flush=True)
+    return rec
+
+
 def merge(paths, out_path) -> int:
     """One record from the shards' records: every list of pairs joined and
     put back in corpus order, the shards' batches listed, the seconds
@@ -160,6 +265,8 @@ def main() -> int:
                       help="record the unmodified DEFAULT_CONFIG (the overlap tier on), all five boards")
     mode.add_argument("--batch", action="store_true",
                       help="record register_many at the unmodified DEFAULT_CONFIG: remesh 25, all five boards")
+    mode.add_argument("--largescan", action="store_true",
+                      help="record run_largescan's stages at DEFAULT_CONFIG on 200k-point Room pairs, seeds 0-2")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--limit", type=int, default=0,
                     help="only the first N pairs of each corpus (0 = all)")
@@ -172,6 +279,7 @@ def main() -> int:
     out_path = args.out or FIXTURES / ("torch_port_expected_escalation.json" if args.escalation else
                                        "torch_port_expected_overlap.json" if args.overlap else
                                        "torch_port_expected_batch.json" if args.batch else
+                                       "torch_port_expected_largescan.json" if args.largescan else
                                        "torch_port_expected.json")
     if args.merge:
         return merge(args.merge, out_path)
@@ -192,12 +300,28 @@ def main() -> int:
     from bench import bench_config
 
     shard, shards = map(int, args.shard.split("/"))
+    t_start = time.perf_counter()
+    if args.largescan:
+        seeds = LARGESCAN["seeds"][: args.limit or None]
+        out = {
+            "platform": "jax " + jax.__version__ + " on cpu",
+            "rmse_band": 0.006,
+            "pose_bar": 0.1,
+            "config": "DEFAULT_CONFIG; largescan's own escalation rule (one register_resampled at "
+                      "escalation_config() when the fitness is above escalate_threshold, kept if lower)",
+            "n_points": LARGESCAN["n_points"],
+            "pre_downsample": LARGESCAN["pre_downsample"],
+            "seeds": [record_largescan(seed, LARGESCAN["n_points"], LARGESCAN["pre_downsample"]) for seed in seeds],
+        }
+        out["seconds"] = time.perf_counter() - t_start
+        out_path.write_text(json.dumps(out, indent=1) + "\n")
+        print(f"wrote {out_path} in {out['seconds']:.0f} s", file=sys.stderr)
+        return 0
 
     def limit(corpus):
         corpus = corpus[: args.limit] if args.limit else corpus
         return [pair for i, pair in enumerate(corpus) if i % shards == shard]
 
-    t_start = time.perf_counter()
     counts = _Counts(kss, escalate)
     from kss_icp_torch.ladder_log import RungLog  # jax-free; the port is recorded the same way
 

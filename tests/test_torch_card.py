@@ -184,7 +184,7 @@ def test_fps_kernel_matches_plain_and_jax(cuda_device):
 
 @pytest.mark.cuda
 # Registers (1 to 16 points a thread), then shared memory (12801) and global memory.
-@pytest.mark.parametrize("p", [1, 757, 3072, 8192, 12801, 20000, 65536])
+@pytest.mark.parametrize("p", [1, 757, 3072, 8192, 12801, 20000, 65536, 151552])
 def test_fps_kernel_matches_plain_at_width(cuda_device, p):
     rng = np.random.default_rng(p)
     pts = _t(np.stack([random_cloud(rng, p) for _ in range(2)]).astype(np.float32), cuda_device)
@@ -233,9 +233,16 @@ def test_resample_batch_steps_cut_is_bit_identical_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_fps_kernel_refuses_clouds_past_65536(cuda_device):
-    pts = torch.zeros((1, 65537, 3), device=cuda_device)
-    with pytest.raises(ValueError, match="65536"):
-        fps(pts, torch.ones((1, 65537), dtype=torch.bool, device=cuda_device), 8)
+    """The limit was 65536 points a cloud; since the large-scan path it is
+    MAX_POINTS (2^18): a cloud one point wider raises, with no fallback."""
+    from kss_icp_torch.ops.resample_cuda import MAX_POINTS
+
+    assert MAX_POINTS >= 151552  # the widest compacted scan pad of seeds 0-2
+    pts = torch.zeros((1, MAX_POINTS + 1, 3), device=cuda_device)
+    before = fps.launches
+    with pytest.raises(ValueError, match=str(MAX_POINTS)):
+        fps(pts, torch.ones((1, MAX_POINTS + 1), dtype=torch.bool, device=cuda_device), 8)
+    assert fps.launches == before
 
 
 @pytest.mark.cuda
@@ -584,3 +591,74 @@ def test_register_many_on_the_card_matches_cpu(cuda_device):
     # field_trim twice (overlap_iterations) a pair and field rung that ran.
     assert launches["fps"] == 1 and launches["nn1"] > 0
     assert launches["field_ave"] == 2 * len(pairs) and launches["field_trim"] == 2 * field_rungs > 0
+
+
+@pytest.mark.cuda
+def test_fps_kernel_at_the_large_scan_pad(cuda_device):
+    """The large-scan resample: two clouds at the widest compacted pad, 151552
+    points, with the octree survivors of seed 2 valid (93625 and 148008), to
+    2048 samples in 2000 steps: bit-identical to the plain version."""
+    rng = np.random.default_rng(151552)
+    pts = _t(np.stack([random_cloud(rng, 151552) for _ in range(2)]).astype(np.float32), cuda_device)
+    rows = torch.arange(151552, device=cuda_device)
+    mask = torch.stack([rows < 93625, rows < 148008])
+    before = fps.launches
+    idx, sm = fps(pts, mask, 2048, 2000)
+    assert fps.launches == before + 1
+    idx_p, sm_p = farthest_point_sampling(pts, mask, 2048, 2000)
+    assert torch.equal(idx, idx_p) and torch.equal(sm, sm_p)
+
+
+@pytest.mark.cuda
+def test_nn1_kernel_at_131072_squared_on_a_query_subset(cuda_device):
+    """The full-resolution metric's regime, 1 x 131072 x 131072 with a padded
+    reference tail: the kernel over every query, the plain version on 4096
+    queries spread over the cloud and the last 1024 (bits equal)."""
+    rng = np.random.default_rng(131072)
+    n = 131072
+    q = _t(random_cloud(rng, n).astype(np.float32)[None], cuda_device)
+    r = _t(random_cloud(rng, n).astype(np.float32)[None], cuda_device)
+    m = torch.arange(n, device=cuda_device)[None] < n - 3000
+    d2, idx = nn1(q, r, m)
+    rows = torch.cat([torch.arange(0, n, 32, device=cuda_device), torch.arange(n - 1024, n, device=cuda_device)])
+    d2_p, idx_p = nn1_plain(q[:, rows].contiguous(), r, m)
+    assert torch.equal(idx[:, rows], idx_p) and torch.equal(d2[:, rows], d2_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_points, target", [(20_000, 5_000), (200_000, 80_000)])
+def test_octree_simplify_on_the_card_matches_cpu(cuda_device, n_points, target):
+    """The Room pair's octree survivors on the card equal the CPU's bit for
+    bit (the CPU's equal JAX's: tests/test_torch_largescan.py)."""
+    from kss_icp_torch import largescan
+    from kss_icp_torch.ops.simplify import octree_simplify
+
+    src, tgt, _ = largescan.room_pair(n_points, 0)
+    center = tgt.mean(axis=0)
+    nscale = float(np.abs(tgt - center).max())
+    pad = ((n_points + 4095) // 4096) * 4096
+    for x in (src, tgt):
+        pts, mask = largescan._pad(((x - center) / nscale).astype(np.float32), pad)
+        cpu = octree_simplify(_t(pts), _t(mask), target)
+        gpu = octree_simplify(_t(pts, cuda_device), _t(mask, cuda_device), target)
+        assert torch.equal(gpu[1].cpu(), cpu[1]) and torch.equal(gpu[0].cpu(), cpu[0])
+
+
+@pytest.mark.cuda
+def test_run_largescan_on_the_card_matches_cpu(cuda_device):
+    """run_largescan at 20k points on the tiny config of tests/test_largescan.py:
+    the same survivors, pnumber and escalation on the card as on the CPU, the
+    unit-scale RMSE within the 0.006 parity bar, one fps launch and the
+    metric as one nn1 launch at 1 x 20480 x 20480."""
+    from kss_icp_torch import largescan
+
+    cfg = KSSICPConfig(max_candidates=6, coarse_points=512, coarse_target_points=512, refine_candidates=2,
+                       refine_tier_iterations=12, refine_max_iterations=48)
+    cpu = largescan.run_largescan(20_000, 5_000, cfg, seed=0, device="cpu")
+    fps.launches = nn1.launches = 0
+    nn1.launch_shapes.clear()
+    gpu = largescan.run_largescan(20_000, 5_000, cfg, seed=0, device=cuda_device)
+    assert fps.launches == 1 and nn1.launch_shapes[(1, 20480, 20480, 1)] == 1
+    for k in ("n_s", "n_t", "resample_count", "pnumber", "escalated"):
+        assert gpu[k] == cpu[k], k
+    assert abs(gpu["unit_rmse"] - cpu["unit_rmse"]) <= 0.006 and gpu["pose_rmse"] < 0.3

@@ -34,6 +34,7 @@ def test_imports_with_jax_blocked():
             "import kss_icp_torch, kss_icp_torch.models.kss_icp, kss_icp_torch.metrics\n"
             "import kss_icp_torch.ops, kss_icp_torch.models, kss_icp_torch.core\n"
             "import kss_icp_torch.escalate, kss_icp_torch.challenge, kss_icp_torch.parallel.batch\n"
+            "import kss_icp_torch.largescan, kss_icp_torch.ops.simplify\n"
             "assert kss_icp_torch.register_many and kss_icp_torch.parallel.register_many\n"
             "print(sorted(kss_icp_torch.__all__))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

@@ -74,7 +74,7 @@ def test_nn1_plan_follows_the_sm_count(sms, cluster):
 
 
 @pytest.mark.parametrize("p_n", [1, 31, 32, 757, 768, 1024, 1025, 2048, 3072, 4096, 6144, 8192, 8193, 12801,
-                                 MAX_POINTS])
+                                 65536, 65537, 151552, MAX_POINTS])
 def test_fps_plan_covers_the_cloud(p_n):
     plan = fps_plan(p_n)
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= MAX_THREADS
