@@ -23,7 +23,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      16 pairs (16 x 512) x 512 x 2048, its forward fitness (16 x 512) x 2048
      x 2048 against 16 clouds and its reverse one against 8192, and the
      metric 64 x 8192 x 8192; each batch case reports its launches from the
-     4e pass that runs it; and the large-scan metric, 1 x 200704 x 200704,
+     4e pass that runs it; precision mode's polish, 12 lanes x 2048 x 2048
+     (one pair) and (25 x 12) x 2048 x 2048 against 25 clouds (the remesh
+     batch), with launches from the 4g passes; every case prints its launch
+     plan (nn1_plan); and the large-scan metric, 1 x 200704 x 200704,
      the normalized source of the Room seed with the widest compacted pad
      moved by JAX's recorded transform against its target, with its
      launches from the 4f pass;
@@ -87,10 +90,44 @@ Phases, each of which raises on failure (exit code 1, no result line):
           beside it); per seed the stage seconds, the kernels' launches (one
           fps launch and one 1 x 200704 x 200704 nn1 launch a run), the peak
           device memory and the card;
+       g. precision mode, DEFAULT_CONFIG with neighborhood_fracs=(0.25,
+          0.5) as the CLI's --precise builds it
+          (fixtures/torch_port_expected_precise.json, JAX's register_pair on
+          the CPU): the remesh 25 one pair at a time within JAX + 0.006 and
+          the category board (32 pairs) with JAX's pass/fail set, se/7
+          excepted; every pair's fitness at most its fitness in 4d (the same
+          config without the polish, this run), the pairs where a restart
+          won printed beside JAX's, tube/1's pose, pairs/s with and without
+          the polish, the polish stage's seconds and lockstep iterations;
+          then the remesh 25 as one register_many batch, within JAX + 0.006,
+          each pair's difference from the single-pair run printed;
+       h. the command line on the card: the remesh 25 written as
+          <name>.gird / <name>.wlop with transfer.txt (the port's io and
+          transfer modules), then `python -m kss_icp_torch` subprocesses at
+          their default device: bench-dir --json (RMSE within JAX's batch
+          record + 0.006, the pose pass set of 4e's transforms), batch with
+          and without --batched (JAX's register_pair and register_many
+          records + 0.006), register -o then measure (the printed RMSEs
+          within 1e-6 relative), register --precise on tube/1 (JAX + 0.006,
+          pose under 0.2), resample and simplify -m octree on Room seed 0's
+          source (points of the input), largescan --seed 0 (gated as 4f),
+          serve with three good requests and one bad (three ok, one not,
+          exit 0 at EOF) and register --profile, whose torch.profiler trace
+          must name nn1_kernel, fps_kernel and field_partial_kernel and
+          gives the device busy share of one register pass, its process's
+          first (printed beside the same trace of a warm pass in this
+          process); each subprocess's wall seconds beside nvidia-smi's line;
+          then register, register --precise, register --overlap and
+          bench-dir once more through kss_icp_torch.cli.main in this
+          process, the launch counts zeroed just before each and read just
+          after: nn1 and fps launched by each (one fps launch for
+          bench-dir's batch), field_ave by the two plain registers and by
+          bench-dir (a launch a pair), field_trim by --overlap, the polish's 12 x 2048 x 2048 nn1 shape by --precise,
+          field_dot by none; the kernels line's `cli_launches` sums them;
      every pass zeroes the kernels' launch counts before it and checks them
      after: nn1 and fps on every pass, field_ave on the "vpu" passes only,
      field_dot on the dot pass only and on both of its grids, field_trim on
-     4d and 4e only, where an overlap rung must have run on the partial
+     4d and 4e only (4g's may), where an overlap rung must have run on the partial
      boards and nn1 launched the screen rung's 512-lane solve; in 4e one
      fps launch a batch, one field_ave launch a pair and grid and one
      field_trim launch a pair, overlap solve and field rung; each pass
@@ -184,7 +221,7 @@ def phase_kernels(torch, dev) -> dict:
     from kss_icp_torch.models.coarse import rotation_grid
     from kss_icp_torch.ops.coarse_cuda import (dot_operands, field_ave, field_ave_plain, field_dot,
                                                field_dot_plain, rotate_sources)
-    from kss_icp_torch.ops.nn_cuda import nn1, nn1_plain
+    from kss_icp_torch.ops.nn_cuda import nn1, nn1_plain, nn1_plan, sm_count
     from kss_icp_torch.ops.resample import farthest_point_sampling
     from kss_icp_torch.ops.resample_cuda import fps
     from kss_icp_torch.timing import graph_ms, time_ms
@@ -228,6 +265,9 @@ def phase_kernels(torch, dev) -> dict:
             (16 * 512, 2048, 2048, 16 * 512, "boards batch overlap screen fitness, reverse: per-lane references",
              board_valid, "many boards"),
             (64, 8192, 8192, 64, "boards batch metric: lane b against cloud b", board_full, "many boards"),
+            (12, 2048, 2048, 1, "precision polish ICP: one pair's 12 lanes", (378, 1534), "precise"),
+            (25 * 12, 2048, 2048, 25, "batch precision polish ICP: 25 pairs x 12 lanes, a cloud a pair", (378, 1534),
+             "precise many"),
             (1, scan["metric"][0].shape[1], scan["metric"][1].shape[1], 1,
              f"large-scan metric: Room seed {scan['seed']}, aligned source against target", None, "largescan")):
         query = t(np.stack([cloud(rng, q_n) for _ in range(lanes)]))
@@ -266,12 +306,14 @@ def phase_kernels(torch, dev) -> dict:
         # 3 sub + 3 mul + 2 add + 1 compare per query and valid reference row.
         evals = q_n * int(mask.sum()) * (lanes // groups)
         b = bound(9.0 * evals, 4 * (lanes * q_n * 3 + groups * r_n * 3) + groups * r_n + 8 * lanes * q_n)
+        plan = nn1_plan(lanes, q_n, r_n, sm_count(dev.index or 0))
         cases.append(dict({"shape": shape_key(lanes, q_n, r_n, groups), "label": label, "batch_pass": batch,
                            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": err,
-                           "yardstick_ms": yard_ms}, **b))
+                           "yardstick_ms": yard_ms, "plan": {"cluster": plan.cluster, "slice": plan.slice}}, **b))
         log(f"  nn1 {lanes}x{q_n}x{r_n} G={groups} ({label}): indices and d2 identical; kernel {ms:.4f} ms a wrapper "
             f"call back to back, {device_ms:.4f} ms on the device (graph replay), plain {plain_ms:.4f} ms, "
-            f"cdist+min {yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            f"cdist+min {yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); plan: a cluster of "
+            f"{plan.cluster} splits R into slices of {plan.slice} rows")
     out["nn1"] = dict(cases[0], cases=cases, source="kss_icp_torch/csrc/nn.cu",
                       replaces="kss_icp_tpu/ops/nn_pallas.py:118",
                       also_replaces="kss_icp_tpu/ops/nn_pallas.py:183",
@@ -576,6 +618,7 @@ def drive(torch, dev, cfg, pairs, counters, timer, label, judge, rung_log=None):
         dt = time.perf_counter() - t0
         total += dt
         rows.append(dict(judge(name, src, m, aligned), name=name, s=dt, cand=int(res.chosen_candidate),
+                         fitness=float(res.fitness),
                          transform=[x.cpu().numpy() for x in res.transform],
                          iters=int(res.icp_iterations), escalated="escalate" in timer.ran,
                          won=res.coarse.field.shape[0] == cfg.escalate_rotation_steps and cfg.auto_escalate,
@@ -923,7 +966,8 @@ def phase_many(torch, dev, kernels: dict, e2e: dict) -> None:
         ", ".join(f"{k} {v} (one pair at a time: {per_pair.get(k, 0)})" for k, v in timer.iterations.items() if v))
     e2e["passes"][label] = {"pairs_per_s": len(pairs) / seconds, "seconds": seconds, "launches": launches,
                             "stage_seconds": dict(timer.seconds), "staged_seconds": staged,
-                            "stage_iterations": dict(timer.iterations)}
+                            "stage_iterations": dict(timer.iterations),
+                            "transforms": [[x[b].cpu().numpy() for x in res.transform] for b in range(len(pairs))]}
 
     log("== 4e. register_many at DEFAULT_CONFIG: the five boards (64 pairs) as one batch")
     board_pairs = [(name, src, tgt) for name, src, tgt, _, _ in load_boards()]
@@ -1052,6 +1096,392 @@ def phase_largescan(torch, dev, e2e: dict, card: str) -> None:
     e2e["passes"]["largescan"] = {"launches": dict(total, nn1_shapes=dict(shapes)), "seeds": rows}
 
 
+PRECISE_FRACS = (0.25, 0.5)  # the CLI's --precise (kss_icp_torch/cli.py::_cfg_from_args)
+
+
+def phase_precise(torch, dev, kernels: dict, e2e: dict, card: str) -> None:
+    """4g: precision mode, DEFAULT_CONFIG with neighborhood_fracs=(0.25, 0.5),
+    against fixtures/torch_port_expected_precise.json (JAX's register_pair on
+    the CPU): the remesh 25 and the category board one pair at a time, then
+    the remesh 25 as one register_many batch."""
+    from kss_icp_torch.challenge import BOARDS, transform_rmse
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
+    from kss_icp_torch.ops.nn_cuda import nn1
+    from kss_icp_torch.ops.resample_cuda import fps
+
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim}
+    cfg = dataclasses.replace(DEFAULT_CONFIG, neighborhood_fracs=PRECISE_FRACS)
+    exp = json.loads((FIXTURES / "torch_port_expected_precise.json").read_text())
+    lanes = 6 * len(PRECISE_FRACS)
+    polish = shape_key(lanes, cfg.resample_pad, cfg.resample_pad, 1)
+    pairs = load_pairs()
+    expected = {p["name"]: p for p in exp["pairs"]}
+    shipped = {r["name"]: r for r in e2e["passes"]["shipped"]["rows"]}
+    label = "precise"
+    rows, total, launches = drive(torch, dev, cfg, pairs, counters, StageTimer(torch, False), label,
+                                  remesh_judge(torch, expected))
+    report_remesh(label, rows, total, expected, escalation=True)
+    check_launches(label, launches, "vpu", overlap=True)
+    require(launches["nn1_shapes"].get(polish, 0) > len(pairs),
+            f"{label}: the polish's {polish} nn1 launches: {launches['nn1_shapes'].get(polish, 0)}")
+
+    def restarts(label, rows, unpolished, jax_won, key=lambda n: n):
+        """Each pair's fitness against the same pair's unpolished run in this
+        call: never above it; a restart won where it is below (JAX: below its
+        DEFAULT_CONFIG record)."""
+        worse = [r["name"] for r in rows if r["fitness"] > unpolished[key(r["name"])]["fitness"]]
+        won = [r["name"] for r in rows if r["fitness"] < unpolished[key(r["name"])]["fitness"]]
+        log(f"  [{label}] a restart won on {len(won)}/{len(rows)} pairs (jax {len(jax_won)}): {' '.join(won)}; "
+            f"jax: {' '.join(jax_won)}")
+        require(not worse, f"{label}: fitness above the unpolished run's on {worse}")
+        return won
+
+    won = restarts(label, rows, shipped, [n for n, p in expected.items() if p["restart_won"]])
+    counts = escalation_counts(label, rows, exp["pairs"])
+    timer = StageTimer(torch, True)
+    _, staged, _ = drive(torch, dev, cfg, pairs, counters, timer, label + " staged", remesh_judge(torch, expected))
+    log(f"  [{label}] stage seconds over all pairs (synced pass, {staged:.3f} s): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in timer.seconds.items()))
+    log(f"  [{label}] lockstep ICP iterations by stage, summed over the pairs: " +
+        ", ".join(f"{k} {v}" for k, v in timer.iterations.items() if v) +
+        f"; the polish {timer.seconds['polish']:.4f} s and {timer.iterations['polish']} iterations over "
+        f"{len(pairs)} pairs and {counts['port']['escalated']} re-solves")
+    log(f"  [{label}] {len(pairs) / total:.3f} pairs/s with the polish, {e2e['passes']['shipped']['pairs_per_s']:.3f} "
+        f"without (4d, this call; no stage syncs) ({card})")
+    e2e["passes"][label] = {"pairs_per_s": len(pairs) / total, "seconds": total, "launches": launches,
+                            "escalation": counts, "restarts_won": won, "stage_seconds": dict(timer.seconds),
+                            "staged_seconds": staged, "stage_iterations": dict(timer.iterations), "rows": rows}
+
+    log("== 4g. precision mode: the category board (32 pairs)")
+    corpus, thr = next((c, t) for b, c, t in BOARDS if b == "category")
+    board = [(name, src, tgt) for name, src, tgt, _ in corpus()]
+    gt = {name: g for name, _, _, g in corpus()}
+    jax_rows = {p["name"]: p for p in exp["boards"]["category"]["pairs"]}
+    unpolished = {r["name"]: r for r in e2e["passes"]["shipped boards"]["rows"]}
+    default = {p["name"]: p for p in json.loads((FIXTURES / "torch_port_expected_overlap.json").read_text())
+               ["boards"]["category"]["pairs"]}
+
+    def board_judge(name, src, m, aligned):
+        pose = transform_rmse(aligned.cpu().numpy(), src, gt[name])
+        return {"pose": pose, "passed": bool(pose <= thr), "rmse": m["rmse"]}
+
+    label = "precise category"
+    timer = StageTimer(torch, True)
+    rows, total, launches = drive(torch, dev, cfg, board, counters, timer, label, board_judge)
+    check_launches(label, launches, "vpu", overlap=True)
+    mismatched = []
+    for r in rows:
+        j, u = jax_rows[r["name"]], unpolished[f"category:{r['name']}"]
+        agree = r["passed"] == j["passed"]
+        log(f"  [{label}] {r['name']}: pose {r['pose']:.4f} {'pass' if r['passed'] else 'FAIL'} (jax "
+            f"{j['pose_rmse']:.4f} {'pass' if j['passed'] else 'FAIL'}; unpolished {u['pose']:.4f}, jax "
+            f"{default[r['name']]['pose_rmse']:.4f}) fitness {r['fitness']:.6g} (unpolished {u['fitness']:.6g}) "
+            f"esc {int(r['escalated'])} {r['s'] * 1e3:.1f} ms{'' if agree else ' DIFFERS'}")
+        if not agree and r["name"] != KNIFE_EDGE:
+            mismatched.append(r["name"])
+    require(not mismatched, f"{label}: pass/fail differs from JAX on the CPU: {mismatched}")
+    won = restarts(label, rows, unpolished, [n for n, p in jax_rows.items() if p["restart_won"]],
+                   key=lambda n: f"category:{n}")
+    tube = next(r for r in rows if r["name"] == "tube/1")
+    log(f"  [{label}] tube/1: pose {tube['pose']:.6f} (jax {jax_rows['tube/1']['pose_rmse']:.6f}); without the polish "
+        f"{unpolished['category:tube/1']['pose']:.6f} (jax {default['tube/1']['pose_rmse']:.6f})")
+    base_s = sum(unpolished[f"category:{n}"]["s"] for n, _, _ in board)
+    passed = sum(r["passed"] for r in rows)
+    log(f"  [{label}] {passed}/{len(rows)} pass (jax {sum(p['passed'] for p in jax_rows.values())}/{len(rows)}); "
+        f"{len(rows) / total:.3f} pairs/s with the polish, {len(rows) / base_s:.3f} without (4d's rows; both synced) "
+        f"({card})")
+    log(f"  [{label}] stage seconds (synced pass, {total:.3f} s): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in timer.seconds.items()) + "; lockstep ICP iterations: " +
+        ", ".join(f"{k} {v}" for k, v in timer.iterations.items() if v))
+    e2e["passes"][label] = {"pairs_per_s": len(rows) / total, "seconds": total, "launches": launches,
+                            "passed": passed, "restarts_won": won, "stage_seconds": dict(timer.seconds),
+                            "stage_iterations": dict(timer.iterations), "tube1_pose": tube["pose"]}
+
+    log("== 4g. precision mode: the remesh 25 as one register_many batch")
+    label = "precise many"
+    res, metrics, ladder, seconds, launches = drive_many(torch, dev, cfg, pairs, counters, StageTimer(torch, False),
+                                                         label)
+    check_batch_launches(label, launches, len(pairs), ladder, cfg)
+    batch_polish = shape_key(lanes * len(pairs), cfg.resample_pad, cfg.resample_pad, len(pairs))
+    require(launches["nn1_shapes"].get(batch_polish, 0) > 0, f"{label}: no {batch_polish} polish launch")
+    single = {r["name"]: r for r in e2e["passes"]["precise"]["rows"]}
+    failures = []
+    for b, (name, _, _) in enumerate(pairs):
+        rmse = float(metrics["rmse"][b])
+        if not (np.isfinite(rmse) and rmse <= expected[name]["rmse"] + RMSE_BAND):
+            failures.append(name)
+        log(report_pair_difference(label, b, name, res, rmse, single[name]) +
+            f"; fitness {float(res.fitness[b]):.6g} ({single[name]['fitness']:.6g})")
+    require(not failures, f"{label}: pairs outside JAX's precise RMSE + {RMSE_BAND}: {failures}")
+    log(f"  [{label}] {len(pairs) / seconds:.3f} pairs/s in one batch (no stage syncs; one pair at a time "
+        f"{e2e['passes']['precise']['pairs_per_s']:.3f}) ({card})")
+    e2e["passes"][label] = {"pairs_per_s": len(pairs) / seconds, "seconds": seconds, "launches": launches}
+
+
+def device_busy(trace_path: Path) -> dict:
+    """The device's busy share in a torch.profiler chrome trace: the union of
+    its kernel, memcpy and memset intervals over the trace's span (every
+    host and device event), and over the span from the first device event
+    to the last; the device time of the six busiest kernels by name, and
+    every kernel's name."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"] if e.get("ph") == "X" and "ts" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not device:
+        return {}
+    busy, end = 0.0, -np.inf
+    for a, z in device:
+        busy += max(0.0, z - max(a, end))
+        end = max(end, z)
+    first = min(float(e["ts"]) for e in events)
+    last = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    by_name = defaultdict(float)
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"][:60]] += float(e.get("dur", 0))
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    return {"kernel_names": set(by_name), "busy_us": busy, "span_us": last - first, "share": busy / (last - first),
+            "device_span_us": device[-1][1] - device[0][0], "share_of_device_span": busy / (device[-1][1] - device[0][0]),
+            "device_events": len(device), "top_kernels_us": top}
+
+
+def phase_cli(torch, dev, e2e: dict, card: str) -> None:
+    """4h: the command line on the card, `python -m kss_icp_torch` subprocesses
+    at their default device on the remesh 25 written to files with the
+    port's io and transfer modules."""
+    import io
+    import tempfile
+
+    from kss_icp_torch import cli
+    from kss_icp_torch.challenge import BOARDS, transform_rmse
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.io.formats import load_points, save_xyz
+    from kss_icp_torch.largescan import room_pair
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
+    from kss_icp_torch.ops.nn_cuda import nn1
+    from kss_icp_torch.ops.resample_cuda import fps
+    from kss_icp_torch.transfer import TransferRecord, save_transfer_log, unapply_record
+
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim}
+    cli_launches = dict.fromkeys(counters, 0)
+
+    meta = json.loads((FIXTURES / "remesh_transfer.json").read_text())
+    pairs = load_pairs()
+    batch_exp = {p["name"]: p for p in json.loads((FIXTURES / "torch_port_expected_batch.json").read_text())["pairs"]}
+    pair_exp = {p["name"]: p for p in json.loads((FIXTURES / "torch_port_expected_overlap.json").read_text())["pairs"]}
+    precise_exp = json.loads((FIXTURES / "torch_port_expected_precise.json").read_text())
+    walls = {}
+
+    def run(label, *args, stdin=None, timeout=600):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "kss_icp_torch", *map(str, args)], input=stdin, capture_output=True,
+                           text=True, timeout=timeout, cwd=REPO)
+        walls[label] = time.perf_counter() - t0
+        log(f"  [cli] {label}: exit {r.returncode}, {walls[label]:.2f} s wall ({nvidia_smi()})")
+        require(r.returncode == 0, f"cli {label}: exit {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        return r.stdout
+
+    def in_process(label, args, want):
+        """One command through kss_icp_torch.cli.main in this process, the
+        launch counts zeroed just before it and read just after: the CLI's
+        own launches, each kernel's gated by want[kernel](count, nn1 shapes)."""
+        for fn in counters.values():
+            fn.launches = 0
+        counters["nn1"].launch_shapes.clear()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = cli.main([str(a) for a in args])
+        require(rc == 0, f"cli.main {label}: exit {rc}\n{out.getvalue()[-2000:]}")
+        launches = {k: fn.launches for k, fn in counters.items()}
+        shapes = nn1_histogram(counters["nn1"], f"cli.main {label}")
+        log(f"  [cli.main {label}] kernel launches: {launches}")
+        bad = [k for k, ok in want.items() if not ok(launches[k], shapes)]
+        require(not bad, f"cli.main {label}: launches of {bad} not as the command's path needs: {launches}")
+        for k, n in launches.items():
+            cli_launches[k] += n
+
+    def printed(text, key):
+        return float(next(ln.split()[-1] for ln in text.splitlines() if ln.startswith(key + ":")))
+
+    def table(text, names):
+        """The per-pair lines of batch: {name: RMSE}."""
+        out = {}
+        for ln in text.splitlines():
+            parts = ln.split()
+            if parts and parts[0] in names:
+                out[parts[0]] = float(next(p for p in parts if p.startswith("RMSE=")).split("=")[1])
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="kss_cli_") as tmp:
+        d = Path(tmp) / "remesh"
+        d.mkdir()
+        records = []
+        for rec, (name, src, tgt) in zip(meta, pairs):
+            save_xyz(d / f"{name}.gird", src)
+            save_xyz(d / f"{name}.wlop", tgt)
+            records.append(TransferRecord(name, rec["axis"], rec["angle"], rec["scale"], rec["translation"]))
+        save_transfer_log(d / "transfer.txt", records)
+        names = [n for n, _, _ in pairs]
+
+        # bench-dir: the remesh 25 as one batch, pose-scored from transfer.txt.
+        out = Path(tmp) / "bench.json"
+        text = run("bench-dir", "bench-dir", d, "--json", out)
+        summary = json.loads(out.read_text())
+        failures = [r["name"] for r in summary["rows"] if not r["rmse"] <= batch_exp[r["name"]]["rmse"] + RMSE_BAND]
+        rec_by = {r.name: r for r in records}
+        ours = {}
+        for (name, src, _), tr in zip(pairs, e2e["passes"]["many"]["transforms"]):
+            aligned = src @ tr[1].T * tr[0] + tr[2]
+            diff = aligned - unapply_record(src, rec_by[name])
+            ours[name] = float(np.sqrt(np.mean(np.sum(diff * diff, axis=-1))))
+        cli_pass = {r["name"] for r in summary["rows"] if r["pose_ok"]}
+        many_pass = {n for n, pose in ours.items() if pose <= 0.2}
+        for r in summary["rows"]:
+            log(f"  [cli bench-dir] {r['name']}: rmse {r['rmse']:.6f} (jax batch {batch_exp[r['name']]['rmse']:.6f}) "
+                f"pose {r['pose_rmse']:.5f} (4e {ours[r['name']]:.5f})")
+        log(f"  [cli bench-dir] " + ", ".join(f"{k} {v}" for k, v in summary.items() if k != "rows") +
+            f"; {text.splitlines()[-2] if len(text.splitlines()) > 1 else ''}")
+        require(not failures, f"cli bench-dir: pairs outside JAX's batch RMSE + {RMSE_BAND}: {failures}")
+        require(cli_pass == many_pass, f"cli bench-dir: pose pass set {sorted(cli_pass)} differs from 4e's "
+                                       f"{sorted(many_pass)}")
+
+        # batch: one pair at a time, then --batched.
+        listing = Path(tmp) / "list.txt"
+        listing.write_text("".join(n + "\n" for n in names))
+        for label, flag, exp in (("batch", (), pair_exp), ("batch --batched", ("--batched",), batch_exp)):
+            text = run(label, "batch", listing, d, *flag)
+            rmse = table(text, set(names))
+            bad = [n for n in names if not rmse.get(n, np.inf) <= exp[n]["rmse"] + RMSE_BAND]
+            log(f"  [cli {label}] {len(rmse)} pairs, RMSE within JAX + {RMSE_BAND} on {len(names) - len(bad)}; "
+                f"{next(ln for ln in text.splitlines() if ln.startswith('TOTAL'))}")
+            require(not bad, f"cli {label}: pairs outside JAX's RMSE + {RMSE_BAND}: {bad}")
+
+        # register -o, then measure the file it wrote.
+        name = names[0]
+        aligned = Path(tmp) / "aligned.xyz"
+        text = run("register", "register", d / f"{name}.gird", d / f"{name}.wlop", "-o", aligned, "--json")
+        reg = json.loads(text.splitlines()[-1])
+        meas = run("measure", "measure", aligned, d / f"{name}.wlop")
+        rel = abs(printed(meas, "RMSE") - printed(text, "RMSE")) / printed(text, "RMSE")
+        log(f"  [cli register/measure] {name}: register RMSE {reg['rmse']:.9g} (printed {printed(text, 'RMSE')}), "
+            f"measure of the file {printed(meas, 'RMSE')}: relative difference {rel:.2e}; register {reg['time_s']:.3f} s")
+        require(rel <= 1e-6 and reg["rmse"] <= pair_exp[name]["rmse"] + RMSE_BAND,
+                f"cli register/measure: {reg['rmse']} vs {printed(meas, 'RMSE')} (jax {pair_exp[name]['rmse']})")
+
+        # register --precise on tube/1 of the category board.
+        corpus = next(c for b, c, _ in BOARDS if b == "category")
+        _, src, tgt, gt = next(p for p in corpus() if p[0] == "tube/1")
+        save_xyz(Path(tmp) / "tube1.gird", src)
+        save_xyz(Path(tmp) / "tube1.wlop", tgt)
+        text = run("register --precise", "register", Path(tmp) / "tube1.gird", Path(tmp) / "tube1.wlop", "-o",
+                   aligned, "--precise", "--json")
+        reg = json.loads(text.splitlines()[-1])
+        src_file = load_points(Path(tmp) / "tube1.gird")
+        pose = transform_rmse(load_points(aligned), src_file, gt)
+        j = next(p for p in precise_exp["boards"]["category"]["pairs"] if p["name"] == "tube/1")
+        log(f"  [cli register --precise] tube/1: rmse {reg['rmse']:.6f} (jax {j['rmse']:.6f}), pose {pose:.6f} "
+            f"(jax {j['pose_rmse']:.6f}; 4g {e2e['passes']['precise category']['tube1_pose']:.6f}), "
+            f"{reg['time_s']:.3f} s")
+        require(reg["rmse"] <= j["rmse"] + RMSE_BAND and pose <= 0.2, f"cli register --precise: tube/1 {reg}, {pose}")
+
+        # resample, simplify -m octree and largescan on Room seed 0.
+        record = load_largescan()
+        rec0 = next(r for r in record["seeds"] if r["seed"] == 0)
+        room_src, _, _ = room_pair(record["n_points"], 0)
+        room = Path(tmp) / "room0.xyz"
+        save_xyz(room, room_src)
+        room_rows = {tuple(p) for p in load_points(room)}
+        for label, args, want in (("resample", ("resample", room, Path(tmp) / "rs.xyz", "-n", 2000), 2000),
+                                  ("simplify -m octree", ("simplify", room, Path(tmp) / "oct.xyz", "-m", "octree",
+                                                          "-n", record["pre_downsample"]), None)):
+            text = run(label, *args)
+            got = load_points(args[2])
+            subset = all(tuple(p) in room_rows for p in got)
+            log(f"  [cli {label}] {text.strip()}; every point one of the input's: {subset}"
+                + ("" if want else f" (the normalized scan's octree in 4f keeps {rec0['n_s']})"))
+            require(subset and (len(got) == want if want else 0 < len(got) < len(room_src)),
+                    f"cli {label}: {len(got)} points, subset {subset}")
+        text = run("largescan", "largescan", "--seed", 0)
+        out = json.loads(text.splitlines()[-1])
+        checks = {
+            "survivors": (out["n_s"], out["n_t"], out["resample_count"]) == (rec0["n_s"], rec0["n_t"], rec0["pnumber"]),
+            "escalation": out["escalated"] == rec0["escalated"],
+            "rmse": bool(np.isfinite(out["unit_rmse"])) and out["unit_rmse"] <= rec0["unit_rmse"] + RMSE_BAND,
+            "pose": bool(np.isfinite(out["pose_rmse"])) and out["pose_rmse"] < record["pose_bar"],
+        }
+        log(f"  [cli largescan] seed 0: n_s {out['n_s']} n_t {out['n_t']} unit RMSE {out['unit_rmse']:.6f} (jax "
+            f"{rec0['unit_rmse']:.6f}) pose {out['pose_rmse']:.6f} total_s {out['total_s']} (first run "
+            f"{out['compile_first_total_s']}) " + " ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+        require(all(checks.values()), f"cli largescan: {checks}")
+
+        # serve: three good requests and one bad one.
+        reqs = [json.dumps({"source": str(d / f"{n}.gird"), "target": str(d / f"{n}.wlop")}) for n in names[:3]]
+        reqs.insert(2, json.dumps({"source": str(d / "missing.gird"), "target": str(d / f"{names[0]}.wlop")}))
+        text = run("serve", "serve", stdin="\n".join(reqs) + "\n")
+        lines = [json.loads(ln) for ln in text.splitlines() if ln.strip()]
+        good = [ln for ln in lines[1:] if ln.get("ok") is True]
+        bad = [ln for ln in lines[1:] if ln.get("ok") is False]
+        for ln in lines[1:]:
+            log(f"  [cli serve] " + (f"{Path(ln['source']).stem}: rmse {ln['rmse']:.6f} (jax batch "
+                                     f"{batch_exp[Path(ln['source']).stem]['rmse']:.6f}) {ln['time_s']} s"
+                                     if ln["ok"] else f"error: {ln['error']}"))
+        require(lines[0].get("event") == "ready" and len(good) == 3 and len(bad) == 1 and
+                all(ln["rmse"] <= batch_exp[Path(ln["source"]).stem]["rmse"] + RMSE_BAND for ln in good),
+                f"cli serve: {lines}")
+
+        # The same commands in this process: which kernels the CLI's own runs launch.
+        launched = lambda n, _: n > 0  # noqa: E731
+        silent = lambda n, _: n == 0  # noqa: E731
+        pad = DEFAULT_CONFIG.resample_pad
+        polish = shape_key(6 * len(PRECISE_FRACS), pad, pad, 1)
+        in_process("register", ("register", d / f"{name}.gird", d / f"{name}.wlop"),
+                   {"nn1": launched, "fps": launched, "field_ave": launched, "field_dot": silent})
+        in_process("register --precise", ("register", Path(tmp) / "tube1.gird", Path(tmp) / "tube1.wlop", "--precise"),
+                   {"nn1": lambda n, shapes: shapes.get(polish, 0) > 0, "fps": launched, "field_ave": launched,
+                    "field_dot": silent})
+        in_process("register --overlap", ("register", d / f"{name}.gird", d / f"{name}.wlop", "--overlap"),
+                   {"nn1": launched, "fps": launched, "field_trim": launched, "field_dot": silent})
+        in_process("bench-dir", ("bench-dir", d, "--json", Path(tmp) / "bench_in_process.json"),
+                   {"nn1": launched, "fps": lambda n, _: n == 1, "field_ave": lambda n, _: n >= len(names),
+                    "field_dot": silent})
+        log(f"  [cli.main] launches over the four commands: {cli_launches}")
+
+        # register --profile: one register pass's trace.
+        prof = Path(tmp) / "profile"
+        run("register --profile", "register", d / f"{name}.gird", d / f"{name}.wlop", "--profile", prof)
+        trace = prof / "trace.json"
+        require(trace.exists(), "cli register --profile wrote no trace.json")
+        # The same trace of a warm pass in this process, whose kernels, cuSOLVER
+        # and allocator are set up: the CLI's pass is its process's first.
+        import kss_icp_torch as kt
+        from torch.profiler import ProfilerActivity, profile
+
+        kt.register_pair(pairs[0][1], pairs[0][2], device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as warm_prof:
+            kt.register_pair(pairs[0][1], pairs[0][2], device=dev)
+            torch.cuda.synchronize()
+        warm_prof.export_chrome_trace(str(Path(tmp) / "warm.json"))
+        busy = {"cli": device_busy(trace), "warm": device_busy(Path(tmp) / "warm.json")}
+        names_in_trace = busy["cli"].get("kernel_names", set())
+        missing = [k for k in ("nn1_kernel", "fps_kernel", "field_partial_kernel")
+                   if not any(k in n for n in names_in_trace)]
+        require(not missing, f"cli register --profile: the trace holds no {missing} (kernels: {sorted(names_in_trace)})")
+        for label, b in busy.items():
+            if not b:
+                log(f"  [{label} register trace] no device events: device busy share not measured")
+                continue
+            log(f"  [{label} register trace] {name}: device busy {b['busy_us'] / 1e3:.3f} ms of the trace's "
+                f"{b['span_us'] / 1e3:.3f} ms: busy share {b['share']:.4f}; of the span from the first device "
+                f"event to the last ({b['device_span_us'] / 1e3:.3f} ms) {b['share_of_device_span']:.4f}; "
+                f"{b['device_events']} device events; the busiest kernels' device us: "
+                + "; ".join(f"{k} {v:.1f}" for k, v in b["top_kernels_us"].items()) + f" ({card})")
+    log(f"  [cli] wall seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()) + f" ({card})")
+    for b in busy.values():
+        b.pop("kernel_names", None)
+    e2e["passes"]["cli"] = {"walls": walls, "busy": busy, "launches": cli_launches}
+
+
 def phase_bf16_ranking(torch, dev) -> None:
     """Does the bf16 dot field keep the 8³ ranking? Gates nothing."""
     from kss_icp_torch.config import DEFAULT_CONFIG as cfg
@@ -1140,16 +1570,27 @@ def main() -> int:
 
     log("== 4f. large scans: run_largescan at 200k points, DEFAULT_CONFIG, Room seeds 0-2")
     phase_largescan(torch, dev, e2e, card)
-    attach_pass_launches(kernels, e2e)
     log("large scans: " + "; ".join(f"seed {r['seed']} total {r['total_s']:.4f} s (octree {r['octree_s']:.4f}, register "
                                     f"{r['register_s']:.4f}, metric {r['metric_s']:.4f})"
                                     for r in p["largescan"]["seeds"]) + f" ({card})")
+
+    log("== 4g. precision mode (--precise): the remesh 25 one pair at a time")
+    phase_precise(torch, dev, kernels, e2e, card)
+    log(f"precision mode: remesh 25 {p['precise']['pairs_per_s']:.3f} pairs/s (without the polish "
+        f"{p['shipped']['pairs_per_s']:.3f}), in one batch {p['precise many']['pairs_per_s']:.3f}; category "
+        f"{p['precise category']['passed']}/32 pass ({card})")
+
+    log("== 4h. the command line on the card: python -m kss_icp_torch")
+    phase_cli(torch, dev, e2e, card)
+    attach_pass_launches(kernels, e2e)
+    for n, count in p["cli"]["launches"].items():
+        kernels[n]["cli_launches"] = count
 
     log("== 5. bf16 dot field against the float32 fields (gates nothing)")
     phase_bf16_ranking(torch, dev)
     log(f"smoke run {time.perf_counter() - t_start:.1f} s ({card})")
 
-    keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "max_abs_err", "ms", "device_ms",
+    keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "cli_launches", "max_abs_err", "ms", "device_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick", "yardstick_ms", "shape", "precision", "cases",
             "launch_shapes")
     line = {"kernels": [{k: v for k, v in dict(kernels[n], name=n, route="cuda", library_ms=None).items() if k in keys}

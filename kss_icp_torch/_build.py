@@ -86,8 +86,10 @@ def build(csrc: Path = CSRC, out: Path = BUILD) -> tuple[Path, str, float]:
     out.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     t0 = time.perf_counter()
-    # Build in a temporary directory, then rename the library into place: a
-    # concurrent build never loads a half-written one.
+    # Build in a temporary directory, then rename the log and the library into
+    # place, the library last: a process that starts while another builds
+    # builds too, in its own directory, and none loads or reads a half-written
+    # file (a library already loaded keeps its file when another replaces it).
     with tempfile.TemporaryDirectory(dir=out) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in sorted(csrc.glob("*.cu"))]
         output = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(csrc / f"{o.stem}.cu")]
@@ -95,7 +97,9 @@ def build(csrc: Path = CSRC, out: Path = BUILD) -> tuple[Path, str, float]:
         so = Path(tmp) / lib.name
         output += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
                              "-o", str(so), *map(str, objs)]], tmp)
-        log.write_text(output)
+        tmp_log = Path(tmp) / log.name
+        tmp_log.write_text(output)
+        os.replace(tmp_log, log)
         os.replace(so, lib)
     return lib, output, time.perf_counter() - t0
 

@@ -34,8 +34,9 @@ and adopted by the trimmed-fitness margin. `overlap_mode=True` runs the
 overlap solve alone.
 
 Implemented: both `multistart_mode`s, the two-tier refine with its
-prefix-target gate probe, the pose tie-break, escalation and the overlap
-tier. Every knob of the JAX pipeline that is not ported raises
+prefix-target gate probe, the pose tie-break, the precision mode's
+winner-neighborhood restarts (`neighborhood_polish`), escalation and the
+overlap tier. Every knob of the JAX pipeline that is not ported raises
 NotImplementedError naming its ROADMAP.md item, so the port never returns
 an answer that differs from JAX.
 """
@@ -52,7 +53,8 @@ import torch
 from kss_icp_torch.config import DEFAULT_CONFIG, KSSICPConfig
 from kss_icp_torch.core.cloud import PointCloud
 from kss_icp_torch.core.preshape import middle_align
-from kss_icp_torch.core.transforms import Similarity, apply_similarity, compose, euler_xyz_matrix, rotate_points
+from kss_icp_torch.core.transforms import (Similarity, apply_similarity, compose, euler_xyz_matrix, matmul3,
+                                          rotate_points)
 from kss_icp_torch.models.coarse import CoarseResult, coarse_align, rotation_grid
 from kss_icp_torch.escalate import tree_map
 from kss_icp_torch.models.icp import ICPParams, ICPResult, icp
@@ -68,7 +70,6 @@ _UNPORTED = (
     (lambda c: c.refine_polish_iterations != 0, "refine_polish_iterations != 0",
      "ROADMAP.md 'Not ported' (two-stage converge)", True),
     (lambda c: c.resampler != "fps", "resampler != 'fps'", "ROADMAP.md queue 1 item 13 (aivs)", True),
-    (lambda c: bool(c.neighborhood_fracs), "neighborhood_fracs", "ROADMAP.md queue 1 item 13 (precision mode)", False),
     (lambda c: c.icp_variant != "point_to_point", "icp_variant != 'point_to_point'",
      "ROADMAP.md queue 1 item 13 (normals)", False),
     (lambda c: c.coarse_error_metric in ("max", "diff"), "coarse_error_metric 'max' or 'diff'",
@@ -173,6 +174,61 @@ def _pose_tiebreak_select(
     return torch.argmin(torch.where(near, q, torch.full_like(q, BIG)), dim=1)
 
 
+def neighborhood_polish(
+    total: Similarity,            # (B,) the winning transforms
+    fitness: torch.Tensor,        # (B,) their fitness
+    source_points: torch.Tensor,  # (B, P, 3) resampled padded clouds
+    source_mask: torch.Tensor,    # (B, P)
+    target_points: torch.Tensor,  # (B, T, 3)
+    target_mask: torch.Tensor,    # (B, T)
+    params: ICPParams,
+    cfg: KSSICPConfig,
+) -> tuple[Similarity, torch.Tensor]:
+    """Winner-neighborhood precision restarts (cfg.neighborhood_fracs;
+    kss_icp_tpu/models/kss_icp.py:343-391): re-converge from small Euler
+    perturbations of each pair's winning pose and keep the better fitness.
+    For narrow-basin shapes whose best converge point hides inside the
+    winner's grid cell (tube/1 of the category board).
+
+    The offsets are ±f·(angle_span / rotation_steps) on one Euler axis at a
+    time: fracs outermost, then axis 0-2, then the sign, −1 first. Lane j of
+    pair b starts from (r_off[j] @ R_b, s_b, t_b); the B x 6·len(fracs) lanes
+    run as one lockstep ICP (12 a pair for the CLI's (0.25, 0.5)), each
+    against its pair's target, at `params` (the uncapped ones: the point is
+    to converge the narrow basin fully) with the config's icp_trim_fraction
+    and icp_estimate_scale. Per pair, the first lane of least fitness
+    replaces the incumbent only when strictly better, so the fitness never
+    rises. Returns (transform, fitness), each leading with B.
+
+    The caller keeps the capped base solve's refine_hit_cap, as JAX does: the
+    polish answers for the pose, the flag for the base solve's converge, and
+    the escalation reads the flag (ROADMAP.md queue 3, decided with item 13)."""
+    b, p = source_mask.shape
+    dtype, device = source_points.dtype, source_points.device
+    step = cfg.angle_span / cfg.rotation_steps
+    offs = [[sgn * f * step if ax == a else 0.0 for a in range(3)]
+            for f in cfg.neighborhood_fracs for ax in range(3) for sgn in (-1.0, 1.0)]
+    r_off = euler_xyz_matrix(torch.tensor(offs, dtype=dtype, device=device))  # (n, 3, 3)
+    n = r_off.shape[0]
+
+    def lanes(x):  # (B, ...) -> (B, n, ...)
+        return x[:, None].expand((b, n) + x.shape[1:])
+
+    pert = Similarity(scale=lanes(total.scale), rotation=matmul3(r_off, total.rotation[:, None]),
+                      translation=lanes(total.translation))
+    cur = apply_similarity(pert, source_points[:, None])  # (B, n, P, 3)
+    res = icp(cur.reshape(b * n, p, 3).contiguous(), lanes(source_mask).reshape(b * n, p), target_points.contiguous(),
+              target_mask.contiguous(), params, trim_fraction=cfg.icp_trim_fraction,
+              estimate_scale=cfg.icp_estimate_scale, lane_ref=_pair_lanes(b, n, device))
+    step_sim = Similarity(*(x.reshape((b, n) + x.shape[1:]) for x in (res.scale, res.rotation, res.translation)))
+    tots = compose(step_sim, pert)
+    fits = res.fitness.view(b, n)
+    k = torch.argmin(fits, dim=1)
+    best = _at(fits, k)
+    better = best < fitness
+    return _keep(better, tree_map(lambda x: _at(x, k), tots), total), torch.minimum(best, fitness)
+
+
 def register_batch(
     source_points: torch.Tensor,
     source_mask: torch.Tensor,
@@ -190,8 +246,10 @@ def register_batch(
     one lockstep loop, each lane against its pair's target (`lane_ref`), so
     the batch pays its slowest lane's iterations, as JAX's vmapped
     while_loop does. The gate and the lane picks are per-pair selects on the
-    device. `timer`, when given, is entered around each stage ("coarse",
-    "screen", "refine") — a hook for measurement."""
+    device. With cfg.neighborhood_fracs, each pair's result is polished by
+    `neighborhood_polish` on every return path, as JAX's is. `timer`, when
+    given, is entered around each stage ("coarse", "screen", "refine",
+    "polish") — a hook for measurement."""
     check_supported(cfg)
     b, p = source_mask.shape
     dtype, device = source_points.dtype, source_points.device
@@ -259,6 +317,15 @@ def register_batch(
     refine_params = params._replace(max_iterations=refine_cap)
     big = torch.full((), BIG, dtype=dtype, device=device)
 
+    def polish(out):
+        """Precision mode on the returned result (JAX :252-258, :322-326):
+        the uncapped `params`, and the capped solve's refine_hit_cap kept."""
+        if not cfg.neighborhood_fracs:
+            return out
+        with _stage(timer, "polish"):
+            total, fitness = neighborhood_polish(out.transform, out.fitness, sp, sm, tp, tm, params, cfg)
+        return out._replace(transform=total, fitness=fitness)
+
     if cfg.multistart_mode != "two_phase":  # "full", as any other value is in JAX
         with _stage(timer, "refine"):
             k = rotated.shape[1]
@@ -267,7 +334,7 @@ def register_batch(
             fit = torch.where(coarse.candidate_mask, res.fitness, big)
             local = pick(fit, fit[:, 0], res, rotated)
             out = result(res, local, sel, fit[:, 0], _at(res.iterations, local), refine_cap)
-        return out._replace(fitness=_at(fit, local))
+        return polish(out._replace(fitness=_at(fit, local)))
 
     # Two-phase: screen every candidate with a short solve on the source's
     # first screen_points rows (an FPS prefix is a uniform subsample).
@@ -291,26 +358,27 @@ def register_batch(
             fit = torch.where(sel_mask, res.fitness, big)
             local = pick(fit, fit[:, 0], res, lanes)
             out = result(res, local, sel, fit[:, 0], _at(res.iterations, local), refine_cap)
-            return out._replace(fitness=_at(fit, local))
-
-        # Two-tier refine: a capped solve on every selected lane ranks them,
-        # then only each pair's winner converges fully.
-        cap_tgt, cap_tmask = _prefix(tp, tm, cfg.refine_tier_target_points)
-        res_a = solve(lanes, cap_tgt.contiguous(), cap_tmask.contiguous(),
-                      params._replace(max_iterations=cfg.refine_tier_iterations), init)
-        fit_a = torch.where(sel_mask, res_a.fitness, big)
-        judge_a = fit_a[:, 0]
-        if cap_tgt.shape[1] < tp.shape[1]:
-            # The gate is absolute and a prefix target inflates fitness:
-            # re-evaluate candidate 0 on the full target (no ICP steps).
-            probe = solve(lanes[:, :1], tp, tm, params._replace(max_iterations=0),
-                          (res_a.rotation[:, :1], res_a.translation[:, :1], res_a.scale[:, :1]))
-            judge_a = torch.where(sel_mask[:, 0], probe.fitness[:, 0], big)
-        win = pick(fit_a, judge_a, res_a, lanes)
-        res = solve(_at(lanes, win)[:, None], tp, tm, refine_params,
-                    tuple(_at(x, win)[:, None] for x in (res_a.rotation, res_a.translation, res_a.scale)))
-        return result(res, torch.zeros_like(win), _at(sel, win)[:, None], judge_a,
-                      _at(res_a.iterations, win) + res.iterations[:, 0], refine_cap)
+            out = out._replace(fitness=_at(fit, local))
+        else:
+            # Two-tier refine: a capped solve on every selected lane ranks them,
+            # then only each pair's winner converges fully.
+            cap_tgt, cap_tmask = _prefix(tp, tm, cfg.refine_tier_target_points)
+            res_a = solve(lanes, cap_tgt.contiguous(), cap_tmask.contiguous(),
+                          params._replace(max_iterations=cfg.refine_tier_iterations), init)
+            fit_a = torch.where(sel_mask, res_a.fitness, big)
+            judge_a = fit_a[:, 0]
+            if cap_tgt.shape[1] < tp.shape[1]:
+                # The gate is absolute and a prefix target inflates fitness:
+                # re-evaluate candidate 0 on the full target (no ICP steps).
+                probe = solve(lanes[:, :1], tp, tm, params._replace(max_iterations=0),
+                              (res_a.rotation[:, :1], res_a.translation[:, :1], res_a.scale[:, :1]))
+                judge_a = torch.where(sel_mask[:, 0], probe.fitness[:, 0], big)
+            win = pick(fit_a, judge_a, res_a, lanes)
+            res = solve(_at(lanes, win)[:, None], tp, tm, refine_params,
+                        tuple(_at(x, win)[:, None] for x in (res_a.rotation, res_a.translation, res_a.scale)))
+            out = result(res, torch.zeros_like(win), _at(sel, win)[:, None], judge_a,
+                         _at(res_a.iterations, win) + res.iterations[:, 0], refine_cap)
+    return polish(out)
 
 
 def register_resampled(

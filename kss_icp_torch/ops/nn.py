@@ -148,3 +148,41 @@ def masked_nn_error(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Te
     if metric in ("max", "diff"):
         raise NotImplementedError(f"error metric {metric!r} is not ported yet (ROADMAP.md queue 1 item 13)")
     raise ValueError(f"unknown error metric {metric!r}")
+
+
+# (rows, R) elements of one sorted k-NN block: bounds the temporaries at any R.
+_KNN_BLOCK_ELEMS = 1 << 22
+
+
+def _sqdist(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> torch.Tensor:
+    """Exact float32 (dx² + dy²) + dz², 1e30 at a masked reference row."""
+    d = query[..., :, None, :] - ref[..., None, :, :]
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    return torch.where(ref_mask[..., None, :], d2, torch.full_like(d2, BIG))
+
+
+def knn(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k-NN squared distances and indices, ascending (kss_icp_tpu/ops/nn.py:219-330):
+    the reference's 12-NN radius estimate (ballRegionCompute.hpp:477-530).
+
+    query (..., Q, 3), ref (..., R, 3), ref_mask (..., R). Returns ((..., Q, k)
+    float32, (..., Q, k) int64); a masked reference row scores 1e30. Each
+    block of query rows (at most `_KNN_BLOCK_ELEMS` (rows, R) elements) is
+    sorted whole by a stable sort, so ties go to the lower index, as
+    `jax.lax.top_k` orders them. The blocks keep the memory bounded at any R,
+    which is what the JAX package's streaming path (reference tiles with a
+    running top-k merge) is for; its answer is this one's. The distances are
+    exact float32 differences, where JAX's dense path takes the
+    ‖a‖² + ‖b‖² − 2ab expansion, so the two agree to rounding (rtol 1e-5) and
+    the port's order is the exact one. Refuses k above R, as `jax.lax.top_k`
+    does."""
+    q, r = query.shape[-2], ref.shape[-2]
+    if k > r:
+        raise ValueError(f"knn: k={k} is larger than the {r} reference rows")
+    rows = max(1, _KNN_BLOCK_ELEMS // max(1, r))
+    d2, idx = [], []
+    for i in range(0, q, rows):
+        vals, ix = torch.sort(_sqdist(query[..., i:i + rows, :], ref, ref_mask), dim=-1, stable=True)
+        d2.append(vals[..., :k])
+        idx.append(ix[..., :k])
+    return torch.cat(d2, dim=-2), torch.cat(idx, dim=-2)

@@ -39,7 +39,15 @@ Three records, each a JSON file under fixtures/:
   final fitness, the transform, the unit-scale and scene RMSE and
   `pose_rmse`; then it runs run_largescan itself and checks that its dict
   agrees. About 400 s a seed on an 8-core CPU, most of it the two
-  full-resolution metrics.
+  full-resolution metrics;
+* `--precise`: precision mode, `KSSICPConfig(neighborhood_fracs=(0.25,
+  0.5))`, the config the CLI's `--precise` flag builds (DEFAULT_CONFIG with
+  the winner-neighborhood restarts), through register_pair on the remesh 25
+  and the 32-pair category board, written to
+  fixtures/torch_port_expected_precise.json. Each pair also records the
+  DEFAULT_CONFIG record's fitness (fixtures/torch_port_expected_overlap.json)
+  and whether a restart won against it (`restart_won`: a lower fitness).
+  `--shard`/`--merge` as for `--overlap`.
 
 Per pair: the chosen candidate, ICP fitness, ICP iteration count, the
 hit-cap flag, the similarity transform and the full-resolution RMSE; with
@@ -57,9 +65,9 @@ overlap_rerun (kss_icp_torch.ladder_log.LadderLog); a rung is listed where the p
 fitness was above overlap_threshold when the rung began. chip_smoke.py and tests/test_torch_expected.py hold the
 port to these records.
 
-    JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation | --overlap | --batch | --largescan]
-        [--limit N] [--shard I/N] [--out PATH]
-    python scripts/torch_port_expected.py [--overlap | --batch] --merge SHARD.json ... [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation | --overlap | --batch | --largescan
+        | --precise] [--limit N] [--shard I/N] [--out PATH]
+    python scripts/torch_port_expected.py [--overlap | --batch | --precise] --merge SHARD.json ... [--out PATH]
 
 About 16 s per remesh pair at DEFAULT_CONFIG and 8 s at the bench config on
 an 8-core x86 CPU with escalation off.
@@ -81,6 +89,7 @@ REPO = Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "fixtures"
 BOARDS = ("category", "deform", "scale")
 FULL_PAD = 8192  # register_many's default pad, which the remesh targets (up to 8000 points) fit
+PRECISE_FRACS = (0.25, 0.5)  # the CLI's --precise (kss_icp_tpu/cli.py:47-53)
 # run_largescan's arguments as the CLI's largescan subcommand and bench.py pass them.
 LARGESCAN = dict(n_points=200_000, pre_downsample=80_000, seeds=(0, 1, 2))
 
@@ -267,6 +276,8 @@ def main() -> int:
                       help="record register_many at the unmodified DEFAULT_CONFIG: remesh 25, all five boards")
     mode.add_argument("--largescan", action="store_true",
                       help="record run_largescan's stages at DEFAULT_CONFIG on 200k-point Room pairs, seeds 0-2")
+    mode.add_argument("--precise", action="store_true",
+                      help="record precision mode (--precise) through register_pair: remesh 25, category board")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--limit", type=int, default=0,
                     help="only the first N pairs of each corpus (0 = all)")
@@ -280,6 +291,7 @@ def main() -> int:
                                        "torch_port_expected_overlap.json" if args.overlap else
                                        "torch_port_expected_batch.json" if args.batch else
                                        "torch_port_expected_largescan.json" if args.largescan else
+                                       "torch_port_expected_precise.json" if args.precise else
                                        "torch_port_expected.json")
     if args.merge:
         return merge(args.merge, out_path)
@@ -352,10 +364,10 @@ def main() -> int:
                 "translation": np.asarray(tr.translation, np.float64).tolist(),
                 "rmse": float(rmse),
             }
-            if args.escalation or args.overlap:
+            if args.escalation or args.overlap or args.precise:
                 rec.update(escalated=counts.flagged > 0, escalation_won=counts.won > 0,
                            finisher=counts.finished > 0)
-            if args.overlap:
+            if args.overlap or args.precise:
                 rec["rungs"] = rungs.rungs
             if threshold is not None:
                 pose = transform_rmse(aligned, src, gt)
@@ -447,7 +459,32 @@ def main() -> int:
     bench = bench_config()
     knobs = {f.name: getattr(bench, f.name) for f in dataclasses.fields(bench)
              if getattr(bench, f.name) != getattr(DEFAULT_CONFIG, f.name)}
-    if not (args.escalation or args.overlap):
+    if args.precise:
+        from kss_icp_tpu.config import KSSICPConfig
+
+        default = json.loads((FIXTURES / "torch_port_expected_overlap.json").read_text())
+
+        def against_default(pairs, default_pairs):
+            by_name = {r["name"]: r for r in default_pairs}
+            for r in pairs:
+                r["default_fitness"] = by_name[r["name"]]["fitness"]
+                r["restart_won"] = bool(r["fitness"] < r["default_fitness"])
+            return pairs
+
+        cfg = KSSICPConfig(neighborhood_fracs=PRECISE_FRACS)
+        category = next((corpus, thr) for b, corpus, thr in challenge_corpus(include_hard=True) if b == "category")
+        out = {
+            "platform": platform,
+            "note": ESCALATION_NOTE,
+            "rmse_band": 0.006,
+            "config": f"KSSICPConfig(neighborhood_fracs={PRECISE_FRACS}), the CLI's --precise: DEFAULT_CONFIG "
+                      "(escalation and the overlap tier on) with the winner-neighborhood restarts",
+            "pairs": against_default(run(cfg, remesh), default["pairs"]),
+            "boards": {"category": {"threshold": category[1],
+                                    "pairs": against_default(run(cfg, category[0], category[1]),
+                                                             default["boards"]["category"]["pairs"])}},
+        }
+    elif not (args.escalation or args.overlap):
         no_esc = dict(auto_escalate=False)
         out = {
             "platform": platform,

@@ -662,3 +662,39 @@ def test_run_largescan_on_the_card_matches_cpu(cuda_device):
     for k in ("n_s", "n_t", "resample_count", "pnumber", "escalated"):
         assert gpu[k] == cpu[k], k
     assert abs(gpu["unit_rmse"] - cpu["unit_rmse"]) <= 0.006 and gpu["pose_rmse"] < 0.3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs, lanes", [(1, 12), (25, 12)])
+def test_nn1_kernel_matches_plain_at_the_polish_shapes(cuda_device, pairs, lanes):
+    """Precision mode's lanes (models/kss_icp.py::neighborhood_polish): 12 a
+    pair at 2048 x 2048, one pair (register_pair) or the remesh 25 as one
+    batch (register_many), each pair's target with its own valid prefix."""
+    rng = np.random.default_rng(pairs)
+    q = _t(np.stack([random_cloud(rng, 2048) for _ in range(pairs * lanes)]).astype(np.float32), cuda_device)
+    r = _t(np.stack([random_cloud(rng, 2048) for _ in range(pairs)]).astype(np.float32), cuda_device)
+    m = torch.arange(2048, device=cuda_device)[None] < _t(rng.integers(378, 1535, size=(pairs, 1)), cuda_device)
+    lane_ref = torch.arange(pairs, dtype=torch.int32, device=cuda_device).repeat_interleave(lanes)
+    _same_nn(nn1(q, r, m, lane_ref), nn1_plain(q, r, m, lane_ref))
+
+
+@pytest.mark.cuda
+def test_precise_register_on_the_card_matches_cpu(cuda_device):
+    """neighborhood_fracs on a tiny config, one pair and a batch of three:
+    the same poses on the card as on the CPU, and the polish's 12 lanes a
+    pair launched as one nn1 shape."""
+    cfg = KSSICPConfig(rotation_steps=4, max_candidates=4, max_resample_points=128, resample_pad=128,
+                       max_icp_iterations=40, screen_points=64, refine_candidates=2, auto_escalate=False,
+                       neighborhood_fracs=(0.25, 0.5))
+    meta = json.loads((FIXTURES / "remesh_transfer.json").read_text())
+    with np.load(FIXTURES / "remesh_transfer.npz") as z:
+        pairs = [(z[r["name"] + "_src"], z[r["name"] + "_tgt"]) for r in meta[:3]]
+    nn1.launch_shapes.clear()
+    for src, tgt in pairs:
+        cpu = kt.register_pair(src, tgt, cfg, device="cpu")
+        gpu = kt.register_pair(src, tgt, cfg, device=cuda_device)
+        assert abs(float(gpu.fitness) - float(cpu.fitness)) <= 1e-3 * float(cpu.fitness)
+        np.testing.assert_allclose(gpu.transform.rotation.cpu().numpy(), cpu.transform.rotation.numpy(), atol=1e-3)
+    assert nn1.launch_shapes[(12, 128, 128, 1)] > 0
+    res, metrics = kt.register_many(pairs, cfg, full_pad=8192, device=cuda_device)
+    assert nn1.launch_shapes[(36, 128, 128, 3)] > 0 and np.isfinite(metrics["rmse"]).all()

@@ -35,6 +35,8 @@ def test_imports_with_jax_blocked():
             "import kss_icp_torch.ops, kss_icp_torch.models, kss_icp_torch.core\n"
             "import kss_icp_torch.escalate, kss_icp_torch.challenge, kss_icp_torch.parallel.batch\n"
             "import kss_icp_torch.largescan, kss_icp_torch.ops.simplify\n"
+            "import kss_icp_torch.cli, kss_icp_torch.io, kss_icp_torch.transfer, kss_icp_torch.utils.log\n"
+            "import kss_icp_torch.ops.spatial\n"
             "assert kss_icp_torch.register_many and kss_icp_torch.parallel.register_many\n"
             "print(sorted(kss_icp_torch.__all__))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -99,7 +101,7 @@ UNPORTED = [
     (dict(overlap_mode=True), False),
     (dict(refine_polish_iterations=4, refine_max_iterations=8), False),
     (dict(resampler="aivs"), False),
-    (dict(neighborhood_fracs=(0.25,)), True),
+    (dict(neighborhood_fracs=(0.25,)), True),  # ported: the case now holds the port to JAX
     (dict(pose_tiebreak_margin=0.12), True),  # ported: the case now holds the port to JAX
     (dict(icp_variant="point_to_plane"), True),
     (dict(coarse_error_metric="trim"), True),
@@ -112,7 +114,7 @@ UNPORTED = [
 
 # Ported knobs: each case holds the port's register_pair to JAX's on the same inputs.
 PORTED = [dict(pose_tiebreak_margin=0.12), dict(auto_escalate=True), dict(auto_escalate=True, overlap_escalate=True),
-          dict(overlap_mode=True), dict(coarse_error_metric="trim"), dict(icp_trim_fraction=0.7),
+          dict(overlap_mode=True), dict(neighborhood_fracs=(0.25,)), dict(coarse_error_metric="trim"), dict(icp_trim_fraction=0.7),
           dict(icp_estimate_scale=True)]
 
 
