@@ -49,7 +49,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
      yardstick; field_trim (the per-point mode of the field kernel, the
      overlap tier's trimmed field) bit for bit, per-point distances and
      trimmed field, at 512 x 2048 x 2048 with ~70% scattered inlier masks on
-     both clouds, 4096 x 2048 x 2048 and a fully masked target;
+     both clouds, 4096 x 2048 x 2048 and a fully masked target; field_sq
+     (the squared per-point mode, the "max" and "diff" fields) bit for bit
+     at 512 x 2048 x 2048 (~70% masks), 4096 x 512 x 512 and a fully masked
+     target, its numbers under field_trim's row as `squared` with its
+     launches from 4i; plain PyTorch timings, gating nothing, of the AIVS
+     resample (a remesh pair's two clouds; the remesh batch's 50 clouds at
+     full_pad 8192, twice: the same picks both times, or the run fails) and
+     of the PCA normals (1 and 25 resampled targets);
   4. end to end on the 25 remesh pairs through register_pair ->
      apply_similarity -> registration_measure, every pair's RMSE within the
      JAX CPU value + 0.006:
@@ -132,6 +139,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
      fps launch a batch, one field_ave launch a pair and grid and one
      field_trim launch a pair, overlap solve and field rung; each pass
      prints its histogram of nn1 launch shapes (L, Q, R);
+       i. the knobs, each alone on DEFAULT_CONFIG
+          (fixtures/torch_port_expected_variants.json, JAX on the CPU):
+          register_pair on the remesh 25 at icp_variant="point_to_plane",
+          coarse_error_metric "max" and "diff" and resampler="aivs", every
+          pair within JAX + 0.006 and the escalated set JAX's (pairs/s
+          unsynced, stage seconds and lockstep iterations synced); then
+          register_many on the remesh 25 at "aivs" and "point_to_plane"
+          (within JAX's register_many + 0.006, escalated as JAX); the
+          category board at "point_to_plane" (the pass/fail set JAX's, se/7
+          excepted); how many of register_pair's AIVS picks on each remesh
+          cloud are JAX's, each cloud that differs printed with its cause;
+          and `python -m kss_icp_torch simplify <largest remesh source> -m
+          aivs -n 2000` as a subprocess: as many points as JAX's, each
+          shared pick's point JAX's (rtol 1e-6); launches: fps on none of
+          the aivs passes, field_sq on the "max" and "diff" passes only;
   5. a measurement that gates nothing: on each remesh pair's 8³ field, does
      field_dot at "default" (one bf16 pass) keep candidate 0 and the top-6
      set of "highest" and of field_ave?
@@ -446,7 +468,113 @@ def phase_kernels(torch, dev) -> dict:
         out[name] = dict(cases[0], cases=cases, yardstick=yard_label, source=f"kss_icp_torch/csrc/{src_file}",
                          replaces=f"kss_icp_tpu/ops/coarse_pallas.py:{line}")
     out["field_trim"] = phase_field_trim(torch, dev, rng)
+    out["field_trim"]["squared"] = phase_field_sq(torch, dev, rng)
+    phase_plain_knobs(torch, dev)
     return out
+
+
+def phase_field_sq(torch, dev, rng) -> dict:
+    """The field kernel's squared per-point mode (`field_sq`, the "max" and
+    "diff" fields) against its plain version, bit for bit, at the 8^3 grid's
+    padded clouds with ~70% scattered masks, the 16^3 grid's 512-point
+    prefixes and a fully masked target (the biased path)."""
+    from kss_icp_torch.core.transforms import euler_xyz_matrix
+    from kss_icp_torch.models.coarse import rotation_grid
+    from kss_icp_torch.ops.coarse_cuda import SQ_PLAIN, field_plan, field_sq, field_sq_distances, rotate_sources
+    from kss_icp_torch.ops.nn import nn_sqdistances
+    from kss_icp_torch.timing import graph_ms, time_ms
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    cases = []
+    for steps, n, t_kind, label in ((8, 2048, "inliers", "8^3 field, ~70% scattered masks"),
+                                    (16, 512, "padded", "16^3 field at 512-point prefixes"),
+                                    (8, 2048, "none", "8^3, target fully masked")):
+        src, tgt = t(cloud(rng, n)), t(cloud(rng, n))
+        rows = torch.arange(n, device=dev)
+        smask = (rows < n - n // 40) & t(rng.uniform(size=n) < 0.7)
+        tmask = {"inliers": (rows < n - n // 20) & t(rng.uniform(size=n) < 0.7), "padded": rows < n - n // 20,
+                 "none": torch.zeros(n, dtype=torch.bool, device=dev)}[t_kind]
+        rots = euler_xyz_matrix(rotation_grid(steps, 6.3, dev))
+        c_n = rots.shape[0]
+        rotated, weight = rotate_sources(rots, src), smask.to(torch.float32)
+        dk = field_sq_distances(rotated, weight, tgt, tmask, field_plan(n))
+        dp = nn_sqdistances(rotated, smask, tgt, tmask)
+        torch.cuda.synchronize()
+        require(torch.equal(dk, dp), f"field_sq {label}: squared distances differ from the plain version's bits at "
+                                     f"{int((dk != dp).sum())} of {dk.numel()}")
+        for metric, plain in SQ_PLAIN.items():
+            require(torch.equal(field_sq(src, smask, tgt, tmask, rots, metric), plain(src, smask, tgt, tmask, rots)),
+                    f"field_sq {label}: the {metric} field differs from the plain version's bits")
+        args = (src, smask, tgt, tmask, rots, "max")
+        ms = time_ms(lambda: field_sq(*args), 10)
+        device_ms = graph_ms(lambda: field_sq(*args), 10)  # rotation, kernel and the row reduction
+        kernel_ms = graph_ms(lambda: field_sq_distances(rotated, weight, tgt, tmask, field_plan(n)), 10)
+        plain_ms = time_ms(lambda: SQ_PLAIN["max"](*args[:5]), 2)
+        valid_tgt = tgt[tmask] if bool(tmask.any()) else tgt
+        yard_ms = time_ms(lambda: [torch.cdist(rotated[a:a + 64], valid_tgt[None]).amin(-1)
+                                   for a in range(0, c_n, 64)], 3)
+        evals = c_n * int(smask.sum()) * (int(tmask.sum()) or n)
+        b = bound(9.0 * evals, 4 * (n * 3 * 2 + c_n * 9 + c_n * n) + 2 * n)
+        cases.append(dict({"shape": f"{c_n}x{n}x{n}", "label": label, "ms": ms, "device_ms": device_ms,
+                           "kernel_device_ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": 0.0,
+                           "yardstick_ms": yard_ms}, **b))
+        log(f"  field_sq C={c_n} P=T={n} ({label}): squared distances and both fields identical; {ms:.4f} ms a "
+            f"wrapper call back to back, {device_ms:.4f} ms on the device (graph replay; the kernel alone "
+            f"{kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, cdist+min {yard_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return dict(cases[0], cases=cases, source="kss_icp_torch/csrc/field_trim.cu (kss_field_sq)",
+                replaces="kss_icp_tpu/ops/nn.py:183-194 (the XLA max and diff fields, not a TPU kernel)",
+                yardstick="torch.cdist(rotated, valid_target).amin(-1), 64 rotations a call")
+
+
+def phase_plain_knobs(torch, dev) -> None:
+    """Plain PyTorch timings that gate nothing: the AIVS resample at a remesh
+    pair's two clouds and at the remesh batch's 50 clouds (full_pad 8192),
+    PCA normals of one and of 25 resampled targets; and the AIVS determinism
+    check: two runs of the 50-cloud batch pick the same points."""
+    from kss_icp_torch.config import DEFAULT_CONFIG as cfg
+    from kss_icp_torch.ops.aivs import aivs_resample_packed
+    from kss_icp_torch.ops.normals import estimate_normals
+    from kss_icp_torch.ops.spatial import estimate_box_scale
+    from kss_icp_torch.timing import time_ms
+
+    pairs = load_pairs()
+    _, src, tgt = max(pairs, key=lambda r: cfg.resample_count(len(r[1]), len(r[2])))
+    pn = cfg.resample_count(len(src), len(tgt))
+    nb = estimate_box_scale(max(len(src), len(tgt)))
+    pad = -(-max(len(src), len(tgt)) // 256) * 256
+
+    def padded(clouds, rows):
+        pts = np.zeros((len(clouds), rows, 3), np.float32)
+        for i, c in enumerate(clouds):
+            pts[i, :len(c)] = c
+        mask = np.arange(rows)[None] < np.array([len(c) for c in clouds])[:, None]
+        return torch.as_tensor(pts, device=dev), torch.as_tensor(mask, device=dev)
+
+    pts, mask = padded([src, tgt], pad)
+    counts = torch.tensor([pn, pn], device=dev)
+    ms = time_ms(lambda: aivs_resample_packed(pts, mask, counts, cfg.resample_pad, nb), 3)
+    log(f"  plain aivs_resample_packed, a remesh pair's source and target (B=2 x {pad}, {pn} picks, {nb}^3 boxes): "
+        f"{ms:.3f} ms")
+    counts = [cfg.resample_count(len(a), len(b)) for _, a, b in pairs]
+    pts, mask = padded([a for _, a, _ in pairs] + [b for _, _, b in pairs], BATCH_PAD)
+    pn = torch.tensor(counts + counts, device=dev)
+    first = aivs_resample_packed(pts, mask, pn, cfg.resample_pad, 10)
+    second = aivs_resample_packed(pts, mask, pn, cfg.resample_pad, 10)
+    torch.cuda.synchronize()
+    require(torch.equal(first[0], second[0]) and torch.equal(first[1], second[1]),
+            "AIVS: two runs of the 50-cloud batch picked different points")
+    ms = time_ms(lambda: aivs_resample_packed(pts, mask, pn, cfg.resample_pad, 10), 2)
+    log(f"  plain aivs_resample_packed, the remesh batch (B=50 x {BATCH_PAD}, 10^3 boxes): {ms:.3f} ms; two runs "
+        f"picked the same points")
+    tpts = torch.as_tensor(np.stack([cloud(np.random.default_rng(i), cfg.resample_pad) for i in range(25)]),
+                           device=dev)
+    tmask = torch.arange(cfg.resample_pad, device=dev)[None] < torch.as_tensor(counts, device=dev)[:, None]
+    for b in (1, 25):
+        ms = time_ms(lambda: estimate_normals(tpts[:b], tmask[:b]), 5)
+        log(f"  plain estimate_normals, {b} x {cfg.resample_pad} (k = 20): {ms:.3f} ms")
 
 
 def phase_field_trim(torch, dev, rng) -> dict:
@@ -1482,6 +1610,199 @@ def phase_cli(torch, dev, e2e: dict, card: str) -> None:
     e2e["passes"]["cli"] = {"walls": walls, "busy": busy, "launches": cli_launches}
 
 
+def knob_launches(label, launches, knobs: dict) -> None:
+    """A knob pass's launches: nn1 always; fps unless AIVS resamples; field_sq
+    for the "max" and "diff" fields and field_ave for the others."""
+    require(launches["nn1"] > 0, f"{label}: nn1 never launched: {launches}")
+    aivs, sq = knobs.get("resampler") == "aivs", knobs.get("coarse_error_metric") in ("max", "diff")
+    require((launches["fps"] == 0) == aivs, f"{label}: fps launches {launches['fps']} with resampler "
+                                            f"{'aivs' if aivs else 'fps'}")
+    require((launches["field_sq"] > 0) == sq and (launches["field_ave"] > 0) != sq and launches["field_dot"] == 0,
+            f"{label}: the field kernels launched unlike the metric's path: {launches}")
+
+
+def aivs_picks(torch, dev, src, tgt):
+    """register_pair's AIVS resample of a remesh pair, as it runs it: each
+    cloud padded by PointCloud.from_points, the boxes from max(n_s, n_t).
+    Returns ({side: source indices of the packed valid rows}, {side: the
+    lockstep FPS's selection before the cut})."""
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.core.cloud import PointCloud
+    from kss_icp_torch.models import kss_icp as tk
+    from kss_icp_torch.ops.aivs import box_quotas, stratified_fps
+    from kss_icp_torch.ops.spatial import build_voxel_grid
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, resampler="aivs")
+    pn = cfg.resample_count(len(src), len(tgt))
+    cfg = tk._resolve_aivs_boxes(cfg, max(len(src), len(tgt)))
+    picks, before_cut = {}, {}
+    for side, pts in (("source", src), ("target", tgt)):
+        c = PointCloud.from_points(pts, device=dev)
+        rp, rm = tk.resample_batch(c.points[None], c.mask[None], torch.tensor([pn], device=dev), cfg)
+        rows = rp[0][rm[0]].cpu().numpy()
+        first = {}
+        for i, q in enumerate(np.asarray(pts, np.float32)):
+            first.setdefault(q.tobytes(), i)
+        picks[side] = [first[q.tobytes()] for q in rows]
+        grid = build_voxel_grid(c.points, c.mask, cfg.aivs_boxes_per_axis)
+        sel, _ = stratified_fps(c.points, c.mask, grid.box_id, box_quotas(grid.counts, pn), cfg.aivs_max_rounds)
+        before_cut[side] = set(np.nonzero(sel.cpu().numpy())[0].tolist())
+    return picks, before_cut
+
+
+def phase_knobs(torch, dev, kernels: dict, e2e: dict, card: str) -> None:
+    """4i: every register_pair knob beside the defaults, at DEFAULT_CONFIG
+    with one knob changed, against fixtures/torch_port_expected_variants.json
+    (JAX on the CPU, scripts/torch_port_expected.py --variants)."""
+    import kss_icp_torch as kt
+    from kss_icp_torch.challenge import BOARDS, transform_rmse
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.io.formats import load_points, save_xyz
+    from kss_icp_torch.ladder_log import RungLog, rung_outcome
+    from kss_icp_torch.models import kss_icp as tk
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_sq, field_trim
+    from kss_icp_torch.ops.nn_cuda import nn1
+    from kss_icp_torch.ops.resample_cuda import fps
+
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim,
+                "field_sq": field_sq}
+    exp = json.loads((FIXTURES / "torch_port_expected_variants.json").read_text())
+    pairs = load_pairs()
+    for label in ("point_to_plane", "max", "diff", "aivs"):
+        knobs = exp["variants"][label]["knobs"]
+        cfg = dataclasses.replace(DEFAULT_CONFIG, **knobs)
+        expected = {p["name"]: p for p in exp["variants"][label]["pairs"]}
+        judge = remesh_judge(torch, expected)
+        kt.register_pair(pairs[0][1], pairs[0][2], cfg, device=dev)  # warm-up
+        name = f"knob {label}"
+        with RungLog(tk, cfg.overlap_adopt_margin) as rung_log:
+            rows, total, launches = drive(torch, dev, cfg, pairs, counters, StageTimer(torch, False), name, judge,
+                                          rung_log)
+            report_remesh(name, rows, total, expected, escalation=True)
+            knob_launches(name, launches, knobs)
+            counts = escalation_counts(name, rows, exp["variants"][label]["pairs"])
+            ours = sorted(r["name"] for r in rows if r["escalated"])
+            jax = sorted(n for n, p in expected.items() if p["escalated"])
+            require(ours == jax, f"{name}: escalated {ours}, JAX {jax}")
+            for r in rows:
+                if r["rungs"] or expected[r["name"]]["rungs"]:
+                    log(f"  [{name}] {r['name']}: rungs {rung_outcome(r['rungs'])} "
+                        f"(jax {rung_outcome(expected[r['name']]['rungs'])})")
+            timer = StageTimer(torch, True)
+            _, staged, _ = drive(torch, dev, cfg, pairs, counters, timer, name + " staged", judge, rung_log)
+        log(f"  [{name}] {len(rows) / total:.3f} pairs/s (no stage syncs) ({card})")
+        log(f"  [{name}] stage seconds over all pairs (synced pass, {staged:.3f} s): " +
+            ", ".join(f"{k} {v:.4f}" for k, v in timer.seconds.items()))
+        log(f"  [{name}] lockstep ICP iterations by stage, summed over the pairs: " +
+            ", ".join(f"{k} {v}" for k, v in timer.iterations.items() if v))
+        e2e["passes"][name] = {"pairs_per_s": len(rows) / total, "seconds": total, "launches": launches,
+                               "escalation": counts, "stage_seconds": dict(timer.seconds), "staged_seconds": staged,
+                               "stage_iterations": dict(timer.iterations)}
+
+    for label in ("aivs", "point_to_plane"):
+        knobs = exp["many"][label]["knobs"]
+        cfg = dataclasses.replace(DEFAULT_CONFIG, **knobs)
+        expected = {p["name"]: p for p in exp["many"][label]["pairs"]}
+        name = f"many {label}"
+        drive_many(torch, dev, cfg, pairs[:3], counters, None, name + " warm-up")
+        res, metrics, ladder, seconds, launches = drive_many(torch, dev, cfg, pairs, counters, StageTimer(torch, False),
+                                                             name)
+        knob_launches(name, launches, knobs)
+        failures = []
+        for b, (pair, _, _) in enumerate(pairs):
+            j, rmse = expected[pair], float(metrics["rmse"][b])
+            ok = np.isfinite(rmse) and rmse <= j["rmse"] + RMSE_BAND and bool(ladder.escalated[b]) == j["escalated"]
+            log(f"  [{name}] {pair}: rmse {rmse:.6f} (jax {j['rmse']:.6f}) cand {int(res.chosen_candidate[b])} "
+                f"(jax {j['chosen_candidate']}) esc {int(ladder.escalated[b])}/{int(j['escalated'])} rungs "
+                f"{rung_outcome(ladder.rungs[b])} (jax {rung_outcome(j['rungs'])}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(pair)
+        require(not failures, f"{name}: pairs outside JAX RMSE + {RMSE_BAND} or escalated unlike JAX: {failures}")
+        timer = StageTimer(torch, True)
+        _, _, _, staged, _ = drive_many(torch, dev, cfg, pairs, counters, timer, name + " staged")
+        log(f"  [{name}] {len(pairs)} pairs in one batch: {len(pairs) / seconds:.3f} pairs/s (no stage syncs) ({card})")
+        log(f"  [{name}] stage seconds (synced pass, {staged:.3f} s): " +
+            ", ".join(f"{k} {v:.4f}" for k, v in timer.seconds.items()))
+        log(f"  [{name}] lockstep ICP iterations by stage: " +
+            ", ".join(f"{k} {v}" for k, v in timer.iterations.items() if v))
+        e2e["passes"][name] = {"pairs_per_s": len(pairs) / seconds, "seconds": seconds, "launches": launches,
+                               "stage_seconds": dict(timer.seconds), "staged_seconds": staged,
+                               "stage_iterations": dict(timer.iterations)}
+
+    label = "knob point_to_plane category"
+    board = exp["boards"]["category"]
+    cfg = dataclasses.replace(DEFAULT_CONFIG, **board["knobs"])
+    corpus = next(corpus for b, corpus, _ in BOARDS if b == "category")()
+    gt = {n: g for n, _, _, g in corpus}
+    jax_pass = {p["name"]: p["passed"] for p in board["pairs"]}
+
+    def board_judge(name, src, m, aligned):
+        pose = transform_rmse(aligned.cpu().numpy(), src, gt[name])
+        return {"pose": pose, "passed": bool(pose <= board["threshold"]), "rmse": m["rmse"]}
+
+    timer = StageTimer(torch, True)
+    rows, total, launches = drive(torch, dev, cfg, [(n, a, b) for n, a, b, _ in corpus], counters, timer, label,
+                                  board_judge)
+    knob_launches(label, launches, board["knobs"])
+    mismatched = []
+    for r in rows:
+        agree = r["passed"] == jax_pass[r["name"]]
+        log(f"  [{label}] {r['name']}: pose {r['pose']:.4f} {'pass' if r['passed'] else 'FAIL'} "
+            f"(jax {'pass' if jax_pass[r['name']] else 'FAIL'}) esc {int(r['escalated'])} {r['s'] * 1e3:.1f} ms"
+            f"{'' if agree else ' DIFFERS'}")
+        if not agree and r["name"] != KNIFE_EDGE:
+            mismatched.append(r["name"])
+    require(not mismatched, f"{label}: pass/fail differs from JAX on the CPU: {mismatched}")
+    log(f"  [{label}] {sum(r['passed'] for r in rows)}/{len(rows)} pass (jax {sum(jax_pass.values())}/{len(rows)}); "
+        f"{len(rows) / total:.3f} pairs/s (synced) ({card}); stage seconds: " +
+        ", ".join(f"{k} {v:.4f}" for k, v in timer.seconds.items()))
+    e2e["passes"][label] = {"pairs_per_s": len(rows) / total, "seconds": total, "launches": launches,
+                            "passed": sum(r["passed"] for r in rows), "stage_seconds": dict(timer.seconds)}
+
+    # How many of register_pair's AIVS picks are JAX's, cloud by cloud.
+    same = total_picks = 0
+    for rec, (name, src, tgt) in zip(exp["aivs_picks"], pairs):
+        require(rec["name"] == name, "the variants record's remesh pairs differ")
+        picks, before_cut = aivs_picks(torch, dev, src, tgt)
+        for side in ("source", "target"):
+            ours, theirs = picks[side], rec[side]
+            n_same = len(set(ours) & set(theirs))
+            same, total_picks = same + n_same, total_picks + len(theirs)
+            if ours != theirs:
+                inside = set(ours) | set(theirs) <= before_cut[side]
+                why = ("both inside the port's lockstep FPS selection: the accurate cut dropped other members of "
+                       "near-tied pairs (its 3-NN distances exact here, the expansion form in JAX)" if inside else
+                       "the lockstep FPS selections differ")
+                log(f"  [aivs picks] {name} {side}: {n_same}/{len(theirs)} picks JAX's"
+                    f"{', in another order' if sorted(ours) == sorted(theirs) else ''}; {why}")
+    log(f"  [aivs picks] {same}/{total_picks} of register_pair's AIVS picks on the 50 remesh clouds are JAX's")
+    e2e["passes"]["aivs picks"] = {"same": same, "total": total_picks}
+
+    # The CLI's simplify -m aivs, as a subprocess on the card.
+    import tempfile
+
+    rec = exp["cli_aivs"]
+    src = next(a for n, a, _ in pairs if n == rec["name"])
+    with tempfile.TemporaryDirectory(prefix="kss_aivs_") as tmp:
+        path, out = Path(tmp) / rec["file"], Path(tmp) / "out.xyz"
+        save_xyz(path, src)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "kss_icp_torch", "simplify", str(path), str(out), "-m", "aivs",
+                            "-n", str(rec["count"])], capture_output=True, text=True, timeout=600, cwd=REPO)
+        wall = time.perf_counter() - t0
+        require(r.returncode == 0, f"cli simplify -m aivs: exit {r.returncode}\n{r.stderr[-3000:]}")
+        pts, got = load_points(path).astype(np.float32), load_points(out).astype(np.float32)
+    require(len(got) == rec["n_selected"], f"cli simplify -m aivs: {len(got)} points, JAX {rec['n_selected']}")
+    index = {q.tobytes(): i for i, q in reversed(list(enumerate(pts)))}
+    ours = [index.get(q.tobytes(), -1) for q in got]
+    shared = sorted(set(ours) & set(rec["selected"]))
+    np.testing.assert_allclose(got[[ours.index(i) for i in shared]], pts[shared], rtol=1e-6)
+    log(f"  [cli] simplify -m aivs -n {rec['count']} on {rec['file']}: {len(got)} points (jax {rec['n_selected']}), "
+        f"{len(shared)} of them JAX's picks; {wall:.2f} s wall ({nvidia_smi()})")
+    kernels["field_trim"]["squared"]["launches"] = sum(e2e["passes"][f"knob {m}"]["launches"]["field_sq"]
+                                                       for m in ("max", "diff"))
+
+
 def phase_bf16_ranking(torch, dev) -> None:
     """Does the bf16 dot field keep the 8³ ranking? Gates nothing."""
     from kss_icp_torch.config import DEFAULT_CONFIG as cfg
@@ -1586,13 +1907,21 @@ def main() -> int:
     for n, count in p["cli"]["launches"].items():
         kernels[n]["cli_launches"] = count
 
+    log("== 4i. the knobs: point_to_plane, max, diff and aivs at DEFAULT_CONFIG")
+    phase_knobs(torch, dev, kernels, e2e, card)
+    log("knobs: remesh 25 pairs/s " + ", ".join(f"{k} {p['knob ' + k]['pairs_per_s']:.3f}"
+                                                for k in ("point_to_plane", "max", "diff", "aivs")) +
+        f"; register_many aivs {p['many aivs']['pairs_per_s']:.3f}, point_to_plane "
+        f"{p['many point_to_plane']['pairs_per_s']:.3f}; category at point_to_plane "
+        f"{p['knob point_to_plane category']['passed']}/32 pass ({card})")
+
     log("== 5. bf16 dot field against the float32 fields (gates nothing)")
     phase_bf16_ranking(torch, dev)
     log(f"smoke run {time.perf_counter() - t_start:.1f} s ({card})")
 
     keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "cli_launches", "max_abs_err", "ms", "device_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick", "yardstick_ms", "shape", "precision", "cases",
-            "launch_shapes")
+            "launch_shapes", "squared")
     line = {"kernels": [{k: v for k, v in dict(kernels[n], name=n, route="cuda", library_ms=None).items() if k in keys}
                         for n in ("nn1", "fps", "field_ave", "field_dot", "field_trim")]}
     print(json.dumps(line), flush=True)

@@ -41,6 +41,7 @@ SIGNATURES = {
     "kss_field_ave": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "kss_field_dot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "kss_field_trim": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "kss_field_sq": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
 }
 
 

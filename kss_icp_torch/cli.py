@@ -15,8 +15,8 @@ Every subcommand runs on the card (`--device cuda`, the default) unless
 card exits with status 1 and never falls back to the CPU. The JAX CLI's
 `--platform` is `--device` here. Subcommands and methods whose modules are
 not ported yet (make-pairs, measure-resample, view, simplify -m
-aivs|wlop|hierarchy) are parsed, then exit with status 2 naming their
-ROADMAP.md item.
+wlop|hierarchy) are parsed, then exit with status 2 naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -376,9 +376,9 @@ def _resample(args) -> int:
 
 
 def _simplify(args) -> int:
-    """Cloud simplification front-end — the Method_CGAL / Method_Octree tool
-    surface (fps, grid, octree; aivs, wlop and hierarchy are not ported)."""
-    if args.method in ("aivs", "wlop", "hierarchy"):
+    """Cloud simplification front-end — the Method_CGAL / Method_Octree / AIVS
+    tool surface (fps, aivs, grid, octree; wlop and hierarchy are not ported)."""
+    if args.method in ("wlop", "hierarchy"):
         _unported(f"simplify -m {args.method}", args.method)
     device = _device(args)
     import torch
@@ -392,6 +392,10 @@ def _simplify(args) -> int:
 
     if args.method == "fps":
         out, mask = _fps_points(cloud, args.count)
+    elif args.method == "aivs":
+        from kss_icp_torch.ops.aivs import aivs_resample
+
+        out, mask = aivs_resample(pj, mj, args.count)
     elif args.method == "grid":
         from kss_icp_torch.ops.simplify import grid_simplify
         from kss_icp_torch.ops.spatial import estimate_radius

@@ -1,6 +1,6 @@
 // The one kernel behind the rotation fields: field_ave (field.cu, K1),
-// field_dot (field_dot.cu, K1-dot) and, in its per-point mode, field_trim
-// (field_trim.cu). Each .cu file includes this header, instantiates it for
+// field_dot (field_dot.cu, K1-dot) and, in its per-point mode, field_trim and
+// field_sq (field_trim.cu). Each .cu file includes this header, instantiates it for
 // its field and carries the design note.
 //
 // For each rotation c: the sum over valid source points p of
@@ -20,7 +20,9 @@
 //
 // The per-point mode (kPerPoint) writes each (rotation, point)'s
 // sqrt(max(min, 0)) to a (C, P) buffer instead, 0 at a masked source point,
-// and skips the shuffle tree and the second pass.
+// and skips the shuffle tree and the second pass; with kSquared it writes the
+// min itself, the squared distance (biased by 1e30 for a target with no valid
+// row, as the plain version's).
 
 #pragma once
 
@@ -125,8 +127,8 @@ __device__ __forceinline__ int stage_rows(const float* __restrict__ target, cons
 // target fits one tile, the block stages it once for every group. Every
 // block does the same work, whatever the masks, since the masks are the same
 // for every rotation. At most 64 registers: 32 warps an SM at any block size.
-// kPerPoint: partial is the (C, P) per-point output.
-template <int kMode, bool kPerPoint = false>
+// kPerPoint: partial is the (C, P) per-point output; kSquared: the min, not its root.
+template <int kMode, bool kPerPoint = false, bool kSquared = false>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 field_partial_kernel(const float* __restrict__ rotated, const float* __restrict__ q2,
                      const float* __restrict__ weight, const float* __restrict__ target,
@@ -199,7 +201,8 @@ field_partial_kernel(const float* __restrict__ rotated, const float* __restrict_
     if constexpr (kPerPoint) {  // consecutive threads, consecutive points: coalesced rows
 #pragma unroll
       for (int u = 0; u < kQ; ++u)
-        if (p < P && c0 + u < C) partial[static_cast<size_t>(c0 + u) * P + p] = valid ? sqrtf(fmaxf(best[u], 0.f)) : 0.f;
+        if (p < P && c0 + u < C)
+          partial[static_cast<size_t>(c0 + u) * P + p] = !valid ? 0.f : kSquared ? best[u] : sqrtf(fmaxf(best[u], 0.f));
       continue;
     }
 #pragma unroll
@@ -251,15 +254,15 @@ int launch_field(const float* rotated, const float* q2, const float* weight, con
 }
 
 // The per-point mode: dist (C, P) float32 instead of partial and out, the
-// same plan; one kernel, no second pass.
-template <int kMode>
+// same plan; one kernel, no second pass. kSquared writes the squared distances.
+template <int kMode, bool kSquared = false>
 int launch_field_points(const float* rotated, const float* weight, const float* target, const unsigned char* tmask,
                         int C, int P, int T, int slots, float* dist, cudaStream_t stream) {
   if (C <= 0) return 0;
   if (C > 65535 || P <= 0 || T <= 0 || (slots != 1 && slots != 2 && slots != kMaxSlots))
     return static_cast<int>(cudaErrorInvalidValue);
-  field_partial_kernel<kMode, true><<<(C + kQ - 1) / kQ, slots * kGroup, 0, stream>>>(rotated, nullptr, weight, target,
-                                                                                      tmask, C, P, T, dist);
+  field_partial_kernel<kMode, true, kSquared><<<(C + kQ - 1) / kQ, slots * kGroup, 0, stream>>>(
+      rotated, nullptr, weight, target, tmask, C, P, T, dist);
   return static_cast<int>(cudaGetLastError());
 }
 

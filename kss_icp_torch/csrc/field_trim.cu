@@ -1,4 +1,5 @@
-// field_trim: the per-point distances of the overlap tier's trimmed rotation field.
+// field_trim: the per-point distances of the overlap tier's trimmed rotation field;
+// field_sq: the squared per-point distances of the "max" and "diff" fields.
 //
 // Not a TPU kernel: JAX scores error_metric="trim" with XLA
 // (kss_icp_tpu/models/coarse.py:115-131 through ops/nn.py:195-198), since its
@@ -34,4 +35,16 @@ extern "C" int kss_field_trim(const float* rotated, const float* weight, const f
                               const unsigned char* tmask, int C, int P, int T, int slots, float* dist,
                               cudaStream_t stream) {
   return launch_field_points<kAve>(rotated, weight, target, tmask, C, P, T, slots, dist, stream);
+}
+
+// field_sq: the same scan, each (rotation, point)'s min ((dx*dx + dy*dy) + dz*dz) [+ 1e30 on the
+// biased path] written as it is, 0 at a masked source point. JAX scores error_metric "max" and
+// "diff" with XLA too (kss_icp_tpu/ops/nn.py:183-194): the largest squared distance (the
+// reference never takes the root there), and the largest distance less the mean. Plain version:
+// kss_icp_torch/ops/nn.py::nn_sqdistances; the wrapper (ops/coarse_cuda.py::field_sq) reduces each
+// row to its metric in PyTorch. Bound and design as field_trim's: the same kernel and plan.
+extern "C" int kss_field_sq(const float* rotated, const float* weight, const float* target,
+                            const unsigned char* tmask, int C, int P, int T, int slots, float* dist,
+                            cudaStream_t stream) {
+  return launch_field_points<kAve, true>(rotated, weight, target, tmask, C, P, T, slots, dist, stream);
 }

@@ -4,7 +4,8 @@ Port of kss_icp_tpu/models/coarse.py (initRegistration_Rotation and
 initRegistration_kernel, initRegistrationKSS.hpp:222-296,:481-522). The
 "ave" field is scored by the `field_ave` kernel (method "vpu") or the
 `field_dot` kernel (method "dot"); the overlap tier's "trim" field by the
-`field_trim` kernel, in exact float32 differences whatever the method. Local
+`field_trim` kernel and the "max" and "diff" fields by `field_sq`, in exact
+float32 differences whatever the method. Local
 minima come from a 3-D min-pool whose -inf padding equals the reference's
 clamped-edge cube.
 """
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from kss_icp_torch.core.transforms import euler_xyz_matrix
-from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
+from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_sq, field_trim
 
 BIG = 1e30
 
@@ -61,19 +62,19 @@ def score_rotation_field(
     (`field_ave`, which ignores precision, as the TPU kernel does), "dot"
     through the augmented dot product at `precision` (`field_dot`). "trim"
     is the mean of the best trim_fraction quantile of the 1-NN distances
-    (`field_trim`), always in exact float32 differences: the port's rule
-    where JAX takes its XLA path (kss_icp_tpu/models/coarse.py:115-131).
-    "max" and "diff" are not ported (ROADMAP.md queue 1 item 13)."""
-    if error_metric in ("max", "diff"):
-        raise NotImplementedError(
-            f"coarse_error_metric={error_metric!r} is not ported yet (ROADMAP.md queue 1 item 13)")
-    if error_metric not in ("ave", "trim"):
+    (`field_trim`), "max" the largest squared 1-NN distance and "diff" the
+    largest distance less the mean (`field_sq`), always in exact float32
+    differences: the port's rule where JAX takes its XLA path
+    (kss_icp_tpu/models/coarse.py:113-131), whatever the method."""
+    if error_metric not in ("ave", "trim", "max", "diff"):
         raise ValueError(f"unknown error metric {error_metric!r}")
     if method not in ("vpu", "dot"):
         raise ValueError(f"coarse method must be 'vpu' or 'dot', got {method!r}")
     rots = euler_xyz_matrix(rotation_grid(steps, span, source.device))
     if error_metric == "trim":
         scores = field_trim(source, source_mask, target, target_mask, rots, trim_fraction)
+    elif error_metric in ("max", "diff"):
+        scores = field_sq(source, source_mask, target, target_mask, rots, error_metric)
     elif method == "dot":
         scores = field_dot(source, source_mask, target, target_mask, rots, precision)
     else:

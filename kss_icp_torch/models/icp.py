@@ -1,4 +1,4 @@
-"""Batched point-to-point ICP with Kabsch/SVD updates.
+"""Batched ICP: point-to-point with Kabsch/SVD updates, or point-to-plane.
 
 Port of kss_icp_tpu/models/icp.py (pcl::IterativeClosestPoint as configured
 by KSS_ICP.hpp:155-162). JAX runs one `lax.while_loop` per lane under
@@ -14,8 +14,9 @@ a batch of pairs run in one loop (models/kss_icp.py::register_batch): JAX
 vmaps the single-pair solve over pairs, which is the same lockstep. `trim_fraction` and `estimate_scale` give the overlap tier's trimmed
 similarity ICP (icp.py:226-232): a per-lane quantile gate on the
 correspondences, the Umeyama scale, and the trimmed mean as fitness.
-Point-to-plane and the sharded point axis are not ported yet (ROADMAP.md
-queue 1 item 13).
+`variant="point_to_plane"` takes the linearized point-to-plane step
+(icp.py:136-170) against the target's normals, ahead of `estimate_scale`, as
+in JAX. The sharded point axis is not ported (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -86,6 +87,42 @@ def kabsch(source: torch.Tensor, target: torch.Tensor, weights: torch.Tensor, es
     return r, ct - scale[..., None] * matvec3(r, cs), scale
 
 
+def _rodrigues(omega: torch.Tensor) -> torch.Tensor:
+    """exp([w]x) of small rotation vectors (L, 3) -> (L, 3, 3)
+    (kss_icp_tpu/models/icp.py:117-133); the identity below 1e-12 rad."""
+    theta = torch.linalg.norm(omega, dim=-1)
+    k = omega / theta.clamp_min(1e-12)[:, None]
+    zero = torch.zeros_like(theta)
+    kx = torch.stack([torch.stack([zero, -k[:, 2], k[:, 1]], -1), torch.stack([k[:, 2], zero, -k[:, 0]], -1),
+                      torch.stack([-k[:, 1], k[:, 0], zero], -1)], dim=-2)
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(kx.shape)
+    r = eye + torch.sin(theta)[:, None, None] * kx + (1.0 - torch.cos(theta))[:, None, None] * matmul3(kx, kx)
+    return torch.where((theta < 1e-12)[:, None, None], eye, r)
+
+
+def point_to_plane_step(source: torch.Tensor, target: torch.Tensor, target_normals: torch.Tensor,
+                        weights: torch.Tensor):
+    """The linearized point-to-plane update of each lane (Chen & Medioni;
+    kss_icp_tpu/models/icp.py:136-170): minimize sum w (n · (R p + t − q))²
+    with R ≈ I + [w]x through the 6 x 6 normal equations, damped by 1e-6 I,
+    then R = exp([w]x). Not in the reference (PCL is point-to-point): the
+    opt-in icp_variant="point_to_plane". source, target, target_normals
+    (L, N, 3), weights (L, N). Returns (R (L, 3, 3), t (L, 3)). Negating a
+    normal negates its row of A and its residual, so AᵀA and Aᵀb keep their
+    bits: unoriented normals do."""
+    n = target_normals
+    r = (n * (source - target)).sum(dim=-1)  # (L, N) signed residuals
+    a = torch.cat([torch.linalg.cross(source, n, dim=-1), n], dim=-1)  # (L, N, 6)
+    aw = a * weights[..., None]
+    ata = aw.transpose(-1, -2) @ a
+    atb = (aw.transpose(-1, -2) @ -r[..., None])[..., 0]
+    eye = torch.eye(6, dtype=source.dtype, device=source.device)
+    # solve_ex: no error check, so no host sync a step; an exactly singular
+    # system gives non-finite values, as jnp.linalg.solve does, and no raise.
+    x = torch.linalg.solve_ex(ata + 1e-6 * eye, atb)[0]
+    return _rodrigues(x[:, :3]), x[:, 3:]
+
+
 def _where(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
     return torch.where(active.reshape(active.shape + (1,) * (new.dim() - 1)), new, old)
 
@@ -102,6 +139,8 @@ def icp(
     trim_fraction: float = 0.0,
     estimate_scale: bool = False,
     lane_ref: Optional[torch.Tensor] = None,
+    variant: str = "point_to_point",
+    target_normals: Optional[torch.Tensor] = None,
 ) -> ICPResult:
     """Run ICP on L lanes from identity (or a warm start).
 
@@ -117,12 +156,23 @@ def icp(
     the lane's trim_fraction-quantile of valid NN distances, and reports the
     trimmed mean squared distance as fitness; estimate_scale solves the
     Umeyama similarity, and a step converges on its transform only once the
-    scale delta is small too, (ds - 1)² < transformation_epsilon."""
+    scale delta is small too, (ds - 1)² < transformation_epsilon.
+
+    variant "point_to_plane" steps by `point_to_plane_step` against
+    target_normals, shaped as target, each lane's correspondences' normals
+    gathered from its own cloud. It comes before estimate_scale, as JAX's
+    `if variant ... elif estimate_scale` does: such a lane solves no scale."""
+    if variant not in ("point_to_point", "point_to_plane"):
+        raise ValueError(f"unknown ICP variant {variant!r}")
+    plane = variant == "point_to_plane"
+    if plane and target_normals is None:
+        raise ValueError("variant='point_to_plane' needs target_normals")
     lanes = source.shape[0]
     dtype, device = source.dtype, source.device
     smask = source_mask.expand(source.shape[:2])
     if target.dim() == 2:
         target, target_mask = target[None], target_mask[None]
+        target_normals = None if target_normals is None else target_normals[None]
     tgt, tmask = target.contiguous(), target_mask.contiguous()
     # Each lane's correspondences are gathered from its own cloud.
     ref_row = lane_refs(lane_ref, lanes, tgt.shape[0], device).long()[:, None]
@@ -153,7 +203,10 @@ def icp(
             keep = keep & (d2 <= masked_quantile_threshold(d2, smask, trim_fraction)[:, None])
         w = keep.to(dtype)
         corr = tgt[ref_row, idx.long()]
-        if estimate_scale:
+        if plane:
+            dr, dt = point_to_plane_step(cur, corr, target_normals[ref_row, idx.long()], w)
+            ds = torch.ones_like(scale)
+        elif estimate_scale:
             dr, dt, ds = kabsch(cur, corr, w, estimate_scale=True)
         else:
             (dr, dt), ds = kabsch(cur, corr, w), torch.ones_like(scale)

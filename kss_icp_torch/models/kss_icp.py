@@ -3,13 +3,17 @@
 KSSICP_Registration (KSS_ICP.hpp:69-131) as batched tensor stages:
 
   1. FPS-resample both clouds to pNumber = min(|S|,|T|)//2 (≤ 2000), padded
-     to 2048 (`fps` kernel, which stops after pNumber picks);
+     to 2048 (`fps` kernel, which stops after pNumber picks), or with
+     resampler="aivs" the reference's own sampler (ops/aivs.py);
   2. Kendall pre-shape alignment (core/preshape.py);
   3. the Euler-grid coarse field (`field_ave` or `field_dot` kernel, by
-     `coarse_method`) and its local-minima candidate list (models/coarse.py);
+     `coarse_method`; `field_sq` for the "max" and "diff" metrics) and its
+     local-minima candidate list (models/coarse.py);
   4. multi-start ICP over all candidates at once (models/icp.py, `nn1`
-     kernel), with the fitness gate of KSS_ICP.hpp:99 and, where
-     `pose_tiebreak_margin` is set, the symmetric-pose tie-break;
+     kernel), point-to-point or, with icp_variant="point_to_plane", against
+     the target's PCA normals (ops/normals.py), with the fitness gate of
+     KSS_ICP.hpp:99 and, where `pose_tiebreak_margin` is set, the
+     symmetric-pose tie-break;
   5. the winning transform composed as one Sim3.
 
 Steps 2-5 take a leading pair axis B (`register_batch`, JAX's vmap of
@@ -35,15 +39,17 @@ overlap solve alone.
 
 Implemented: both `multistart_mode`s, the two-tier refine with its
 prefix-target gate probe, the pose tie-break, the precision mode's
-winner-neighborhood restarts (`neighborhood_polish`), escalation and the
-overlap tier. Every knob of the JAX pipeline that is not ported raises
-NotImplementedError naming its ROADMAP.md item, so the port never returns
+winner-neighborhood restarts (`neighborhood_polish`), escalation, the
+overlap tier and every resampler, field metric and ICP variant. The one knob
+of the JAX pipeline that is not ported, the two-stage converge, raises
+NotImplementedError naming its ROADMAP.md entry, so the port never returns
 an answer that differs from JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 from typing import Callable, NamedTuple, Optional, Union
 
@@ -58,9 +64,12 @@ from kss_icp_torch.core.transforms import (Similarity, apply_similarity, compose
 from kss_icp_torch.models.coarse import CoarseResult, coarse_align, rotation_grid
 from kss_icp_torch.escalate import tree_map
 from kss_icp_torch.models.icp import ICPParams, ICPResult, icp
+from kss_icp_torch.ops.aivs import aivs_resample_packed
 from kss_icp_torch.ops.nn import masked_mean, masked_quantile_threshold, trimmed_masked_mean
 from kss_icp_torch.ops.nn_cuda import MAX_LANES, nn1
+from kss_icp_torch.ops.normals import estimate_normals
 from kss_icp_torch.ops.resample_cuda import fps
+from kss_icp_torch.ops.spatial import estimate_box_scale
 
 BIG = 1e30
 
@@ -69,11 +78,6 @@ BIG = 1e30
 _UNPORTED = (
     (lambda c: c.refine_polish_iterations != 0, "refine_polish_iterations != 0",
      "ROADMAP.md 'Not ported' (two-stage converge)", True),
-    (lambda c: c.resampler != "fps", "resampler != 'fps'", "ROADMAP.md queue 1 item 13 (aivs)", True),
-    (lambda c: c.icp_variant != "point_to_point", "icp_variant != 'point_to_point'",
-     "ROADMAP.md queue 1 item 13 (normals)", False),
-    (lambda c: c.coarse_error_metric in ("max", "diff"), "coarse_error_metric 'max' or 'diff'",
-     "ROADMAP.md queue 1 item 13", False),
 )
 
 
@@ -247,9 +251,11 @@ def register_batch(
     the batch pays its slowest lane's iterations, as JAX's vmapped
     while_loop does. The gate and the lane picks are per-pair selects on the
     device. With cfg.neighborhood_fracs, each pair's result is polished by
-    `neighborhood_polish` on every return path, as JAX's is. `timer`, when
-    given, is entered around each stage ("coarse", "screen", "refine",
-    "polish") — a hook for measurement."""
+    `neighborhood_polish` on every return path, as JAX's is. With
+    icp_variant="point_to_plane", each pair's target normals are estimated
+    once (ops/normals.py, JAX :120-124) and every stage's lanes step against
+    their prefix of them. `timer`, when given, is entered around each stage
+    ("coarse", "screen", "refine", "polish") — a hook for measurement."""
     check_supported(cfg)
     b, p = source_mask.shape
     dtype, device = source_points.dtype, source_points.device
@@ -272,14 +278,21 @@ def register_batch(
         r_cand = euler_xyz_matrix(coarse.candidate_angles)  # (B, K, 3, 3)
         rotated = rotate_points(r_cand, src_aligned[:, None])  # (B, K, P, 3)
 
-    def solve(lanes, tgt, tmask, prm, init=(None, None, None)):
-        """ICP on (B, n, N, 3) lanes, pair b's against pair b's target; the
-        results and `init` shaped (B, n, ...)."""
+    # Point-to-plane: the target normals, estimated once per pair (JAX :120-124).
+    normals = estimate_normals(tp, tm) if cfg.icp_variant == "point_to_plane" else None
+
+    def solve(lanes, prm, init=(None, None, None), rows=0):
+        """ICP on (B, n, N, 3) lanes, pair b's against the first `rows` rows
+        of pair b's target (all at 0) and their normals; the results and
+        `init` shaped (B, n, ...)."""
         n, n_pts = lanes.shape[1:3]
+        tgt, tmask = _prefix(tp, tm, rows)
+        nrm = None if normals is None else normals[:, :tgt.shape[1]].contiguous()
         flat = [None if x is None else x.reshape((b * n,) + x.shape[2:]) for x in init]
         res = icp(lanes.reshape(b * n, n_pts, 3).contiguous(), sm[:, None, :n_pts].expand(b, n, n_pts).reshape(-1, n_pts),
-                  tgt, tmask, prm, *flat, trim_fraction=cfg.icp_trim_fraction,
-                  estimate_scale=cfg.icp_estimate_scale, lane_ref=_pair_lanes(b, n, device))
+                  tgt.contiguous(), tmask.contiguous(), prm, *flat, trim_fraction=cfg.icp_trim_fraction,
+                  estimate_scale=cfg.icp_estimate_scale, lane_ref=_pair_lanes(b, n, device),
+                  variant=cfg.icp_variant, target_normals=nrm)
         return ICPResult(*(x.reshape((b, n) + x.shape[1:]) for x in res))
 
     def pick(fit, judge, res, lanes):
@@ -330,7 +343,7 @@ def register_batch(
         with _stage(timer, "refine"):
             k = rotated.shape[1]
             sel = torch.arange(k, device=device).expand(b, k)
-            res = solve(rotated, tp, tm, refine_params)
+            res = solve(rotated, refine_params)
             fit = torch.where(coarse.candidate_mask, res.fitness, big)
             local = pick(fit, fit[:, 0], res, rotated)
             out = result(res, local, sel, fit[:, 0], _at(res.iterations, local), refine_cap)
@@ -340,9 +353,8 @@ def register_batch(
     # first screen_points rows (an FPS prefix is a uniform subsample).
     with _stage(timer, "screen"):
         sp_n = min(cfg.screen_points, p)
-        screen_tgt, screen_tmask = _prefix(tp, tm, cfg.screen_target_points)
-        res1 = solve(rotated[:, :, :sp_n], screen_tgt.contiguous(), screen_tmask.contiguous(),
-                     params._replace(max_iterations=cfg.screen_iterations))
+        res1 = solve(rotated[:, :, :sp_n], params._replace(max_iterations=cfg.screen_iterations),
+                     rows=cfg.screen_target_points)
         fit1 = torch.where(coarse.candidate_mask, res1.fitness, big)
         # Candidate 0 (the best grid angle) always survives: the gate is defined on it.
         n_refine = min(cfg.refine_candidates, fit1.shape[1])
@@ -354,7 +366,7 @@ def register_batch(
 
     with _stage(timer, "refine"):
         if not cfg.refine_tier_iterations:
-            res = solve(lanes, tp, tm, refine_params, init)
+            res = solve(lanes, refine_params, init)
             fit = torch.where(sel_mask, res.fitness, big)
             local = pick(fit, fit[:, 0], res, lanes)
             out = result(res, local, sel, fit[:, 0], _at(res.iterations, local), refine_cap)
@@ -362,19 +374,18 @@ def register_batch(
         else:
             # Two-tier refine: a capped solve on every selected lane ranks them,
             # then only each pair's winner converges fully.
-            cap_tgt, cap_tmask = _prefix(tp, tm, cfg.refine_tier_target_points)
-            res_a = solve(lanes, cap_tgt.contiguous(), cap_tmask.contiguous(),
-                          params._replace(max_iterations=cfg.refine_tier_iterations), init)
+            rtp = cfg.refine_tier_target_points
+            res_a = solve(lanes, params._replace(max_iterations=cfg.refine_tier_iterations), init, rows=rtp)
             fit_a = torch.where(sel_mask, res_a.fitness, big)
             judge_a = fit_a[:, 0]
-            if cap_tgt.shape[1] < tp.shape[1]:
+            if rtp and rtp < tp.shape[1]:
                 # The gate is absolute and a prefix target inflates fitness:
                 # re-evaluate candidate 0 on the full target (no ICP steps).
-                probe = solve(lanes[:, :1], tp, tm, params._replace(max_iterations=0),
+                probe = solve(lanes[:, :1], params._replace(max_iterations=0),
                               (res_a.rotation[:, :1], res_a.translation[:, :1], res_a.scale[:, :1]))
                 judge_a = torch.where(sel_mask[:, 0], probe.fitness[:, 0], big)
             win = pick(fit_a, judge_a, res_a, lanes)
-            res = solve(_at(lanes, win)[:, None], tp, tm, refine_params,
+            res = solve(_at(lanes, win)[:, None], refine_params,
                         tuple(_at(x, win)[:, None] for x in (res_a.rotation, res_a.translation, res_a.scale)))
             out = result(res, torch.zeros_like(win), _at(sel, win)[:, None], judge_a,
                          _at(res_a.iterations, win) + res.iterations[:, 0], refine_cap)
@@ -403,17 +414,26 @@ def resample_batch(
     pad: Optional[int] = None,
     steps: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """FPS-resample (B, N, 3) padded clouds to (B, resample_pad, 3), keeping
-    pnumber[b] valid samples of cloud b (the `fps` kernel on CUDA).
+    """Resample (B, N, 3) padded clouds to (B, resample_pad, 3), keeping
+    pnumber[b] valid samples of cloud b (kss_icp_tpu/models/kss_icp.py:761-815):
+    by FPS (the `fps` kernel on CUDA), or with cfg.resampler="aivs" by AIVS
+    (ops/aivs.py::aivs_resample_packed, all B clouds at once, packed in
+    pick-round order) on cfg.aivs_boxes_per_axis boxes an axis, or where
+    that is 0 the ladder's count for N points (register_pair and
+    register_many resolve it from the valid counts first,
+    `_resolve_aivs_boxes`).
 
     `steps`, a host int, makes only the first min(steps, pad) FPS picks: the
     slots past pnumber are masked and zeroed anyway and picks are
     prefix-stable, so with steps >= max(pnumber) the output is bit-identical
-    to the full run's (and JAX's). A smaller `steps` keeps `steps` samples."""
-    if cfg.resampler != "fps":
-        raise NotImplementedError("kss_icp_torch does not implement resampler != 'fps' yet: "
-                                  "ROADMAP.md queue 1 item 13 (aivs)")
+    to the full run's (and JAX's). A smaller `steps` keeps `steps` samples.
+    AIVS ignores it."""
     p = pad if pad is not None else cfg.resample_pad
+    if cfg.resampler == "aivs":
+        nb = cfg.aivs_boxes_per_axis or estimate_box_scale(points.shape[-2])
+        pts, smask = aivs_resample_packed(points, mask, pnumber, p, nb, cfg.aivs_max_rounds, cfg.aivs_max_cuts)
+        smask = smask & (torch.arange(p, device=points.device)[None, :] < pnumber[:, None])
+        return pts * smask[..., None].to(points.dtype), smask
     idx, smask = fps(points, mask, p, None if steps is None else min(steps, p))
     smask = smask & (torch.arange(p, device=points.device)[None, :] < pnumber[:, None])
     pts = torch.take_along_dim(points, idx.long()[..., None], dim=1)
@@ -440,6 +460,16 @@ def resample_pairs(
     return (rp[:b], rm[:b]), (rp[b:], rm[b:])
 
 
+def _resolve_aivs_boxes(cfg: KSSICPConfig, n_valid: int) -> KSSICPConfig:
+    """Pin the AIVS box ladder from the true valid point count (the reference
+    rule, ballRegionCompute.hpp:1194; kss_icp_tpu/models/kss_icp.py:746-757),
+    not from the padded size: register_pair takes max(n_s, n_t), register_many
+    the largest valid count of its batch."""
+    if cfg.resampler == "aivs" and cfg.aivs_boxes_per_axis == 0:
+        return dataclasses.replace(cfg, aivs_boxes_per_axis=estimate_box_scale(n_valid))
+    return cfg
+
+
 def _device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -464,13 +494,17 @@ def polish_resampled(
     escalation's uncapped finisher. Returns (transform, fitness, iterations).
 
     Clouds (P, 3)/(P,) with one transform, or a batch of pairs (B, P, 3)/(B, P)
-    with (B,) transforms: one lane a pair, in one lockstep loop."""
+    with (B,) transforms: one lane a pair, in one lockstep loop. With
+    icp_variant="point_to_plane" the target normals are estimated again
+    (JAX :725-732), so the finisher steps point-to-plane too."""
     check_supported(cfg)
     current = apply_similarity(transform, source_points)
     cap = min(cfg.refine_polish_iterations or cfg.max_icp_iterations, cfg.max_icp_iterations)
-    res = icp(current.contiguous(), source_mask, target_points.contiguous(), target_mask.contiguous(),
-              ICPParams.from_config(cfg)._replace(max_iterations=cap),
-              trim_fraction=cfg.icp_trim_fraction, estimate_scale=cfg.icp_estimate_scale)
+    tp, tm = target_points.contiguous(), target_mask.contiguous()
+    normals = estimate_normals(tp, tm) if cfg.icp_variant == "point_to_plane" else None
+    res = icp(current.contiguous(), source_mask, tp, tm, ICPParams.from_config(cfg)._replace(max_iterations=cap),
+              trim_fraction=cfg.icp_trim_fraction, estimate_scale=cfg.icp_estimate_scale,
+              variant=cfg.icp_variant, target_normals=normals)
     step = Similarity(scale=res.scale, rotation=res.rotation, translation=res.translation)
     return compose(step, transform), res.fitness, res.iterations
 
@@ -809,11 +843,11 @@ def register_pair(
 ) -> RegistrationResult:
     """Single-pair registration (the reference `main` path) with escalation.
 
-    Accepts (N, 3) arrays or padded PointClouds; resamples both by FPS and
-    runs register_batch on a batch of this one pair on `device`. The
-    returned transform maps the full-resolution source into the target
-    frame: apply it with `apply_similarity` and measure with
-    `metrics.registration_measure`.
+    Accepts (N, 3) arrays or padded PointClouds; resamples both by FPS (or
+    AIVS, its boxes from max(n_s, n_t)) and runs register_batch on a batch of
+    this one pair on `device`. The returned transform maps the
+    full-resolution source into the target frame: apply it with
+    `apply_similarity` and measure with `metrics.registration_measure`.
 
     With cfg.auto_escalate, the pair climbs `escalation_ladder` as
     register_pair does in JAX (pair=True): the 16^3 re-solve, the uncapped
@@ -833,7 +867,9 @@ def register_pair(
     if not isinstance(target, PointCloud):
         target = PointCloud.from_points(target, device=device)
     source, target = source.to(device), target.to(device)
-    pnumber = cfg.resample_count(int(source.count), int(target.count))
+    n_s, n_t = int(source.count), int(target.count)
+    pnumber = cfg.resample_count(n_s, n_t)
+    cfg = _resolve_aivs_boxes(cfg, max(n_s, n_t))
     pn = torch.tensor([pnumber], device=device)
     with _stage(timer, "resample"):
         clouds = resample_batch(source.points[None], source.mask[None], pn, cfg, steps=pnumber)

@@ -1,4 +1,4 @@
-"""Wrappers of the rotation-field CUDA kernels: the "ave" and "trim" fields.
+"""Wrappers of the rotation-field CUDA kernels: the "ave", "trim", "max" and "diff" fields.
 
 `field_ave` (csrc/field.cu) ports kss_icp_tpu/ops/coarse_pallas.py::
 rotation_scores_pallas with method="vpu" (K1), exact float32 differences;
@@ -8,9 +8,11 @@ dot product [R q, 1] . [-2 t, |t|^2] with |q|^2 added back, at a precision
 launched with a plan from `field_plan`. `field_trim` (csrc/field_trim.cu) is
 the same kernel in its per-point mode: it scores the overlap tier's "trim"
 field, which JAX computes with XLA (kss_icp_tpu/models/coarse.py:115-131),
-not a TPU kernel. On CPU tensors each wrapper runs its plain version
-(`field_ave_plain`, `field_dot_plain`, `field_trim_plain`); on CUDA tensors
-it launches its kernel or raises.
+not a TPU kernel; `field_sq` (the same file) is the per-point mode writing
+squared distances, for the "max" and "diff" fields, which JAX computes with
+XLA too. On CPU tensors each wrapper runs its plain version
+(`field_ave_plain`, `field_dot_plain`, `field_trim_plain`, `field_max_plain`,
+`field_diff_plain`); on CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from kss_icp_torch.core.transforms import rotate_points
 from kss_icp_torch.ops.nn import (BIG, _BLOCK_ELEMS, masked_mean, masked_mean_nn_distance, masked_nn_error,
-                                  trimmed_masked_mean)
+                                  sq_error, trimmed_masked_mean)
 
 FIELD_GROUP = 256  # kGroup of csrc/field_kernel.cuh: one partial sum per 256 source points
 FIELD_Q = 4  # kQ of csrc/field_kernel.cuh: rotations a block
@@ -273,3 +275,65 @@ def field_trim(
 
 
 field_trim.launches = 0
+
+
+def field_max_plain(source, source_mask, target, target_mask, rotations) -> torch.Tensor:
+    """The plain PyTorch version of `field_sq` at metric "max"."""
+    return masked_nn_error(rotate_sources(rotations, source), source_mask, target, target_mask, "max")
+
+
+def field_diff_plain(source, source_mask, target, target_mask, rotations) -> torch.Tensor:
+    """The plain PyTorch version of `field_sq` at metric "diff"."""
+    return masked_nn_error(rotate_sources(rotations, source), source_mask, target, target_mask, "diff")
+
+
+SQ_PLAIN = {"max": field_max_plain, "diff": field_diff_plain}
+
+
+def field_sq_distances(rotated, weight, target, target_mask, slots: int) -> torch.Tensor:
+    """One launch of the field kernel in its squared per-point mode with
+    `slots` group slots: the (C, P) squared distances of each rotated source
+    point to the nearest valid target row (the raw biased min), 0 where weight
+    is 0, the bits of its plain version ops/nn.py::nn_sqdistances(rotated,
+    source_mask, target, target_mask). Arguments as `field_trim_distances`.
+    Counts the launch in `field_sq.launches`."""
+    from kss_icp_torch import _build
+
+    c_n, p_n = rotated.shape[:2]
+    dist = torch.empty((c_n, p_n), dtype=torch.float32, device=rotated.device)
+    lib = _build.library()
+    with torch.cuda.device(rotated.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.kss_field_sq(rotated.data_ptr(), weight.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
+                                c_n, p_n, target.shape[0], slots, dist.data_ptr(), stream)
+    _build.check(code, "field_sq")
+    field_sq.launches += 1
+    return dist
+
+
+def field_sq(
+    source: torch.Tensor,
+    source_mask: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    rotations: torch.Tensor,
+    metric: str,
+) -> torch.Tensor:
+    """The "max" or "diff" field (kss_icp_tpu/ops/nn.py:183-194): for every
+    rotation, the largest squared 1-NN distance of the valid points of
+    R_c · source to the valid target, or the largest distance less the mean.
+
+    Same arguments as `field_ave`, plus the metric. The kernel writes the
+    (C, P) squared distances; each row's metric (`ops/nn.py::sq_error`)
+    runs in PyTorch. Returns (C,) float32."""
+    if metric not in SQ_PLAIN:
+        raise ValueError(f"field_sq scores 'max' or 'diff', not {metric!r}")
+    if _use_plain("field_sq", source, source_mask, target, target_mask, rotations):
+        return SQ_PLAIN[metric](source, source_mask, target, target_mask, rotations)
+    rotated = rotate_sources(rotations, source)
+    weight = source_mask.to(torch.float32).contiguous()
+    return sq_error(field_sq_distances(rotated, weight, target, target_mask, field_plan(source.shape[0])),
+                    source_mask, metric)
+
+
+field_sq.launches = 0

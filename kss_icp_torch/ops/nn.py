@@ -76,9 +76,32 @@ def nn_distances(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tenso
     biased min as `masked_mean_nn_distance` takes it, and 0 at a masked query
     point: the per-point values of the "trim" field and the contract of the
     `field_trim` kernel's per-point mode. A fully masked reference gives 1e15."""
+    return torch.sqrt(nn_sqdistances(query, query_mask, ref, ref_mask).clamp_min(0.0))
+
+
+def nn_sqdistances(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor,
+                   ref_mask: torch.Tensor) -> torch.Tensor:
+    """Each valid query point's raw biased min ((dx² + dy²) + dz²) + bias, the
+    squared 1-NN distance, and 0 at a masked query point: the per-point
+    values of the "max" and "diff" fields and the contract of the field
+    kernel's squared per-point mode (`field_sq`). A fully masked reference
+    gives 1e30, as JAX's where(ref_mask, d², 1e30) does."""
     m, _ = _min_rel(query, ref, ref_mask)
-    d = torch.sqrt(m.clamp_min(0.0))
-    return torch.where(query_mask, d, torch.zeros_like(d))
+    return torch.where(query_mask, m, torch.zeros_like(m))
+
+
+def sq_error(min_d2: torch.Tensor, query_mask: torch.Tensor, metric: str) -> torch.Tensor:
+    """The "max" or "diff" error from the squared 1-NN distances along the
+    last axis (kss_icp_tpu/ops/nn.py:188-194): "max" is the largest squared
+    distance, never its root (initRegistration_Error, a quirk of the
+    reference kept); "diff" the largest distance less the mean, in JAX's
+    order: sum(d w) / max(sum w, 1), the max over where(mask, d, -1e30)."""
+    mask = query_mask.expand(min_d2.shape)
+    neg = torch.full_like(min_d2, -BIG)
+    if metric == "max":
+        return torch.where(mask, min_d2, neg).amax(dim=-1)
+    d = torch.sqrt(min_d2)
+    return torch.where(mask, d, neg).amax(dim=-1) - masked_mean(d, mask)
 
 
 def masked_mean_nn_sqdist(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> torch.Tensor:
@@ -136,17 +159,18 @@ def trimmed_masked_mean(values: torch.Tensor, mask: torch.Tensor, trim_fraction:
 
 def masked_nn_error(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor,
                     metric: str = "ave", trim_fraction: float = 0.7) -> torch.Tensor:
-    """The rotation-field error of kss_icp_tpu/ops/nn.py:160-199 in its
-    "ave" (mean 1-NN distance) and "trim" (mean of the best trim_fraction
-    quantile of 1-NN distances) flavours, from exact float32 differences.
-    "max" and "diff" are not ported (ROADMAP.md queue 1 item 13)."""
+    """The rotation-field error of kss_icp_tpu/ops/nn.py:160-199, from exact
+    float32 differences: "ave" (the mean 1-NN distance), "max" (the largest
+    squared 1-NN distance), "diff" (the largest 1-NN distance less the mean;
+    both `sq_error`) and "trim" (the mean of the best trim_fraction quantile
+    of the 1-NN distances)."""
     if metric == "ave":
         return masked_mean_nn_distance(query, query_mask, ref, ref_mask)
     if metric == "trim":
         d = nn_distances(query, query_mask, ref, ref_mask)
         return trimmed_masked_mean(d, query_mask.expand(d.shape), trim_fraction)
     if metric in ("max", "diff"):
-        raise NotImplementedError(f"error metric {metric!r} is not ported yet (ROADMAP.md queue 1 item 13)")
+        return sq_error(nn_sqdistances(query, query_mask, ref, ref_mask), query_mask, metric)
     raise ValueError(f"unknown error metric {metric!r}")
 
 
@@ -167,7 +191,7 @@ def knn(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, k: int) 
 
     query (..., Q, 3), ref (..., R, 3), ref_mask (..., R). Returns ((..., Q, k)
     float32, (..., Q, k) int64); a masked reference row scores 1e30. Each
-    block of query rows (at most `_KNN_BLOCK_ELEMS` (rows, R) elements) is
+    block of query rows (at most `_KNN_BLOCK_ELEMS` (..., rows, R) elements) is
     sorted whole by a stable sort, so ties go to the lower index, as
     `jax.lax.top_k` orders them. The blocks keep the memory bounded at any R,
     which is what the JAX package's streaming path (reference tiles with a
@@ -179,7 +203,8 @@ def knn(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, k: int) 
     q, r = query.shape[-2], ref.shape[-2]
     if k > r:
         raise ValueError(f"knn: k={k} is larger than the {r} reference rows")
-    rows = max(1, _KNN_BLOCK_ELEMS // max(1, r))
+    lead = torch.broadcast_shapes(query.shape[:-2], ref.shape[:-2], ref_mask.shape[:-1]).numel()
+    rows = max(1, _KNN_BLOCK_ELEMS // max(1, r * lead))
     d2, idx = [], []
     for i in range(0, q, rows):
         vals, ix = torch.sort(_sqdist(query[..., i:i + rows, :], ref, ref_mask), dim=-1, stable=True)

@@ -83,9 +83,10 @@ def register_many(
 
     Pads every cloud to `full_pad` rows (truncating a larger one),
     FPS-resamples pair b to resample_count(Ns, Nt) points (one launch over
-    the 2B clouds), registers the batch (register_batch), applies each
-    transform to its padded full-resolution source and measures it against
-    its target (one nn1 launch). With escalation (cfg.auto_escalate by
+    the 2B clouds; AIVS with resampler="aivs", its boxes from the largest
+    valid count of the batch), registers the batch (register_batch), applies
+    each transform to its padded full-resolution source and measures it
+    against its target (one nn1 launch). With escalation (cfg.auto_escalate by
     default), the batch climbs models/kss_icp.py::escalation_ladder at
     `escalate_threshold` and `escalate_cfg` (cfg.escalation_config()): the
     16^3 re-solve, the uncapped finisher and, with cfg.overlap_escalate, the
@@ -114,6 +115,7 @@ def register_many(
     s_pts, s_msk = padded([s for s, _ in pairs])
     t_pts, t_msk = padded([t for _, t in pairs])
     counts = [cfg.resample_count(min(len(s), full_pad), min(len(t), full_pad)) for s, t in pairs]
+    cfg = kss._resolve_aivs_boxes(cfg, max(min(len(c), full_pad) for pair in pairs for c in pair))
     with _stage(timer, "resample"):
         (sp, sm), (tp, tm) = kss.resample_pairs(s_pts, s_msk, t_pts, t_msk, torch.tensor(counts, device=device),
                                                 cfg, steps=max(counts))

@@ -47,7 +47,21 @@ Three records, each a JSON file under fixtures/:
   fixtures/torch_port_expected_precise.json. Each pair also records the
   DEFAULT_CONFIG record's fitness (fixtures/torch_port_expected_overlap.json)
   and whether a restart won against it (`restart_won`: a lower fitness).
-  `--shard`/`--merge` as for `--overlap`.
+  `--shard`/`--merge` as for `--overlap`;
+* `--variants`: every register_pair knob beside the defaults, at the
+  unmodified DEFAULT_CONFIG with one knob changed each:
+  icp_variant="point_to_plane", coarse_error_metric "max" and "diff" and
+  resampler="aivs", through register_pair on the remesh 25 (`variants`);
+  register_many on the remesh 25 at "aivs" and "point_to_plane" (`many`, in
+  sub-batches of MANY_CHUNK pairs, listed under `batches`: JAX holds about 2
+  GiB a pair in flight); the category board at "point_to_plane" (`boards`);
+  the AIVS picks register_pair makes on each remesh cloud at "aivs"
+  (`aivs_picks`: the source indices of the packed valid rows, in order);
+  and `aivs_resample` as the CLI's `simplify -m aivs -n 2000` runs it on
+  the largest remesh source written with save_xyz and read back
+  (`cli_aivs`: the selected indices, in input order), written to
+  fixtures/torch_port_expected_variants.json. `--shard`/`--merge` as for
+  `--overlap`.
 
 Per pair: the chosen candidate, ICP fitness, ICP iteration count, the
 hit-cap flag, the similarity transform and the full-resolution RMSE; with
@@ -66,8 +80,9 @@ fitness was above overlap_threshold when the rung began. chip_smoke.py and tests
 port to these records.
 
     JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation | --overlap | --batch | --largescan
-        | --precise] [--limit N] [--shard I/N] [--out PATH]
-    python scripts/torch_port_expected.py [--overlap | --batch | --precise] --merge SHARD.json ... [--out PATH]
+        | --precise | --variants] [--limit N] [--shard I/N] [--out PATH]
+    python scripts/torch_port_expected.py [--overlap | --batch | --precise | --variants] --merge SHARD.json ...
+        [--out PATH]
 
 About 16 s per remesh pair at DEFAULT_CONFIG and 8 s at the bench config on
 an 8-core x86 CPU with escalation off.
@@ -78,6 +93,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import resource
 import sys
 import time
@@ -92,6 +108,11 @@ FULL_PAD = 8192  # register_many's default pad, which the remesh targets (up to 
 PRECISE_FRACS = (0.25, 0.5)  # the CLI's --precise (kss_icp_tpu/cli.py:47-53)
 # run_largescan's arguments as the CLI's largescan subcommand and bench.py pass them.
 LARGESCAN = dict(n_points=200_000, pre_downsample=80_000, seeds=(0, 1, 2))
+# --variants: each knob set alone on DEFAULT_CONFIG; register_many runs the first two.
+VARIANTS = {"aivs": dict(resampler="aivs"), "point_to_plane": dict(icp_variant="point_to_plane"),
+            "max": dict(coarse_error_metric="max"), "diff": dict(coarse_error_metric="diff")}
+MANY_CHUNK = 2  # register_many sub-batch: pairs a call
+CLI_AIVS_COUNT = 2000  # simplify -m aivs -n 2000
 
 ESCALATION_NOTE = (
     "JAX on the CPU scores the rotation field on its XLA path whatever coarse_method says "
@@ -239,6 +260,97 @@ def record_largescan(seed: int, n_points: int, pre_downsample: int) -> dict:
     return rec
 
 
+def record_variants(args, shard: int, shards: int, run, run_batch, remesh, platform: str) -> dict:
+    """The `--variants` record of shard I/N: its remesh pairs (index I mod N)
+    and category pairs through register_pair, its remesh pairs through
+    register_many in sub-batches of MANY_CHUNK, the AIVS picks of its remesh
+    pairs' clouds, and (shard 0) the CLI's aivs_resample."""
+    import tempfile
+
+    import jax.numpy as jnp
+
+    from kss_icp_tpu.challenge import challenge_corpus
+    from kss_icp_tpu.config import DEFAULT_CONFIG
+    from kss_icp_tpu.core.cloud import PointCloud
+    from kss_icp_tpu.io.formats import load_points, save_xyz
+    from kss_icp_tpu.models import kss_icp as kss
+    from kss_icp_tpu.ops.aivs import aivs_resample
+
+    def cfg_of(label):
+        return dataclasses.replace(DEFAULT_CONFIG, **VARIANTS[label])
+
+    mine = [(i, p) for i, p in enumerate(remesh[: args.limit or None]) if i % shards == shard]
+    # The cheap records first: register_pair's AIVS resample of each cloud, as
+    # kss.register_pair runs it, and the CLI's.
+    cfg = cfg_of("aivs")
+    picks = []
+    for i, (name, src, tgt, _) in mine:
+        clouds = [PointCloud.from_points(x) for x in (src, tgt)]
+        n_s, n_t = (int(c.count) for c in clouds)
+        pn = cfg.resample_count(n_s, n_t)
+        rcfg = kss._resolve_aivs_boxes(cfg, max(n_s, n_t))
+        row = {"name": name, "index": i, "pnumber": pn, "boxes": rcfg.aivs_boxes_per_axis}
+        for side, c, pts in (("source", clouds[0], src), ("target", clouds[1], tgt)):
+            rp, rm = kss.resample_batch(c.points[None], c.mask[None], jnp.asarray([pn]), rcfg)
+            row[side] = _match_rows(np.asarray(rp[0])[np.asarray(rm[0])], pts)
+        picks.append(row)
+        print(f"{name}: AIVS picks {pn} of {n_s} and {n_t} points, {rcfg.aivs_boxes_per_axis}^3 boxes",
+              file=sys.stderr, flush=True)
+
+    cli_aivs = None
+    if shard == 0:
+        name, src, _, _ = max(remesh, key=lambda p: len(p[1]))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / f"{name}.gird"
+            save_xyz(path, src)
+            pts = load_points(path)
+        cloud = PointCloud.from_points(pts)
+        _, sel = aivs_resample(cloud.points, cloud.mask, CLI_AIVS_COUNT)
+        selected = np.nonzero(np.asarray(sel))[0]
+        cli_aivs = {"name": name, "file": f"{name}.gird", "count": CLI_AIVS_COUNT, "n": int(len(pts)),
+                    "selected": selected.tolist(), "n_selected": int(len(selected))}
+        print(f"simplify -m aivs on {name}.gird: {len(pts)} -> {len(selected)} points", file=sys.stderr, flush=True)
+    out = {
+        "platform": platform,
+        "note": ESCALATION_NOTE,
+        "rmse_band": 0.006,
+        "config": "DEFAULT_CONFIG (escalation and the overlap tier on) with one knob changed",
+        "aivs_picks": picks,
+        "cli_aivs": cli_aivs,
+        "variants": {label: {"knobs": knobs, "pairs": run(cfg_of(label), remesh)} for label, knobs in VARIANTS.items()},
+    }
+    category = next((corpus, thr) for b, corpus, thr in challenge_corpus(include_hard=True) if b == "category")
+    out["boards"] = {"category": {"threshold": category[1], "knobs": VARIANTS["point_to_plane"],
+                                  "pairs": run(cfg_of("point_to_plane"), category[0], category[1])}}
+    out["many"] = {}
+    for label in ("aivs", "point_to_plane"):
+        rows, batches = [], []
+        for k in range(0, len(mine), MANY_CHUNK):
+            items = [(i, p, None) for i, p in mine[k:k + MANY_CHUNK]]
+            rows += run_batch(cfg_of(label), items)
+            batches.append([p[0] for _, p, _ in items])
+        out["many"][label] = {"knobs": VARIANTS[label], "full_pad": FULL_PAD, "batches": batches, "pairs": rows}
+
+    return out
+
+
+def dump_record(out: dict) -> str:
+    """The record as indented JSON, each list of integers (the AIVS picks) on
+    one line."""
+    text = json.dumps(out, indent=1)
+    ints = r"\[\s+(-?\d+(?:,\s+-?\d+)*)\s+\]"
+    return re.sub(ints, lambda m: "[" + " ".join(m.group(1).split()) + "]", text) + "\n"
+
+
+def _match_rows(rows: np.ndarray, points: np.ndarray) -> list:
+    """The index in `points` of each row (exact float32 bytes; the first of
+    duplicates)."""
+    first = {}
+    for i, p in enumerate(np.asarray(points, np.float32)):
+        first.setdefault(p.tobytes(), i)
+    return [first[np.asarray(r, np.float32).tobytes()] for r in rows]
+
+
 def merge(paths, out_path) -> int:
     """One record from the shards' records: every list of pairs joined and
     put back in corpus order, the shards' batches listed, the seconds
@@ -249,18 +361,26 @@ def merge(paths, out_path) -> int:
     def join(get):
         return sorted((r for part in parts for r in get(part)), key=lambda r: r["index"])
 
-    for key in ("pairs",):
-        out[key] = join(lambda part: part[key])
+    for key in ("pairs", "aivs_picks"):
+        if key in out:
+            out[key] = join(lambda part: part[key])
+    for group in ("variants", "many"):
+        for label in out.get(group, {}):
+            out[group][label]["pairs"] = join(lambda part: part[group][label]["pairs"])
+            if "batches" in out[group][label]:
+                out[group][label]["batches"] = [b for part in parts for b in part[group][label]["batches"]]
+    if "cli_aivs" in out:
+        out["cli_aivs"] = next(part["cli_aivs"] for part in parts if part["cli_aivs"])
     if "bench_config" in out:
         out["bench_config"]["pairs"] = join(lambda part: part["bench_config"]["pairs"])
     for b in out.get("boards", {}):
         out["boards"][b]["pairs"] = join(lambda part: part["boards"][b]["pairs"])
-    if "batches" in out:
+    if "batches" in out and "many" not in out:
         out["batches"] = sorted((b for part in parts for b in part["batches"]),
                                 key=lambda b: int(b["shard"].split("/")[0]))
         out["shards"] = len(out["batches"])
     out["seconds"] = sum(part["seconds"] for part in parts)
-    out_path.write_text(json.dumps(out, indent=1) + "\n")
+    out_path.write_text(dump_record(out))
     print(f"wrote {out_path} from {len(parts)} shards", file=sys.stderr)
     return 0
 
@@ -278,6 +398,8 @@ def main() -> int:
                       help="record run_largescan's stages at DEFAULT_CONFIG on 200k-point Room pairs, seeds 0-2")
     mode.add_argument("--precise", action="store_true",
                       help="record precision mode (--precise) through register_pair: remesh 25, category board")
+    mode.add_argument("--variants", action="store_true",
+                      help="record the register_pair knobs (point_to_plane, max, diff, aivs) at DEFAULT_CONFIG")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--limit", type=int, default=0,
                     help="only the first N pairs of each corpus (0 = all)")
@@ -292,6 +414,7 @@ def main() -> int:
                                        "torch_port_expected_batch.json" if args.batch else
                                        "torch_port_expected_largescan.json" if args.largescan else
                                        "torch_port_expected_precise.json" if args.precise else
+                                       "torch_port_expected_variants.json" if args.variants else
                                        "torch_port_expected.json")
     if args.merge:
         return merge(args.merge, out_path)
@@ -326,7 +449,7 @@ def main() -> int:
             "seeds": [record_largescan(seed, LARGESCAN["n_points"], LARGESCAN["pre_downsample"]) for seed in seeds],
         }
         out["seconds"] = time.perf_counter() - t_start
-        out_path.write_text(json.dumps(out, indent=1) + "\n")
+        out_path.write_text(dump_record(out))
         print(f"wrote {out_path} in {out['seconds']:.0f} s", file=sys.stderr)
         return 0
 
@@ -364,10 +487,10 @@ def main() -> int:
                 "translation": np.asarray(tr.translation, np.float64).tolist(),
                 "rmse": float(rmse),
             }
-            if args.escalation or args.overlap or args.precise:
+            if args.escalation or args.overlap or args.precise or args.variants:
                 rec.update(escalated=counts.flagged > 0, escalation_won=counts.won > 0,
                            finisher=counts.finished > 0)
-            if args.overlap or args.precise:
+            if args.overlap or args.precise or args.variants:
                 rec["rungs"] = rungs.rungs
             if threshold is not None:
                 pose = transform_rmse(aligned, src, gt)
@@ -453,7 +576,13 @@ def main() -> int:
         for r in rows:
             out["boards"][r.pop("board")]["pairs"].append(r)
         out["seconds"] = time.perf_counter() - t_start
-        out_path.write_text(json.dumps(out, indent=1) + "\n")
+        out_path.write_text(dump_record(out))
+        print(f"wrote {out_path} in {out['seconds']:.0f} s", file=sys.stderr)
+        return 0
+    if args.variants:
+        out = record_variants(args, shard, shards, run, run_batch, remesh, platform)
+        out["seconds"] = time.perf_counter() - t_start
+        out_path.write_text(dump_record(out))
         print(f"wrote {out_path} in {out['seconds']:.0f} s", file=sys.stderr)
         return 0
     bench = bench_config()
@@ -521,7 +650,7 @@ def main() -> int:
                        for b, (corpus, thr) in boards.items()},
         }
     out["seconds"] = time.perf_counter() - t_start
-    out_path.write_text(json.dumps(out, indent=1) + "\n")
+    out_path.write_text(dump_record(out))
     print(f"wrote {out_path} in {out['seconds']:.0f} s", file=sys.stderr)
     return 0
 

@@ -698,3 +698,110 @@ def test_precise_register_on_the_card_matches_cpu(cuda_device):
     assert nn1.launch_shapes[(12, 128, 128, 1)] > 0
     res, metrics = kt.register_many(pairs, cfg, full_pad=8192, device=cuda_device)
     assert nn1.launch_shapes[(36, 128, 128, 3)] > 0 and np.isfinite(metrics["rmse"]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FIELD_CARD_CASES))
+def test_field_sq_kernel_matches_plain_bit_for_bit(cuda_device, case):
+    """The squared per-point mode: every (rotation, point) squared distance
+    equals the plain version's bits (the raw min, 1e30-biased against a fully
+    masked target), 0 at masked source points, under every plan; the "max"
+    and "diff" fields equal the plain ones' bits."""
+    from kss_icp_torch.ops.coarse_cuda import FIELD_SLOTS, SQ_PLAIN, field_sq, field_sq_distances, rotate_sources
+    from kss_icp_torch.ops.nn import nn_sqdistances
+
+    src, smask, tgt, tmask, rots = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
+    rotated, weight = rotate_sources(rots, src), smask.to(torch.float32)
+    want = nn_sqdistances(rotated, smask, tgt, tmask)
+    before = field_sq.launches
+    for slots in FIELD_SLOTS:
+        assert torch.equal(field_sq_distances(rotated, weight, tgt, tmask, slots), want), slots
+    for metric, plain in SQ_PLAIN.items():
+        assert torch.equal(field_sq(src, smask, tgt, tmask, rots, metric), plain(src, smask, tgt, tmask, rots)), metric
+    assert field_sq.launches == before + len(FIELD_SLOTS) + 2
+
+
+@pytest.mark.cuda
+def test_field_sq_kernel_against_a_fully_masked_target(cuda_device):
+    """The biased path: no valid target row, every valid point's value the
+    plain version's 1e30 + d², bit for bit."""
+    from kss_icp_torch.ops.coarse_cuda import field_plan, field_sq_distances, rotate_sources
+    from kss_icp_torch.ops.nn import nn_sqdistances
+
+    rng = np.random.default_rng(11)
+    src, tgt = (_t(random_cloud(rng, n).astype(np.float32), cuda_device) for n in (700, 600))
+    smask = torch.arange(700, device=cuda_device) < 650
+    tmask = torch.zeros(600, dtype=torch.bool, device=cuda_device)
+    rots = euler_xyz_matrix(coarse.rotation_grid(3, 6.3, cuda_device))
+    rotated = rotate_sources(rots, src)
+    got = field_sq_distances(rotated, smask.to(torch.float32), tgt, tmask, field_plan(700))
+    assert torch.equal(got, nn_sqdistances(rotated, smask, tgt, tmask))
+    assert bool((got[:, smask] == 1e30).all()) and not got[:, ~smask].any()
+
+
+@pytest.mark.cuda
+def test_aivs_on_the_card_matches_cpu(cuda_device):
+    """AIVS of a batch of clouds: the card's picks and packing equal the
+    CPU's bit for bit (the box centroids' sums add in index order on both),
+    twice in a row."""
+    from kss_icp_torch.ops.aivs import aivs_resample_packed
+
+    rng = np.random.default_rng(12)
+    pts = np.stack([random_cloud(rng, 3000) for _ in range(4)]).astype(np.float32)
+    mask = np.arange(3000)[None] < np.array([[3000], [2500], [1200], [2999]])
+    samples = np.array([1000, 800, 600, 1400])
+    cpu = aivs_resample_packed(_t(pts), _t(mask), _t(samples), 2048, 10)
+    for _ in range(2):
+        gpu = aivs_resample_packed(*(_t(x, cuda_device) for x in (pts, mask, samples)), 2048, 10)
+        for g, c in zip(gpu, cpu):
+            assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_normals_and_point_to_plane_on_the_card_match_cpu(cuda_device):
+    """PCA normals of a batch (cuSOLVER's eigh) against the CPU's (LAPACK's)
+    to |n · n_cpu| >= 1 - 1e-5, and point-to-plane ICP lanes against them:
+    the same iterations, the pose within 1e-4."""
+    from kss_icp_torch.ops.normals import estimate_normals
+
+    rng = np.random.default_rng(13)
+    tgt = np.stack([random_cloud(rng, 2048) for _ in range(3)]).astype(np.float32)
+    tmask = np.arange(2048)[None] < np.array([[2048], [2000], [1500]])
+    n_cpu = estimate_normals(_t(tgt), _t(tmask))
+    n_gpu = estimate_normals(_t(tgt, cuda_device), _t(tmask, cuda_device))
+    assert float((n_gpu.cpu() * n_cpu).sum(-1).abs()[_t(tmask)].min()) >= 1 - 1e-5
+    base = tgt[0][rng.permutation(2000)[:512]] + rng.normal(0, 0.005, size=(512, 3)).astype(np.float32)
+    rots = euler_xyz_matrix(_t(rng.uniform(-0.3, 0.3, size=(8, 3)).astype(np.float32)))
+    src = torch.einsum("lij,nj->lni", rots, _t(base)) + 0.03
+    smask = torch.ones(512, dtype=torch.bool)
+    params = ICPParams.from_config(KSSICPConfig())._replace(max_iterations=30)
+    cpu = icp(src, smask, _t(tgt[0]), _t(tmask[0]), params, variant="point_to_plane", target_normals=n_cpu[0])
+    gpu = icp(*(x.to(cuda_device) for x in (src, smask, _t(tgt[0]), _t(tmask[0]))), params,
+              variant="point_to_plane", target_normals=n_cpu[0].to(cuda_device))
+    assert torch.equal(gpu.iterations.cpu(), cpu.iterations)
+    for f in ("rotation", "translation"):
+        np.testing.assert_allclose(getattr(gpu, f).cpu().numpy(), getattr(cpu, f).numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [dict(resampler="aivs"), dict(icp_variant="point_to_plane"),
+                                   dict(coarse_error_metric="max"), dict(coarse_error_metric="diff")])
+def test_register_pair_knobs_on_the_card_match_cpu(cuda_device, knobs):
+    """A remesh pair through register_pair with each knob at a small config:
+    the RMSE on the card within 1e-4 of the CPU's; the "max" and "diff"
+    fields through field_sq."""
+    from kss_icp_torch.ops.coarse_cuda import field_sq
+
+    cfg = KSSICPConfig(rotation_steps=4, max_candidates=4, max_resample_points=512, resample_pad=512,
+                       max_icp_iterations=30, screen_points=128, refine_candidates=2, auto_escalate=False, **knobs)
+    meta = json.loads((FIXTURES / "remesh_transfer.json").read_text())
+    with np.load(FIXTURES / "remesh_transfer.npz") as z:
+        src, tgt = z[meta[3]["name"] + "_src"], z[meta[3]["name"] + "_tgt"]
+    field_sq.launches = 0
+    rmse = []
+    for device in ("cpu", cuda_device):
+        res = kt.register_pair(src, tgt, cfg, device=device)
+        aligned = kt.apply_similarity(res.transform, _t(src, device))
+        rmse.append(kt.registration_measure(aligned, tgt, device=device)["rmse"])
+    assert abs(rmse[0] - rmse[1]) <= 1e-4, rmse
+    assert field_sq.launches == (1 if "coarse_error_metric" in knobs else 0)

@@ -172,7 +172,21 @@ def test_resample(files, tmp_path):
     (["simplify", "a.xyz", "b.xyz", "-m", "wlop"], "wlop"),
     (["simplify", "a.xyz", "b.xyz", "-m", "hierarchy"], "hierarchy"),
 ])
-def test_unported_subcommands_exit_2(capsys, argv, item):
+def test_unported_subcommands_exit_2(capsys, files, tmp_path, argv, item):
+    """Each subcommand or method not ported yet exits 2 naming its ROADMAP.md
+    item. simplify -m aivs is ported: its case runs the port's and the JAX
+    CLI on one file and holds them to the same points and printed line."""
+    if item == "aivs":
+        from kss_icp_tpu import cli as jcli
+
+        outs = {}
+        for name, main, flags in (("jax", jcli.main, ["--platform", "cpu"]), ("torch", cli.main, ["--device", "cpu"])):
+            outs[name] = tmp_path / f"{name}.xyz"
+            assert main(["simplify", str(files / "tgt.xyz"), str(outs[name]), "-m", "aivs", "-n", "300", *flags]) == 0
+            outs[name + " printed"] = capsys.readouterr().out
+        assert outs["torch printed"] == outs["jax printed"] == "aivs: 1200 -> 300 points\n"
+        np.testing.assert_array_equal(load_points(outs["torch"]), load_points(outs["jax"]))
+        return
     assert cli.main(argv + (["--device", "cpu"] if argv[0] != "view" else [])) == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md queue 1 item 13" in err and item in err

@@ -174,10 +174,21 @@ def test_coarse_align_dot_method_matches_jax(rng):
 
 
 def test_other_field_metrics_are_not_ported(rng):
+    """The "max" and "diff" fields, once refused, now held to JAX's XLA
+    field (kss_icp_tpu/models/coarse.py:113-131, its expansion form; the
+    port's exact differences) at rtol 1e-5, atol 1e-6, with the same
+    candidates on clouds without near ties; an unknown metric still raises.
+    ("trim" is tests/test_torch_overlap.py's.)"""
+    src, smask, tgt, tmask, _ = _clouds(rng, p=150, t=120, t_valid=110, s_valid=140)
+    for metric in ("max", "diff"):
+        want = jc.coarse_align(*(jnp.asarray(x) for x in (src, smask, tgt, tmask)), steps=4, max_candidates=5,
+                               backend="xla", error_metric=metric)
+        got = tc.coarse_align(*(torch.as_tensor(x) for x in (src, smask, tgt, tmask)), steps=4, max_candidates=5,
+                              error_metric=metric, method="dot")  # the method means nothing here, as in JAX
+        np.testing.assert_allclose(got.field.numpy(), np.asarray(want.field), rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(got.candidate_mask.numpy(), np.asarray(want.candidate_mask))
+        np.testing.assert_allclose(got.candidate_angles.numpy(), np.asarray(want.candidate_angles), atol=1e-6)
     x = torch.zeros((4, 3))
     m = torch.ones((4,), dtype=torch.bool)
-    for metric in ("max", "diff"):  # "trim" is ported: tests/test_torch_overlap.py
-        with pytest.raises(NotImplementedError):
-            tc.score_rotation_field(x, m, x, m, steps=2, error_metric=metric)
     with pytest.raises(ValueError):
         tc.score_rotation_field(x, m, x, m, steps=2, error_metric="no such metric")

@@ -133,3 +133,67 @@ def test_zero_iterations_evaluates_fitness_only(rng):
     got = _torch_icp(src, smask, tgt, tmask, cfg, 0)
     assert not got.iterations.any()
     _assert_same(got, want)
+
+
+# --- point-to-plane (icp_variant="point_to_plane") ---
+
+def _plane_step_inputs(rng, lanes=3, n=96):
+    src = random_cloud(rng, n).astype(np.float32)
+    tgt = np.stack([src + rng.normal(0, 0.02, size=src.shape) for _ in range(lanes)]).astype(np.float32)
+    src = np.stack([src] * lanes)
+    normals = rng.normal(size=tgt.shape).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    w = (rng.uniform(size=(lanes, n)) > 0.2).astype(np.float32)
+    return src, tgt, normals, w
+
+
+def test_point_to_plane_step_matches_jax(rng):
+    """R and t of each lane within 1e-5 of JAX's point_to_plane_step."""
+    src, tgt, normals, w = _plane_step_inputs(rng)
+    r, t = ti.point_to_plane_step(*(torch.as_tensor(x) for x in (src, tgt, normals, w)))
+    for lane in range(src.shape[0]):
+        rj, tj = ji.point_to_plane_step(*(jnp.asarray(x[lane]) for x in (src, tgt, normals, w)))
+        np.testing.assert_allclose(r[lane].numpy(), np.asarray(rj), atol=1e-5)
+        np.testing.assert_allclose(t[lane].numpy(), np.asarray(tj), atol=1e-5)
+    # Rodrigues: the identity below 1e-12 rad, JAX's rotation above it.
+    omega = np.float32([[0, 0, 0], [1e-13, 0, 0], [0.1, -0.2, 0.3]])
+    want = np.stack([np.asarray(ji._rodrigues(jnp.asarray(o))) for o in omega])
+    np.testing.assert_allclose(ti._rodrigues(torch.as_tensor(omega)).numpy(), want, atol=1e-6)
+
+
+def test_point_to_plane_step_ignores_the_normals_sign(rng):
+    """Negating a normal negates its row of A and its residual: AᵀA and Aᵀb,
+    and so R and t, keep their bits, so unoriented PCA normals do."""
+    src, tgt, normals, w = _plane_step_inputs(rng)
+    flip = np.where(rng.uniform(size=normals.shape[:2] + (1,)) < 0.5, -1.0, 1.0).astype(np.float32)
+    a = ti.point_to_plane_step(*(torch.as_tensor(x) for x in (src, tgt, normals, w)))
+    b = ti.point_to_plane_step(*(torch.as_tensor(x) for x in (src, tgt, normals * flip, w)))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("scale", [False, True])
+def test_point_to_plane_lanes_match_jax(rng, scale):
+    """Point-to-plane lanes against the target's PCA normals: per-lane
+    iterations equal, the pose within 1e-4. With estimate_scale the step is
+    still point-to-plane and solves no scale, as JAX's `if variant ... elif
+    estimate_scale` does."""
+    from kss_icp_tpu.ops.normals import estimate_normals
+
+    src, smask, tgt, tmask = _lanes(rng)
+    normals = np.array(estimate_normals(jnp.asarray(tgt), jnp.asarray(tmask)))
+    cfg = KSSICPConfig()
+    params = ji.ICPParams.from_config(cfg, jnp.float32)._replace(max_iterations=jnp.asarray(30, jnp.int32))
+    f = jax.vmap(lambda s: ji.icp(s, jnp.asarray(smask), jnp.asarray(tgt), jnp.asarray(tmask), params,
+                                  variant="point_to_plane", target_normals=jnp.asarray(normals),
+                                  estimate_scale=scale))
+    want = f(jnp.asarray(src))
+    got = ti.icp(*(torch.as_tensor(x) for x in (src, smask, tgt, tmask)),
+                 ti.ICPParams.from_config(from_reference(cfg))._replace(max_iterations=30),
+                 variant="point_to_plane", target_normals=torch.as_tensor(normals), estimate_scale=scale)
+    _assert_same(got, want)
+    np.testing.assert_allclose(got.translation.numpy(), np.asarray(want.translation), atol=1e-4)
+    np.testing.assert_array_equal(got.scale.numpy(), np.ones(src.shape[0], np.float32))
+    np.testing.assert_allclose(got.fitness.numpy(), np.asarray(want.fitness), rtol=1e-4)
+    with pytest.raises(ValueError, match="target_normals"):
+        ti.icp(*(torch.as_tensor(x) for x in (src, smask, tgt, tmask)), ti.ICPParams.from_config(from_reference(cfg)),
+               variant="point_to_plane")

@@ -1,7 +1,7 @@
 """The port imports without jax, keeps the JAX package's config, refuses the
-knobs it does not implement (and runs the ones it does as JAX does, the
-shipped DEFAULT_CONFIG's overlap tier included), and its CPU path launches
-no kernel."""
+knob it does not implement (and runs every other as JAX does, the shipped
+DEFAULT_CONFIG's overlap tier, the AIVS resampler, point-to-plane ICP and
+every field metric included), and its CPU path launches no kernel."""
 
 import ast
 import contextlib
@@ -15,8 +15,10 @@ import pytest
 import torch
 
 import kss_icp_torch.config as tcfg
+from kss_icp_torch.core.transforms import euler_xyz_matrix
 from kss_icp_torch.models import kss_icp as tk
-from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
+from helpers import random_cloud
+from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_sq, field_trim
 from kss_icp_torch.ops.nn_cuda import nn1
 from kss_icp_torch.ops.resample_cuda import fps
 from kss_icp_tpu import config as jcfg
@@ -36,7 +38,7 @@ def test_imports_with_jax_blocked():
             "import kss_icp_torch.escalate, kss_icp_torch.challenge, kss_icp_torch.parallel.batch\n"
             "import kss_icp_torch.largescan, kss_icp_torch.ops.simplify\n"
             "import kss_icp_torch.cli, kss_icp_torch.io, kss_icp_torch.transfer, kss_icp_torch.utils.log\n"
-            "import kss_icp_torch.ops.spatial\n"
+            "import kss_icp_torch.ops.spatial, kss_icp_torch.ops.normals, kss_icp_torch.ops.aivs\n"
             "assert kss_icp_torch.register_many and kss_icp_torch.parallel.register_many\n"
             "print(sorted(kss_icp_torch.__all__))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -115,18 +117,29 @@ UNPORTED = [
 # Ported knobs: each case holds the port's register_pair to JAX's on the same inputs.
 PORTED = [dict(pose_tiebreak_margin=0.12), dict(auto_escalate=True), dict(auto_escalate=True, overlap_escalate=True),
           dict(overlap_mode=True), dict(neighborhood_fracs=(0.25,)), dict(coarse_error_metric="trim"), dict(icp_trim_fraction=0.7),
-          dict(icp_estimate_scale=True)]
+          dict(icp_estimate_scale=True), dict(resampler="aivs"), dict(icp_variant="point_to_plane"),
+          dict(coarse_error_metric="max"), dict(coarse_error_metric="diff")]
 
 
 @pytest.mark.parametrize("knobs, in_core", UNPORTED, ids=[",".join(k) for k, _ in UNPORTED])
 def test_unported_knobs_raise(rng, monkeypatch, knobs, in_core):
     cfg = dataclasses.replace(_NO_ESC, **knobs)
     pts = rng.uniform(-1, 1, size=(40, 3)).astype(np.float32)
+    if "icp_variant" in knobs:
+        # Point-to-plane needs a surface, and neighbourhoods (k = 20) of far
+        # fewer points than the cloud, or every normal is the whole cloud's
+        # and the step is unconstrained along the plane: a wavy surface and a
+        # similarity copy of it, 160 resampled points.
+        cfg = dataclasses.replace(cfg, max_resample_points=160, resample_pad=192)
+        pts = random_cloud(rng, 400).astype(np.float32)
+        rot = np.asarray(euler_xyz_matrix(torch.tensor([0.0, 0.0, 0.3])))
+        tgt = (pts[::-1] @ rot.T * 1.2 + 0.1 + rng.normal(0, 0.002, pts.shape)).astype(np.float32)
     if knobs in PORTED:
         # A target the source does not fit: the multistart gate fails, so the
         # tie-break picks the lane (in JAX: used_multistart), and a flagged
         # pair climbs the whole escalation ladder.
-        tgt = rng.uniform(-1, 1, size=(40, 3)).astype(np.float32)
+        if "icp_variant" not in knobs:
+            tgt = rng.uniform(-1, 1, size=(40, 3)).astype(np.float32)
         calls, select = [], tk._pose_tiebreak_select
         monkeypatch.setattr(tk, "_pose_tiebreak_select", lambda *a: calls.append(a) or select(*a))
         want = jk.register_pair(pts, tgt, jcfg.KSSICPConfig(**dataclasses.asdict(cfg)))
@@ -151,15 +164,15 @@ def test_unported_knobs_raise(rng, monkeypatch, knobs, in_core):
 
 
 def test_escalation_with_the_overlap_tier_raises_before_any_work(monkeypatch):
-    """The shipped ladder is ported; a knob that is not, set beside it, is
-    still refused before any work."""
+    """The shipped ladder is ported; the knob that is not (the two-stage
+    converge), set beside it or alone, is still refused before any work."""
     def no_work(*a, **kw):
         raise AssertionError("register_pair started work before refusing the config")
 
     monkeypatch.setattr(tk, "resample_batch", no_work)
     pts = np.zeros((40, 3), np.float32)
     for cfg in (dataclasses.replace(tcfg.DEFAULT_CONFIG, refine_polish_iterations=4, refine_max_iterations=8),
-                dataclasses.replace(_NO_ESC, auto_escalate=True, resampler="aivs")):
+                dataclasses.replace(_NO_ESC, auto_escalate=True, refine_polish_iterations=4, refine_max_iterations=8)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tk.register_pair(pts, pts, cfg, device="cpu")
 
@@ -188,7 +201,8 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_cpu_wrappers_launch_no_kernel(rng):
-    before = (nn1.launches, fps.launches, field_ave.launches, field_dot.launches, field_trim.launches)
+    counters = (nn1, fps, field_ave, field_dot, field_trim, field_sq)
+    before = [fn.launches for fn in counters]
     pts = torch.as_tensor(rng.uniform(-1, 1, size=(2, 50, 3)).astype(np.float32))
     mask = torch.ones((2, 50), dtype=torch.bool)
     nn1(pts, pts, mask)
@@ -196,4 +210,5 @@ def test_cpu_wrappers_launch_no_kernel(rng):
     field_ave(pts[0], mask[0], pts[1], mask[1], torch.eye(3)[None])
     field_dot(pts[0], mask[0], pts[1], mask[1], torch.eye(3)[None], precision="default")
     field_trim(pts[0], mask[0], pts[1], mask[1], torch.eye(3)[None], 0.7)
-    assert (nn1.launches, fps.launches, field_ave.launches, field_dot.launches, field_trim.launches) == before
+    field_sq(pts[0], mask[0], pts[1], mask[1], torch.eye(3)[None], "diff")
+    assert [fn.launches for fn in counters] == before

@@ -157,3 +157,32 @@ def test_masked_quantile_threshold_refuses_8192_wide_rows():
     tnn.masked_quantile_threshold(torch.zeros((2, 8191)), torch.ones((2, 8191), dtype=torch.bool), 0.9)
     with pytest.raises(ValueError, match="8192"):
         tnn.masked_quantile_threshold(torch.zeros((1, 8192)), torch.ones((1, 8192), dtype=torch.bool), 0.9)
+
+
+@pytest.mark.parametrize("masked", [0, 40])
+def test_nn_sqdistances_match_jax_min(rng, masked):
+    """The squared per-point values of the "max" and "diff" fields: JAX's
+    min over where(ref_mask, d², 1e30) (kss_icp_tpu/ops/nn.py:183-186; its
+    expansion form, rtol 1e-5), 0 at a masked query point, rows of a batch."""
+    from kss_icp_tpu.ops.nn import pairwise_sqdist
+
+    q = np.stack([random_cloud(rng, 150) for _ in range(3)]).astype(np.float32)
+    r = random_cloud(rng, 200).astype(np.float32)
+    qmask = rng.uniform(size=150) > 0.2
+    rmask = np.arange(200) < 200 - masked
+    d2 = np.asarray(pairwise_sqdist(jnp.asarray(q), jnp.asarray(r)[None]))
+    want = np.where(rmask, d2, 1e30).min(axis=-1)
+    got = tnn.nn_sqdistances(_t(q), _t(qmask), _t(r), _t(rmask)).numpy()
+    np.testing.assert_allclose(got[:, qmask], want[:, qmask], rtol=1e-5, atol=1e-6)
+    assert not got[:, ~qmask].any()
+
+
+def test_knn_blocks_bound_the_memory_across_clouds(rng, monkeypatch):
+    """knn's row blocks count the leading axes: a batch of clouds through
+    blocks of a few rows gives the one-block answer."""
+    q = np.stack([random_cloud(rng, 90) for _ in range(4)]).astype(np.float32)
+    mask = rng.uniform(size=(4, 90)) > 0.3
+    whole = tnn.knn(_t(q), _t(q), _t(mask), 5)
+    monkeypatch.setattr(tnn, "_KNN_BLOCK_ELEMS", 4 * 90 * 7)  # 7 rows a block
+    blocked = tnn.knn(_t(q), _t(q), _t(mask), 5)
+    assert torch.equal(whole[0], blocked[0]) and torch.equal(whole[1], blocked[1])

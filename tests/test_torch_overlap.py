@@ -83,9 +83,18 @@ def test_masked_nn_error_matches_jax(rng, metric):
 
 @pytest.mark.parametrize("metric", ["max", "diff"])
 def test_masked_nn_error_unported_metrics_raise(rng, metric):
+    """Once refused, "max" (the largest squared 1-NN distance) and "diff"
+    (the largest distance less the mean) now match JAX's (its expansion
+    form, the port's exact differences) at rtol 1e-5, atol 1e-6, one row and
+    a batch of rows."""
     src, smask, tgt, tmask = _clouds(rng)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tn.masked_nn_error(*_t(src, smask, tgt, tmask), metric=metric)
+    want = float(jn.masked_nn_error(*_j(src, smask, tgt, tmask), metric=metric))
+    got = float(tn.masked_nn_error(*_t(src, smask, tgt, tmask), metric=metric))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    rows = np.stack([src, src * 1.1, src[::-1]])
+    want = np.asarray(jn.masked_nn_error(*_j(rows, smask[None], tgt[None], tmask[None]), metric=metric))
+    got = tn.masked_nn_error(*_t(rows, smask, tgt, tmask), metric=metric).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
 # --- trimmed, scaled ICP ---
@@ -191,11 +200,26 @@ def test_field_trim_plain_version_matches_jax(rng, case):
         assert torch.all(d[:, args[1]] == 1e15)
 
 
-def test_coarse_metrics_max_and_diff_still_raise(rng):
-    src, smask, tgt, tmask = _field_clouds(rng, "padded")
-    for metric in ("max", "diff"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tc.score_rotation_field(*_t(src, smask, tgt, tmask), steps=2, error_metric=metric)
+@pytest.mark.parametrize("case", ["padded", "scattered", "no target"])
+def test_coarse_metrics_max_and_diff_still_raise(rng, case):
+    """Once refused, the "max" and "diff" fields now match JAX's XLA field
+    (rtol 1e-5, atol 1e-6) through `field_sq`, whose CPU path is its plain
+    version; the per-point squared distances are 0 at a masked source point
+    and 1e30 against a fully masked target, where "diff" is the float32
+    rounding of 1e15 less its mean and not compared."""
+    src, smask, tgt, tmask = _field_clouds(rng, case)
+    rots = np.asarray(euler_xyz_matrix(jc.rotation_grid(3, 6.3, jnp.float32)))
+    args = _t(src, smask, tgt, tmask, rots)
+    for metric in ("max", "diff") if case != "no target" else ("max",):
+        want = np.asarray(jc.score_rotation_field(*_j(src, smask, tgt, tmask), steps=3, backend="xla",
+                                                  error_metric=metric)).reshape(-1)
+        got = coarse_cuda.field_sq(*args, metric)
+        assert torch.equal(got, coarse_cuda.SQ_PLAIN[metric](*args))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    d2 = tn.nn_sqdistances(coarse_cuda.rotate_sources(args[4], args[0]), *args[1:4])
+    assert d2.shape == (27, 80) and not d2[:, ~args[1]].any()
+    if case == "no target":
+        assert torch.all(d2[:, args[1]] == 1e30)
 
 
 # --- the overlap solvers ---

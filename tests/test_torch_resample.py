@@ -137,7 +137,14 @@ def test_resample_pairs_matches_jax(rng):
 
 
 def test_aivs_resampler_is_not_ported(rng):
-    pts, mask = _clouds(rng, 1, 64)
-    cfg = dataclasses.replace(from_reference(_CFG), resampler="aivs")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tk.resample_batch(torch.as_tensor(pts), torch.as_tensor(mask), torch.tensor([32]), cfg)
+    """Once refused, resampler="aivs" now gives JAX's resample_batch bit for
+    bit: the AIVS picks packed in pick-round order, each cloud's pnumber
+    prefix, the box ladder from the padded size (and from a resolved knob)."""
+    pts, mask = _clouds(rng, 3, 320, {1: 250})
+    pn = np.array([100, 64, 128])
+    for boxes in (0, 5):
+        cfg = dataclasses.replace(_CFG, resampler="aivs", aivs_boxes_per_axis=boxes)
+        want = jk.resample_batch(jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(pn), cfg)
+        got = tk.resample_batch(torch.as_tensor(pts), torch.as_tensor(mask), torch.as_tensor(pn), from_reference(cfg))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
