@@ -35,7 +35,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and the boards' 128 clouds at full_pad 8192 with steps = the largest
      pnumber, and at the large-scan resample: both compacted octree
      survivor clouds of that seed (B=2 x 151552 -> 2048, 2000 steps),
-     with its launches from the 4f pass; field_ave, and field_dot at
+     with its launches from the 4f pass, and at WLOP's start in 4j, one
+     40960-point tools original to 8000 samples (B=1, 8000 steps), with
+     its launches from the 4j pass; field_ave, and field_dot at
      "highest" and "default", on the base grid C=512, P=T=2048 and the
      escalation grid C=4096, P=T=512, mostly valid, and on the base grid
      with both clouds suffix-masked to the largest and smallest remesh
@@ -154,6 +156,34 @@ Phases, each of which raises on failure (exit code 1, no result line):
           aivs -n 2000` as a subprocess: as many points as JAX's, each
           shared pick's point JAX's (rtol 1e-6); launches: fps on none of
           the aivs passes, field_sq on the "max" and "diff" passes only;
+       j. the tools at the CLI's defaults (fixtures/torch_port_expected_tools.json
+          and .npz, JAX on the CPU): four 40960-point originals
+          (challenge._instance, one a family) written as .xyz, `python -m
+          kss_icp_torch make-pairs` on them (--wlop-points 8000, each with its
+          own recorded axis, angle, scale and translation) and `batch` on its
+          output as subprocesses, each pair's RMSE within JAX's on JAX's own
+          pair + 0.006; the same two commands through cli.main in this
+          process with their launches (fps a cloud, nn1 and field_ave a
+          pair); then per original in this process: wlop_resample to 8000
+          (one fps launch, its start JAX's indices; the samples at the WLOP
+          bar against JAX's: median |Δ| 5e-5 and max 2e-3 bounding-box
+          diagonals, or where JAX's float32 samples are themselves farther
+          from the float64 solution (the record's), the port's median
+          within a tenth and max within JAX's distance to it; the spacing
+          CV within 2%, the on-surface distance at most JAX's + 1e-3
+          diagonals; ms and peak MiB),
+          hierarchy_simplify at cluster size 10 (JAX's kept set),
+          simplification_measure of JAX's WLOP with JAX's normals (rtol 1e-4,
+          or where JAX's float32 is farther from the float64 projection,
+          within a tenth of its distance; with the card's own normals
+          printed beside it), the `.gird` source
+          at JAX's radius (JAX's bits) and the card's radius (within 1e-6 of
+          float64); pipeline_from_file on the first original (radius within
+          1e-6 of float64, JAX's border and count, build_voxel_grid's grid,
+          estimate_oriented_normals' unit normals, the .normal sidecar read
+          back); and `simplify -m wlop -n 2000` and `-m hierarchy` on
+          handg's remesh source as subprocesses (JAX's printed lines; the
+          hierarchy's points JAX's, the WLOP at its bar);
   5. a measurement that gates nothing: on each remesh pair's 8³ field, does
      field_dot at "default" (one bf16 pass) keep candidate 0 and the top-6
      set of "highest" and of field_ave?
@@ -169,6 +199,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -373,6 +404,13 @@ def phase_kernels(torch, dev) -> dict:
     s_pts, s_mask, s_steps = scan["fps"]
     fps_cases.append((s_pts, s_mask, DEFAULT_CONFIG.resample_pad, s_steps,
                       f"large-scan resample: Room seed {scan['seed']}'s compacted octree survivors", "largescan"))
+    # WLOP's start in 4j: one launch a 40960-point tools original, every step of 8000.
+    from kss_icp_torch.challenge import _instance
+
+    tools = load_tools()[0]["config"]
+    fps_cases.append((t(_instance(0, 0, tools["n_points"], sample=0))[None].contiguous(),
+                      torch.ones((1, tools["n_points"]), dtype=torch.bool, device=dev), tools["wlop_points"],
+                      tools["wlop_points"], "WLOP start: a 40960-point tools original (4j)", "tools"))
     cases = []
     for pts, pmask, s, steps, label, batch, *picks in fps_cases:
         b_n, p_n = pmask.shape
@@ -1803,6 +1841,301 @@ def phase_knobs(torch, dev, kernels: dict, e2e: dict, card: str) -> None:
                                                        for m in ("max", "diff"))
 
 
+def sha256(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def load_tools():
+    """fixtures/torch_port_expected_tools.{json,npz}: JAX's record of the tools
+    (scripts/torch_port_expected.py --tools)."""
+    rec = json.loads((FIXTURES / "torch_port_expected_tools.json").read_text())
+    with np.load(FIXTURES / "torch_port_expected_tools.npz") as z:
+        return rec, {k: z[k] for k in z.files}
+
+
+def original_cloud(o: dict, path: Path) -> np.ndarray:
+    """A tools original, `challenge._instance(family, 0, n, sample=0)`, written
+    with save_xyz to `path` and read back as the CLI reads it (float32)."""
+    from kss_icp_torch.challenge import _instance
+    from kss_icp_torch.io.formats import load_points, save_xyz
+
+    save_xyz(path, _instance(o["family"], 0, o["n"], sample=0))
+    pts = load_points(path).astype(np.float32)
+    require(sha256(pts) == o["points_sha256"], f"tools original {o['name']}: its points differ from JAX's record")
+    return pts
+
+
+WLOP_BAR = {"median": 5e-5, "max": 2e-3}  # |Δ| to JAX's samples, in bounding-box diagonals
+# Where JAX's float32 samples are themselves off the float64 solution by more
+# than the bar, the port's |Δ| to it as a share of JAX's: a tenth at the
+# median (the drift of every sample; 0.007-0.013 on the CPU at 40960 points),
+# no more than JAX's at the max (a few samples that 20 steps amplify from any
+# rounding: 0.045-0.56 on the CPU, 0.39 on the card for `se`).
+WLOP_FLOAT64_SHARE = {"median": 0.1, "max": 1.0}
+
+
+def wlop_gaps(got, want, diag: float) -> dict:
+    """|Δ| between (M, 3) samples in bounding-box diagonals: median and max."""
+    d = (got.double() - want.double()).norm(dim=1) / diag
+    return {"median": float(d.median()), "max": float(d.max())}
+
+
+def wlop_bar(got, want, want_f64, jax_f64_gap: dict, diag: float) -> tuple:
+    """The WLOP bar on samples `got`: each statistic of |Δ| to JAX's float32
+    samples within WLOP_BAR, or, where JAX's float32 run is itself that far
+    from the float64 solution (ROADMAP.md queue 3), the port's |Δ| to it
+    within WLOP_FLOAT64_SHARE of JAX's. Returns (ok, figures)."""
+    gaps, to_f64 = wlop_gaps(got, want, diag), wlop_gaps(got, want_f64, diag)
+    ok = all(gaps[k] <= WLOP_BAR[k] or to_f64[k] <= WLOP_FLOAT64_SHARE[k] * jax_f64_gap[k] for k in WLOP_BAR)
+    return ok, {"jax": gaps, "float64": to_f64, "jax_float64": jax_f64_gap}
+
+
+def wlop_text(fig: dict) -> str:
+    return (f"|Δ| to JAX's median {fig['jax']['median']:.3g} max {fig['jax']['max']:.3g} diagonals (bar 5e-5, 2e-3); "
+            f"to float64 median {fig['float64']['median']:.3g} max {fig['float64']['max']:.3g} (JAX's float32 "
+            f"{fig['jax_float64']['median']:.3g}, {fig['jax_float64']['max']:.3g})")
+
+
+def min_pair_dists(torch, x, rows: int = 1024):
+    """Each sample's distance to its nearest other sample (tests/test_wlop.py)."""
+    from kss_icp_torch.ops.nn import exact_sqdist
+
+    out = []
+    for r0 in range(0, x.shape[0], rows):
+        d2 = exact_sqdist(x[r0:r0 + rows], x)
+        d2[torch.arange(d2.shape[0]), torch.arange(r0, r0 + d2.shape[0])] = float("inf")
+        out.append(d2.min(dim=1).values)
+    return torch.cat(out).sqrt()
+
+
+def surface_max(torch, samples, points, rows: int = 512) -> float:
+    """The largest distance from a sample to the nearest input point."""
+    from kss_icp_torch.ops.nn import exact_sqdist
+
+    return max(float(exact_sqdist(samples[r0:r0 + rows], points).min(dim=1).values.max().sqrt())
+               for r0 in range(0, samples.shape[0], rows))
+
+
+def phase_tools(torch, dev, e2e: dict, card: str) -> None:
+    """4j: the resampling and fixture tools at the CLI's defaults on four
+    40960-point originals against fixtures/torch_port_expected_tools.json
+    (JAX on the CPU): make-pairs then batch as subprocesses, then WLOP,
+    hierarchy_simplify, simplification_measure, the `.gird` source and
+    pipeline_from_file in this process, and simplify -m wlop|hierarchy on
+    handg's remesh source."""
+    import io
+    import tempfile
+
+    from kss_icp_torch import cli
+    from kss_icp_torch.io.formats import load_normals, load_points, save_normals, save_xyz
+    from kss_icp_torch.measure_resample import simplification_measure
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_sq, field_trim
+    from kss_icp_torch.ops.nn_cuda import nn1
+    from kss_icp_torch.ops.normals import estimate_oriented_normals
+    from kss_icp_torch.ops.resample_cuda import fps
+    from kss_icp_torch.ops.simplify import grid_simplify, hierarchy_simplify
+    from kss_icp_torch.ops.spatial import build_voxel_grid
+    from kss_icp_torch.ops.wlop import wlop_resample
+    from kss_icp_torch.pipeline import pipeline_from_file
+    from kss_icp_torch.transfer import TransferRecord, apply_record, estimate_radius
+
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim,
+                "field_sq": field_sq}
+    rec, arrays = load_tools()
+    cfg = rec["config"]
+    originals = rec["originals"]
+    walls, out = {}, {"originals": {}}
+
+    def run(label, *args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "kss_icp_torch", *map(str, args)], capture_output=True, text=True,
+                           timeout=600, cwd=REPO)
+        walls[label] = time.perf_counter() - t0
+        log(f"  [tools cli] {label}: exit {r.returncode}, {walls[label]:.2f} s wall ({card})")
+        require(r.returncode == 0, f"tools cli {label}: exit {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        return r.stdout
+
+    def quiet_main(argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return cli.main(argv)
+
+    def counted(label, fn):
+        """fn() with every launch count zeroed just before it and read just after."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        log(f"  [tools] {label}: {seconds:.3f} s, kernel launches {launches}")
+        return result, seconds, launches
+
+    with tempfile.TemporaryDirectory(prefix="kss_tools_") as tmp:
+        tmp = Path(tmp)
+        clouds = {o["name"]: original_cloud(o, tmp / f"{o['name']}.xyz") for o in originals}
+        specs = [f"{o['name']}={tmp / (o['name'] + '.xyz')}:{o['record']['axis']}:{o['record']['angle']}:"
+                 f"{o['record']['scale']}:{o['record']['translation']}" for o in originals]
+
+        # make-pairs, then batch on its output, as a user runs them.
+        printed = run("make-pairs", "make-pairs", *specs, "-o", tmp / "pairs", "--wlop-points", cfg["wlop_points"])
+        lines = dict(ln.split(": ", 1) for ln in printed.strip().splitlines())
+        for o in originals:
+            m = re.fullmatch(r"wlop=(\d+) gird=(\d+) \((.*)\)", lines.get(o["name"], ""))
+            require(m is not None and int(m.group(1)) == o["wlop"]["count"] and m.group(3) == o["line"],
+                    f"make-pairs {o['name']}: printed {lines.get(o['name'])!r}")
+            log(f"  [tools cli] make-pairs {o['name']}: wlop={m.group(1)} gird={m.group(2)} (jax gird="
+                f"{o['gird']['count']}) ({o['line']})")
+            out["originals"][o["name"]] = {"gird_count": int(m.group(2))}
+        (tmp / "list.txt").write_text("".join(o["name"] + "\n" for o in originals))
+        printed = run("batch", "batch", tmp / "list.txt", tmp / "pairs")
+        failures = []
+        for o in originals:
+            m = re.search(rf"^{o['name']} +time=\s*\S+s MSE=\S+ RMSE=(\S+) MAE=\S+$", printed, re.M)
+            rmse = float(m.group(1)) if m else float("nan")
+            ok = np.isfinite(rmse) and rmse <= o["register"]["rmse"] + RMSE_BAND
+            log(f"  [tools cli] batch {o['name']}: RMSE {rmse:.6f} (jax {o['register']['rmse']:.6f} on its own pair) "
+                f"{'ok' if ok else 'FAIL'}")
+            out["originals"][o["name"]]["rmse"] = rmse
+            failures += [] if ok else [o["name"]]
+        require(not failures, f"batch on make-pairs' output: RMSE above JAX + {RMSE_BAND}: {failures}")
+
+        # The same two commands through cli.main in this process: their launches.
+        for label, args in (("make-pairs", ["make-pairs", *specs, "-o", tmp / "pairs2", "--wlop-points",
+                                            cfg["wlop_points"]]),
+                            ("batch", ["batch", tmp / "list.txt", tmp / "pairs2"])):
+            code, _, launches = counted(f"cli.main {label}", lambda: quiet_main([str(a) for a in args]))
+            require(code == 0, f"cli.main {label}: exit {code}")
+            require(launches["fps"] >= len(originals), f"cli.main {label}: fps launched {launches['fps']} times")
+            if label == "batch":
+                require(launches["nn1"] > 0 and launches["field_ave"] >= len(originals),
+                        f"cli.main batch: launches {launches}")
+            out[f"cli.main {label}"] = launches
+
+        wlop_launches = 0
+        for o in originals:
+            name, pts = o["name"], clouds[o["name"]]
+            row = out["originals"][name]
+            pt = torch.as_tensor(pts, device=dev)
+            mt = torch.ones(len(pts), dtype=torch.bool, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            (wl, wm), seconds, launches = counted(f"wlop_resample {name} {len(pts)} -> {cfg['wlop_points']}",
+                                                  lambda: wlop_resample(pt, mt, cfg["wlop_points"]))
+            require(launches["fps"] == 1, f"wlop {name}: fps launched {launches['fps']} times, not once")
+            wlop_launches += launches["fps"]
+            row.update(wlop_ms=seconds * 1e3, wlop_peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+            idx, _ = fps(pt[None], mt[None], cfg["wlop_points"])
+            require(sha256(idx[0].cpu().numpy().astype(np.int32)) == o["fps_start_sha256"],
+                    f"wlop {name}: the fps start's indices differ from JAX's farthest_point_sampling")
+            jwl = torch.as_tensor(arrays[f"{name}_wlop"], device=dev)
+            diag = o["wlop"]["bbox_diag"]
+            ok, fig = wlop_bar(wl, jwl, torch.as_tensor(arrays[f"{name}_wlop_f64"], device=dev),
+                               o["wlop"]["float64_gap"], diag)
+            spacing = min_pair_dists(torch, wl)
+            cv = float(spacing.std() / spacing.mean())
+            on_surface = surface_max(torch, wl, pt)
+            row.update(wlop_gaps=fig, spacing_cv=cv, on_surface=on_surface)
+            log(f"  [tools] wlop {name}: {seconds * 1e3:.1f} ms, peak {row['wlop_peak_mib']} MiB; {wlop_text(fig)}; "
+                f"spacing CV {cv:.5f} (jax {o['wlop']['spacing_cv']:.5f}); on-surface max {on_surface:.6f} (jax "
+                f"{o['wlop']['on_surface_max']:.6f}); fps start = JAX's ({card})")
+            require(int(wm.sum()) == o["wlop"]["count"], f"wlop {name}: {int(wm.sum())} samples")
+            require(ok, f"wlop {name}: outside the WLOP bar: {fig}")
+            require(abs(cv / o["wlop"]["spacing_cv"] - 1.0) <= 0.02, f"wlop {name}: spacing CV {cv}")
+            require(on_surface <= o["wlop"]["on_surface_max"] + 1e-3 * diag, f"wlop {name}: off the surface")
+
+            (_, keep), seconds, _ = counted(f"hierarchy_simplify {name}", lambda: hierarchy_simplify(
+                pt, mt, cfg["cluster_size"]))
+            kept = np.nonzero(keep.cpu().numpy())[0]
+            same = np.array_equal(kept, arrays[f"{name}_hierarchy"])
+            row.update(hierarchy_ms=seconds * 1e3, hierarchy_count=int(len(kept)), hierarchy_same=same)
+            log(f"  [tools] hierarchy {name}: {len(kept)} kept (jax {o['hierarchy']['count']}), "
+                f"{'the same set' if same else 'SETS DIFFER'}, {seconds * 1e3:.1f} ms")
+            require(same, f"hierarchy {name}: the kept set differs from JAX's")
+
+            jmask = torch.ones(len(jwl), dtype=torch.bool, device=dev)
+            given = torch.as_tensor(arrays[f"{name}_wlop_normals"], device=dev)
+            (meas, seconds, _) = counted(f"simplification_measure {name}", lambda: simplification_measure(
+                pt, mt, jwl, jmask, normals=given))
+            meas = {k: float(v) for k, v in meas.items()}
+            own = {k: float(v) for k, v in simplification_measure(pt, mt, jwl, jmask).items()}
+            row.update(measure_ms=seconds * 1e3, measure=meas, measure_own_normals=own)
+            j = o["measure"]
+            f64 = o["measure_f64"]
+            log(f"  [tools] measure {name} (JAX's WLOP, JAX's normals): avg {meas['avg_displacement']:.6g} max "
+                f"{meas['max_displacement']:.6g} rate {meas['sampling_rate']:.6g} (jax {j['avg_displacement']:.6g}, "
+                f"{j['max_displacement']:.6g}, {j['sampling_rate']:.6g}; float64 {f64['avg_displacement']:.6g}, "
+                f"{f64['max_displacement']:.6g}); with the card's own normals avg {own['avg_displacement']:.6g} max "
+                f"{own['max_displacement']:.6g}; {seconds * 1e3:.1f} ms")
+            require(meas["sampling_rate"] == j["sampling_rate"], f"measure {name}: sampling rate")
+            for k in ("avg_displacement", "max_displacement"):
+                # rtol 1e-4 of JAX's, or, where JAX's float32 is farther than that
+                # from the float64 projection (ROADMAP.md queue 3), within a
+                # tenth of JAX's distance to it.
+                f64 = o["measure_f64"][k]
+                require(abs(meas[k] / j[k] - 1.0) <= 1e-4 or abs(meas[k] / f64 - 1.0) <= 0.1 * abs(j[k] / f64 - 1.0),
+                        f"measure {name}: {k} {meas[k]} against JAX's {j[k]} (float64 {f64})")
+
+            rec_ = TransferRecord(**o["record"])
+            gp, gm = grid_simplify(pt, mt, o["radius"] / 1.5)
+            source = apply_record(gp[gm].cpu().numpy().astype(np.float64), rec_)
+            require(sha256(source) == o["gird"]["sha256"], f"make_pair {name}: the .gird at JAX's radius is not JAX's")
+            radius, seconds, _ = counted(f"estimate_radius {name}", lambda: estimate_radius(pts, device=dev))
+            row.update(radius=radius, radius_ms=seconds * 1e3)
+            log(f"  [tools] .gird {name}: at JAX's radius {len(source)} points, JAX's bit for bit; the card's radius "
+                f"{radius:.9g} (float64 {o['radius_f64']:.9g}, jax {o['radius']:.9g}), rel {radius / o['radius_f64'] - 1:.2e}")
+            require(abs(radius / o["radius_f64"] - 1.0) <= 1e-6, f"radius {name}: {radius} against {o['radius_f64']}")
+
+        # pipeline_from_file on the first original, twice: the sidecar round trip.
+        o = originals[0]
+        path = tmp / f"pipe_{o['name']}.xyz"
+        save_xyz(path, load_points(tmp / f"{o['name']}.xyz"))
+        state, seconds, _ = counted(f"pipeline_from_file {o['name']}", lambda: pipeline_from_file(path, device=dev))
+        pipe = o["pipeline"]
+        grid = build_voxel_grid(torch.as_tensor(state.points, device=dev), torch.as_tensor(state.mask, device=dev),
+                                state.boxes_per_axis)
+        nrm = estimate_oriented_normals(torch.as_tensor(state.points, device=dev),
+                                        torch.as_tensor(state.mask, device=dev)).cpu().numpy()
+        log(f"  [tools] pipeline_from_file {o['name']}: {seconds:.3f} s; radius {state.radius:.9g} (float64 "
+            f"{pipe['radius_f64']:.9g}, jax {pipe['radius']:.9g}); border {state.border.tolist()} (jax {pipe['border']})")
+        require(abs(state.radius / pipe["radius_f64"] - 1.0) <= 1e-6, f"pipeline radius {state.radius}")
+        require(state.border.tolist() == pipe["border"] and state.count == pipe["count"] and
+                state.boxes_per_axis == pipe["boxes_per_axis"], "pipeline: border, count or boxes differ from JAX's")
+        require(all(torch.equal(a, b) for a, b in zip(state.grid, grid)), "pipeline: grid is not build_voxel_grid's")
+        require(np.array_equal(state.normals[:state.count], nrm[:state.count]), "pipeline: normals differ")
+        require(np.allclose(np.linalg.norm(state.normals[:state.count], axis=1), 1.0, atol=1e-4), "pipeline: not unit")
+        sidecar = path.with_suffix(".normal")
+        require(sidecar.exists() and load_normals(sidecar).shape == (state.count, 3), "pipeline: no sidecar")
+        marked = np.tile(np.float32([[0.0, 0.0, 1.0]]), (state.count, 1))
+        save_normals(sidecar, marked)
+        again, seconds2, _ = counted(f"pipeline_from_file {o['name']} (sidecar)", lambda: pipeline_from_file(
+            path, device=dev))
+        require(np.array_equal(again.normals[:state.count], marked), "pipeline: the sidecar was not read back")
+        out["pipeline"] = {"seconds": seconds, "sidecar_seconds": seconds2, "radius": state.radius}
+
+        # simplify -m wlop | hierarchy on handg's remesh source.
+        cw, ch = rec["cli_wlop"], rec["cli_hierarchy"]
+        src = next(a for n, a, _ in load_pairs() if n == cw["name"])
+        save_xyz(tmp / cw["file"], src)
+        pts = load_points(tmp / cw["file"])
+        printed = run("simplify -m wlop", "simplify", tmp / cw["file"], tmp / "w.xyz", "-m", "wlop", "-n", cw["count"])
+        require(printed.strip() == cw["printed"], f"simplify -m wlop printed {printed.strip()!r}")
+        got = torch.as_tensor(load_points(tmp / "w.xyz"))
+        ok, fig = wlop_bar(got, torch.as_tensor(arrays["cli_wlop"]), torch.as_tensor(arrays["cli_wlop_f64"]),
+                           cw["float64_gap"], float(np.linalg.norm(pts.max(0) - pts.min(0))))
+        log(f"  [tools cli] simplify -m wlop -n {cw['count']} on {cw['file']}: {printed.strip()}; {wlop_text(fig)}")
+        require(ok, f"simplify -m wlop: outside the WLOP bar: {fig}")
+        printed = run("simplify -m hierarchy", "simplify", tmp / ch["file"], tmp / "h.xyz", "-m", "hierarchy")
+        require(printed.strip() == ch["printed"], f"simplify -m hierarchy printed {printed.strip()!r}")
+        require(np.array_equal(load_points(tmp / "h.xyz"), pts[arrays["cli_hierarchy"]]),
+                "simplify -m hierarchy: the points differ from JAX's picks")
+        log(f"  [tools cli] simplify -m hierarchy on {ch['file']}: {printed.strip()}, JAX's points")
+    out["walls"] = walls
+    e2e["passes"]["tools"] = dict(out, launches={"fps": wlop_launches})
+
+
 def phase_bf16_ranking(torch, dev) -> None:
     """Does the bf16 dot field keep the 8³ ranking? Gates nothing."""
     from kss_icp_torch.config import DEFAULT_CONFIG as cfg
@@ -1903,7 +2236,6 @@ def main() -> int:
 
     log("== 4h. the command line on the card: python -m kss_icp_torch")
     phase_cli(torch, dev, e2e, card)
-    attach_pass_launches(kernels, e2e)
     for n, count in p["cli"]["launches"].items():
         kernels[n]["cli_launches"] = count
 
@@ -1914,6 +2246,15 @@ def main() -> int:
         f"; register_many aivs {p['many aivs']['pairs_per_s']:.3f}, point_to_plane "
         f"{p['many point_to_plane']['pairs_per_s']:.3f}; category at point_to_plane "
         f"{p['knob point_to_plane category']['passed']}/32 pass ({card})")
+
+    log("== 4j. the tools: make-pairs -> batch, WLOP, hierarchy, measure-resample, the pipeline at 40960 points")
+    phase_tools(torch, dev, e2e, card)
+    attach_pass_launches(kernels, e2e)
+    t = p["tools"]
+    log("tools: " + "; ".join(f"{n} wlop {r['wlop_ms']:.1f} ms (peak {r['wlop_peak_mib']:.1f} MiB), hierarchy "
+                              f"{r['hierarchy_ms']:.1f} ms, measure {r['measure_ms']:.1f} ms, RMSE {r['rmse']:.6f}"
+                              for n, r in t["originals"].items()) +
+        "; walls " + ", ".join(f"{k} {v:.2f} s" for k, v in t["walls"].items()) + f" ({card})")
 
     log("== 5. bf16 dot field against the float32 fields (gates nothing)")
     phase_bf16_ranking(torch, dev)

@@ -13,10 +13,8 @@ lines and JSON keys, so a script that parses one parses the other.
 Every subcommand runs on the card (`--device cuda`, the default) unless
 `--device cpu` asks for the plain PyTorch path; `--device cuda` without a
 card exits with status 1 and never falls back to the CPU. The JAX CLI's
-`--platform` is `--device` here. Subcommands and methods whose modules are
-not ported yet (make-pairs, measure-resample, view, simplify -m
-wlop|hierarchy) are parsed, then exit with status 2 naming their ROADMAP.md
-item.
+`--platform` is `--device` here. `view`, whose module is not ported yet, is
+parsed, then exits with status 2 naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -354,22 +352,16 @@ def _measure(args) -> int:
     return 0
 
 
-def _fps_points(cloud, count: int):
-    """FPS of one padded cloud to `count` slots through the `fps` kernel:
-    the gathered (count, 3) points and their mask (JAX's fps_points)."""
-    from kss_icp_torch.ops.resample_cuda import fps
-
-    idx, mask = fps(cloud.points[None], cloud.mask[None], count)
-    return cloud.points[idx[0].long()] * mask[0, :, None].to(cloud.points.dtype), mask[0]
-
-
 def _resample(args) -> int:
     device = _device(args)
     from kss_icp_torch.core.cloud import PointCloud
     from kss_icp_torch.io.formats import load_points, save_xyz
 
+    from kss_icp_torch.ops.resample import fps_points
+
     pts = load_points(args.input)
-    out, mask = _fps_points(PointCloud.from_points(pts, device=device), args.count)
+    cloud = PointCloud.from_points(pts, device=device)
+    out, mask = fps_points(cloud.points, cloud.mask, args.count)
     save_xyz(args.output, out[mask].cpu().numpy())
     print(f"resampled {pts.shape[0]} -> {int(mask.sum())}")
     return 0
@@ -377,9 +369,7 @@ def _resample(args) -> int:
 
 def _simplify(args) -> int:
     """Cloud simplification front-end — the Method_CGAL / Method_Octree / AIVS
-    tool surface (fps, aivs, grid, octree; wlop and hierarchy are not ported)."""
-    if args.method in ("wlop", "hierarchy"):
-        _unported(f"simplify -m {args.method}", args.method)
+    tool surface (grid, hierarchy, wlop, octree, aivs, fps)."""
     device = _device(args)
     import torch
 
@@ -391,17 +381,27 @@ def _simplify(args) -> int:
     pj, mj = cloud.points, cloud.mask
 
     if args.method == "fps":
-        out, mask = _fps_points(cloud, args.count)
+        from kss_icp_torch.ops.resample import fps_points
+
+        out, mask = fps_points(pj, mj, args.count)
     elif args.method == "aivs":
         from kss_icp_torch.ops.aivs import aivs_resample
 
         out, mask = aivs_resample(pj, mj, args.count)
+    elif args.method == "wlop":
+        from kss_icp_torch.ops.wlop import wlop_resample
+
+        out, mask = wlop_resample(pj, mj, min(args.count, int(cloud.count)))
     elif args.method == "grid":
         from kss_icp_torch.ops.simplify import grid_simplify
         from kss_icp_torch.ops.spatial import estimate_radius
 
         cell = args.cell if args.cell else float(estimate_radius(pj, mj)) / 1.5
         out, mask = grid_simplify(pj, mj, torch.tensor(cell, dtype=pj.dtype, device=device))
+    elif args.method == "hierarchy":
+        from kss_icp_torch.ops.simplify import hierarchy_simplify
+
+        out, mask = hierarchy_simplify(pj, mj, max_cluster_size=args.cluster_size)
     else:  # octree
         from kss_icp_torch.ops.simplify import octree_simplify
 
@@ -414,11 +414,44 @@ def _simplify(args) -> int:
 
 
 def _make_pairs(args) -> int:
-    _unported("make-pairs", "make-pairs; it needs wlop")
+    """Synthetic benchmark-pair generation — the TransferPC driver
+    (transferPC.hpp): resample to .wlop/.gird and perturb by a recorded
+    transform, logging transfer.txt."""
+    device = _device(args)
+    from kss_icp_torch.io.formats import load_points
+    from kss_icp_torch.transfer import TransferRecord, generate_fixture_set
+
+    clouds, records = [], []
+    for spec in args.cloud:
+        # name=path[:axis:angle[:scale[:translation]]]
+        name_path, *rest = spec.split(":")
+        name, path = name_path.split("=")
+        axis = rest[0] if rest else "x"
+        angle = float(rest[1]) if len(rest) > 1 else 0.0
+        scale = float(rest[2]) if len(rest) > 2 else 1.0
+        trans = float(rest[3]) if len(rest) > 3 else 0.0
+        clouds.append((name, load_points(path)))
+        records.append(TransferRecord(name, axis, angle, scale, trans))
+    pairs = generate_fixture_set(clouds, records, args.output_dir, device=device, wlop_points=args.wlop_points)
+    for p in pairs:
+        print(f"{p.name}: wlop={p.target.shape[0]} gird={p.source.shape[0]} "
+              f"({p.record.line()})")
+    return 0
 
 
 def _measure_resample(args) -> int:
-    _unported("measure-resample", "measure_resample")
+    """Resampling-quality metric — simMeasurement (pointCloudMeasure.hpp)."""
+    device = _device(args)
+    from kss_icp_torch.core.cloud import PointCloud
+    from kss_icp_torch.io.formats import load_points
+    from kss_icp_torch.measure_resample import simplification_measure
+
+    original = PointCloud.from_points(load_points(args.original), device=device)
+    simplified = PointCloud.from_points(load_points(args.simplified), device=device)
+    m = simplification_measure(original.points, original.mask, simplified.points, simplified.mask)
+    for k, v in m.items():
+        print(f"{k}: {float(v):.6g}")
+    return 0
 
 
 def _view(args) -> int:
@@ -626,7 +659,7 @@ def main(argv=None) -> int:
     p.set_defaults(fn=_simplify)
 
     p = sub.add_parser("make-pairs",
-                       help="generate synthetic benchmark pairs (TransferPC; not ported yet)")
+                       help="generate synthetic benchmark pairs (TransferPC)")
     p.add_argument("cloud", nargs="+",
                    help="name=path[:axis:angle[:scale[:translation]]]")
     p.add_argument("-o", "--output-dir", default="pairs")
@@ -635,7 +668,7 @@ def main(argv=None) -> int:
     p.set_defaults(fn=_make_pairs)
 
     p = sub.add_parser("measure-resample",
-                       help="MLS displacement quality of a simplified cloud (not ported yet)")
+                       help="MLS displacement quality of a simplified cloud")
     p.add_argument("original")
     p.add_argument("simplified")
     add_device(p)

@@ -7,7 +7,9 @@
 // Contract, per cloud: score_i = squared distance of valid point i to the
 // masked centroid (invalid points -1). Step s picks sel = the first index of
 // max(score), writes it to idx[s], and replaces (s == 0) or mins (s > 0) every
-// valid score with the squared distance to point sel, ((dx*dx + dy*dy) + dz*dz).
+// valid score with the squared distance to point sel, fma(dz, dz, fma(dy, dy,
+// dx*dx)): XLA's CPU backend contracts JAX's jitted farthest_point_sampling's
+// sum of squares so, and a near-tie of a 40960-point cloud parts on it.
 // Only the first `steps` picks are made; idx[steps..S) is 0. The centroid
 // comes from the wrapper, computed by the same torch op as the plain version,
 // so both see the same seed scores.
@@ -24,7 +26,7 @@
 //     point is one broadcast load. Wider clouds keep float4 (x, y, z, score)
 //     in shared memory (P <= 12800) or in a global workspace that stays in
 //     L2 (the K = 0 path);
-//   - a step costs a thread, per point, the distance (8 operations), one
+//   - a step costs a thread, per point, the distance (6 operations), one
 //     fminf (an invalid point's -1 stays below any distance, so no branch)
 //     and a strict '>' against its running best (the first index stays);
 //   - an argmax without shuffle chains: a valid score s >= 0 maps to the
@@ -43,8 +45,9 @@
 // (PERF.md): the loop stores to the buffer it loads from, so its L2 loads go
 // out about one at a time and latency, not bytes, sets the time. Every index
 // fits an int: the largest, 3 * P, is below 2^20; per-cloud offsets are size_t.
-// Distances round without FMA (-fmad=false and __f*_rn), so picks equal the
-// plain version's.
+// Distances round as two explicit fused multiply-adds over a rounded dx*dx
+// (__fmaf_rn and __f*_rn; -fmad=false contracts nothing else), so picks equal
+// the plain version's.
 
 #include <cuda_runtime.h>
 
@@ -60,7 +63,7 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, 
   const float dx = __fsub_rn(ax, bx);
   const float dy = __fsub_rn(ay, by);
   const float dz = __fsub_rn(az, bz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+  return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
 }
 
 // Valid scores are >= 0 (or +inf before the first update); invalid ones -1,

@@ -68,6 +68,7 @@ from kss_icp_torch.ops.aivs import aivs_resample_packed
 from kss_icp_torch.ops.nn import masked_mean, masked_quantile_threshold, trimmed_masked_mean
 from kss_icp_torch.ops.nn_cuda import MAX_LANES, nn1
 from kss_icp_torch.ops.normals import estimate_normals
+from kss_icp_torch.ops.resample import fps_points
 from kss_icp_torch.ops.resample_cuda import fps
 from kss_icp_torch.ops.spatial import estimate_box_scale
 
@@ -458,6 +459,22 @@ def resample_pairs(
     rp, rm = resample_batch(pts, msk, torch.cat([pnumber, pnumber], dim=0), cfg, pad, steps)
     b = source_points.shape[0]
     return (rp[:b], rm[:b]), (rp[b:], rm[b:])
+
+
+def resample_for_registration(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    pnumber: Union[int, torch.Tensor],
+    cfg: KSSICPConfig = DEFAULT_CONFIG,
+    pad: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """FPS-resample one padded (N, 3) cloud to (pad or cfg.resample_pad, 3),
+    keeping `pnumber` valid samples (kss_icp_tpu/models/kss_icp.py:839-851):
+    one `fps` launch on the card, whatever cfg.resampler says, as in JAX."""
+    p = pad if pad is not None else cfg.resample_pad
+    pts, smask = fps_points(points, mask, p)
+    smask = smask & (torch.arange(p, device=points.device) < torch.as_tensor(pnumber, device=points.device))
+    return pts * smask[:, None].to(points.dtype), smask
 
 
 def _resolve_aivs_boxes(cfg: KSSICPConfig, n_valid: int) -> KSSICPConfig:

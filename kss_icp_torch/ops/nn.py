@@ -178,10 +178,38 @@ def masked_nn_error(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Te
 _KNN_BLOCK_ELEMS = 1 << 22
 
 
+def exact_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared distances between (..., Q, 3) and (..., R, 3) points in exact
+    float32 differences, (dx² + dy²) + dz²: exactly 0 between coincident
+    points, where `pairwise_sqdist`'s expansion leaves a rounding residue."""
+    dx = a[..., :, None, 0] - b[..., None, :, 0]
+    dy = a[..., :, None, 1] - b[..., None, :, 1]
+    dz = a[..., :, None, 2] - b[..., None, :, 2]
+    return dx * dx + dy * dy + dz * dz
+
+
+def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """Squared Euclidean distances between (..., Q, 3) and (..., R, 3) by the
+    expansion ‖a‖² + ‖b‖² − 2a·b, clamped at zero (kss_icp_tpu/ops/nn.py:27-49).
+
+    `precision` is JAX's keyword: the port's float32 products never use TF32
+    (kss_icp_torch/__init__.py), so "highest" is the only one. The port's own
+    weighted sums (ops/wlop.py, measure_resample.py) take `exact_sqdist`
+    instead: the expansion in eager float32 leaves up to ~3e-5 between a point
+    and itself, where XLA's jitted expansion gives JAX's exact 0, and through
+    WLOP's 1/r weight that residue moves a sample's weight on its own input
+    point from 9.2e18 to about 1.8e2."""
+    if precision != "highest":
+        raise ValueError(f"pairwise_sqdist computes in float32 at 'highest' precision, not {precision!r}")
+    a2 = (a * a).sum(dim=-1)
+    b2 = (b * b).sum(dim=-1)
+    ab = torch.einsum("...qi,...ri->...qr", a, b)
+    return (a2[..., :, None] + b2[..., None, :] - 2.0 * ab).clamp_min(0.0)
+
+
 def _sqdist(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> torch.Tensor:
     """Exact float32 (dx² + dy²) + dz², 1e30 at a masked reference row."""
-    d = query[..., :, None, :] - ref[..., None, :, :]
-    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    d2 = exact_sqdist(query, ref)
     return torch.where(ref_mask[..., None, :], d2, torch.full_like(d2, BIG))
 
 
@@ -211,3 +239,19 @@ def knn(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, k: int) 
         d2.append(vals[..., :k])
         idx.append(ix[..., :k])
     return torch.cat(d2, dim=-2), torch.cat(idx, dim=-2)
+
+
+def knn_kth_sqdist(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th smallest squared distance of each query among the reference
+    rows: `knn(...)[0][..., k - 1]`, the same value, by a top-k of each block
+    of rows in place of knn's whole stable sort (the value does not depend on
+    the order of ties). (..., Q) float32; a masked reference row scores
+    1e30."""
+    q, r = query.shape[-2], ref.shape[-2]
+    if k > r:
+        raise ValueError(f"knn: k={k} is larger than the {r} reference rows")
+    lead = torch.broadcast_shapes(query.shape[:-2], ref.shape[:-2], ref_mask.shape[:-1]).numel()
+    rows = max(1, _KNN_BLOCK_ELEMS // max(1, r * lead))
+    kth = [torch.topk(_sqdist(query[..., i:i + rows, :], ref, ref_mask), k, dim=-1, largest=False).values[..., -1]
+           for i in range(0, q, rows)]
+    return torch.cat(kth, dim=-1)

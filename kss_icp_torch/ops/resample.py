@@ -3,8 +3,10 @@ kss_icp_tpu/ops/resample.py).
 
 `farthest_point_sampling` is the CPU path of the `fps` wrapper and the
 reference of its CUDA kernel (ops/resample_cuda.py, csrc/fps.cu). Squared
-distances are summed in the kernel's order, (dx² + dy²) + dz², so index
-sequences agree exactly.
+distances round as XLA's CPU backend rounds them inside JAX's jitted
+farthest_point_sampling, fma(dz, dz, fma(dy, dy, dx²)), and as the kernel
+does: on a 40960-point cloud a near-tie at step 3530 picks otherwise when
+the squares are rounded one by one (tests/test_torch_wlop.py).
 
 `voxel_downsample` keeps, per occupied voxel, the real point nearest the
 voxel centre (Method_Octree.hpp:20-108): a sort by (voxel key, distance to
@@ -32,11 +34,14 @@ VOXEL_PAD_KEY = 2_100_000  # the key of padding rows: past the clip, so they sor
 
 
 def sqdist3(points: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """((dx² + dy²) + dz²) between (..., N, 3) points and (..., 3) points."""
+    """fma(dz, dz, fma(dy, dy, dx²)) between (..., N, 3) points and (..., 3)
+    points (float32), or the sum of squares in another dtype."""
     dx = points[..., 0] - p[..., None, 0]
     dy = points[..., 1] - p[..., None, 1]
     dz = points[..., 2] - p[..., None, 2]
-    return dx * dx + dy * dy + dz * dz
+    if points.dtype != torch.float32:
+        return dx * dx + dy * dy + dz * dz
+    return fma32(dz, dz, fma32(dy, dy, dx * dx))
 
 
 def fps_centroid(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -85,6 +90,17 @@ def farthest_point_sampling(points: torch.Tensor, mask: torch.Tensor, num_sample
         d2 = torch.where(mask, sqdist3(points, points[rows, sel]), neg)
         score = d2 if s == 0 else torch.minimum(score, d2)
     return idx.to(torch.int32), sample_mask(mask, num_samples, steps)
+
+
+def fps_points(points: torch.Tensor, mask: torch.Tensor, num_samples: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FPS of one padded (P, 3) cloud returning the gathered (num_samples, 3)
+    points, zero in the masked slots, and their (num_samples,) mask
+    (kss_icp_tpu/ops/resample.py:70-75): one launch of the `fps` kernel on a
+    CUDA tensor, the plain loop above on a CPU one."""
+    from kss_icp_torch.ops.resample_cuda import fps  # that module imports this one
+
+    idx, smask = fps(points[None].contiguous(), mask[None].contiguous(), num_samples)
+    return points[idx[0].long()] * smask[0, :, None].to(points.dtype), smask[0]
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from kss_icp_torch.ops.nn import BIG, knn
+from kss_icp_torch.ops.nn import BIG, knn, knn_kth_sqdist
 from kss_icp_torch.ops.resample import fma32
 
 
@@ -72,13 +72,22 @@ def segment_ids(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
 
 def segment_reduce(values: torch.Tensor, gseg: torch.Tensor, total: int, op: str, init) -> torch.Tensor:
     """Reduce (N, ...) values into `total` segments by flat ids gseg (N,):
-    op "sum" adds in index order (index_put_ with accumulate, which runs
-    serially on the CPU and as a stable sort with sequential sums on CUDA,
-    so the bits are XLA's and do not change from run to run); "amax" and
-    "amin" do not depend on the order. Untouched segments keep `init`."""
+    op "sum" adds in index order (index_put_ with accumulate, which runs as a
+    stable sort with sequential sums on CUDA, and serially on the CPU in
+    deterministic mode, so the bits are XLA's and do not change from run to
+    run); "amax" and "amin" do not depend on the order. Untouched segments
+    keep `init`."""
     out = torch.full((total,) + values.shape[1:], init, dtype=values.dtype, device=values.device)
     if op == "sum":
-        return out.index_put_((gseg,), values, accumulate=True)
+        if values.device.type != "cpu" or torch.are_deterministic_algorithms_enabled():
+            return out.index_put_((gseg,), values, accumulate=True)
+        # Outside deterministic mode the CPU adds float32 rows of 32768 or more
+        # elements with atomic adds across its threads, in no fixed order.
+        torch.use_deterministic_algorithms(True)
+        try:
+            return out.index_put_((gseg,), values, accumulate=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
     idx = gseg.view((-1,) + (1,) * (values.dim() - 1)).expand(values.shape)
     return out.scatter_reduce_(0, idx, values, op, include_self=True)
 
@@ -128,8 +137,7 @@ def estimate_radius(points: torch.Tensor, mask: torch.Tensor, k: int = 12) -> to
     """Global support radius: the largest k-NN distance over the valid points
     (kss_icp_tpu/ops/spatial.py:133-141; BallRegion_EstimateRadius_KDTree,
     pointNumEsti=12). The self-match is excluded by asking for k + 1."""
-    d2, _ = knn(points, points, mask, k + 1)
-    kth = torch.sqrt(d2[..., -1])
+    kth = torch.sqrt(knn_kth_sqdist(points, points, mask, k + 1))
     return torch.where(mask, kth, torch.full_like(kth, -1.0)).max(dim=-1).values
 
 

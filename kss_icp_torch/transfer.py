@@ -9,9 +9,10 @@ TransferPC_Scale :100-121; uniform translation, TransferPC_Translate
 :123-130) and their inverses (`unapply_record` is the JAX CLI's bench-dir
 `truth_aligned`, kss_icp_tpu/cli.py:280-288), the 12-NN support radius, and writing a pair in
 count format (truncating, where the reference appends with `ios::app`,
-SURVEY.md §5.4). Generating a pair needs the WLOP resampler, which is not
-ported yet: `make_pair` and `generate_fixture_set` raise
-NotImplementedError (ROADMAP.md queue 1 item 13, wlop).
+SURVEY.md §5.4), and generating pairs: `make_pair` resamples a cloud to its
+WLOP target and its grid source on the device (the card unless the caller
+passes device="cpu"), `generate_fixture_set` writes a set of them with its
+transfer.txt.
 
 The transforms are host-side numpy in float64, as in the JAX package.
 """
@@ -182,12 +183,38 @@ def make_pair(
     wlop_points: int = 8000,
     grid_cell: Optional[float] = None,
     wlop_iterations: int = 20,
+    device="cuda",
 ) -> TransferPair:
-    """A (source, target) benchmark pair from one cloud (TransferPC_Resample,
-    transferPC.hpp:144-151; kss_icp_tpu/transfer.py:181-216): its target is a
-    WLOP resample, which the port does not have yet."""
-    raise NotImplementedError("kss_icp_torch does not implement make_pair yet: it needs the WLOP "
-                              "resampler, ROADMAP.md queue 1 item 13 (wlop)")
+    """Produce a (source, target) benchmark pair from one cloud, mirroring
+    TransferPC_Resample (transferPC.hpp:144-151; kss_icp_tpu/transfer.py:181-216):
+    target = WLOP(wlop_points), source = grid_simplify(cell = radius/1.5) then
+    perturbed by `record`. The cloud is padded to a multiple of 256 rows, as
+    in JAX, so that WLOP's FPS start and support radius are JAX's."""
+    import torch
+
+    from kss_icp_torch.ops.simplify import grid_simplify
+    from kss_icp_torch.ops.wlop import wlop_resample
+
+    pts = np.asarray(points, dtype=np.float32)
+    n = pts.shape[0]
+    pad = ((n + 255) // 256) * 256
+    padded = np.zeros((pad, 3), np.float32)
+    padded[:n] = pts
+    mask = np.zeros((pad,), bool)
+    mask[:n] = True
+    pt, mt = torch.as_tensor(padded, device=device), torch.as_tensor(mask, device=device)
+
+    radius = estimate_radius(pts, device=device) if grid_cell is None else grid_cell * 1.5
+    m = min(wlop_points, n)
+    wl, _ = wlop_resample(pt, mt, m, iterations=wlop_iterations)
+    target = wl.cpu().numpy().astype(np.float64)
+
+    gr_pts, gr_mask = grid_simplify(pt, mt, radius / 1.5)
+    source = apply_record(gr_pts[gr_mask].cpu().numpy().astype(np.float64), record)
+    return TransferPair(
+        name=record.name, target=target, source=source, record=record,
+        radius=radius,
+    )
 
 
 def save_pair(pair: TransferPair, out_dir: PathLike) -> Tuple[Path, Path]:
@@ -208,9 +235,18 @@ def generate_fixture_set(
     clouds: List[Tuple[str, np.ndarray]],
     records: List[TransferRecord],
     out_dir: PathLike,
+    device="cuda",
     **kwargs,
 ) -> List[TransferPair]:
-    """Batch fixture generation and its transfer.txt log (kss_icp_tpu/transfer.py:233-249):
-    every pair goes through `make_pair`, so it needs WLOP too."""
-    raise NotImplementedError("kss_icp_torch does not implement generate_fixture_set yet: it needs the "
-                              "WLOP resampler, ROADMAP.md queue 1 item 13 (wlop)")
+    """Batch fixture generation + transfer.txt log — the full TransferPC
+    driver loop shape (kss_icp_tpu/transfer.py:233-249); `device` and
+    `kwargs` go to `make_pair`."""
+    by_name = {r.name: r for r in records}
+    pairs = []
+    for name, pts in clouds:
+        rec = by_name.get(name, TransferRecord(name=name))
+        pair = make_pair(pts, rec, device=device, **kwargs)
+        save_pair(pair, out_dir)
+        pairs.append(pair)
+    save_transfer_log(Path(out_dir) / "transfer.txt", records)
+    return pairs

@@ -14,7 +14,7 @@ import sys
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import IO, Union
+from typing import IO, Optional, Union
 
 PathLike = Union[str, Path]
 
@@ -69,3 +69,14 @@ class JsonlLogger:
     def close(self) -> None:
         if self._own:
             self._stream.close()
+
+
+_default: Optional[JsonlLogger] = None
+
+
+def get_logger() -> JsonlLogger:
+    """Process-wide default logger (stderr)."""
+    global _default
+    if _default is None:
+        _default = JsonlLogger()
+    return _default

@@ -61,7 +61,27 @@ Three records, each a JSON file under fixtures/:
   the largest remesh source written with save_xyz and read back
   (`cli_aivs`: the selected indices, in input order), written to
   fixtures/torch_port_expected_variants.json. `--shard`/`--merge` as for
-  `--overlap`.
+  `--overlap`;
+* `--tools`: the resampling and fixture tools at the CLI's defaults, written
+  to fixtures/torch_port_expected_tools.json with the arrays in
+  fixtures/torch_port_expected_tools.npz. Four originals of 40960 points,
+  `challenge._instance(f, 0, 40960, sample=0)` for the four families, each
+  written with save_xyz and read back as the CLI reads it; per original the
+  SHA-256 of its float32 points, of farthest_point_sampling's 8000 indices
+  (WLOP's start) and of the `.gird` source, `make_pair`'s WLOP target (npz
+  `<name>_wlop`) with its spacing CV, on-surface distance and gap to the
+  float64 solution (`<name>_wlop_f64`: JAX's steps in float64 from the same
+  FPS start, jax_enable_x64), JAX's and the
+  float64 support radius, hierarchy_simplify's kept indices at cluster size
+  10 (`<name>_hierarchy`), simplification_measure(original, its WLOP) with
+  JAX's PCA normals of the WLOP (`<name>_wlop_normals`) and the same
+  projection in float64 with those normals, the pipeline's
+  radius (JAX's and float64) and border on the [-1, 1]³ cloud, and
+  register_pair's RMSE at DEFAULT_CONFIG on JAX's own pair, read back from
+  the files `save_pair` wrote, as the CLI's `batch` does; then `simplify -m
+  wlop -n 2000` (`cli_wlop`, and in float64 `cli_wlop_f64`) and `-m
+  hierarchy` (`cli_hierarchy`) on the remesh source that `--variants` gave
+  `simplify -m aivs`. About 9 min on an 8-core CPU.
 
 Per pair: the chosen candidate, ICP fitness, ICP iteration count, the
 hit-cap flag, the similarity transform and the full-resolution RMSE; with
@@ -80,7 +100,7 @@ fitness was above overlap_threshold when the rung began. chip_smoke.py and tests
 port to these records.
 
     JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation | --overlap | --batch | --largescan
-        | --precise | --variants] [--limit N] [--shard I/N] [--out PATH]
+        | --precise | --variants | --tools] [--limit N] [--shard I/N] [--out PATH]
     python scripts/torch_port_expected.py [--overlap | --batch | --precise | --variants] --merge SHARD.json ...
         [--out PATH]
 
@@ -113,6 +133,12 @@ VARIANTS = {"aivs": dict(resampler="aivs"), "point_to_plane": dict(icp_variant="
             "max": dict(coarse_error_metric="max"), "diff": dict(coarse_error_metric="diff")}
 MANY_CHUNK = 2  # register_many sub-batch: pairs a call
 CLI_AIVS_COUNT = 2000  # simplify -m aivs -n 2000
+# --tools: the originals' size (about the Stanford Bunny's 35947 vertices), the
+# CLI's make-pairs, simplify and hierarchy defaults, and each original's
+# perturbation (axis, angle, scale, translation).
+TOOLS = dict(n_points=40960, wlop_points=8000, wlop_iterations=20, cluster_size=10, simplify_count=2000)
+TOOLS_RECORDS = {"se": ("x", 0.7, 1.0, 0.0), "rev": ("y", 1.2, 0.9, 0.0), "box": ("z", -0.9, 1.0, 0.15),
+                 "tube": ("x", 1.56, 1.1, -0.1)}
 
 ESCALATION_NOTE = (
     "JAX on the CPU scores the rotation field on its XLA path whatever coarse_method says "
@@ -334,6 +360,219 @@ def record_variants(args, shard: int, shards: int, run, run_batch, remesh, platf
     return out
 
 
+def sha256(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def min_pair_dists(x: np.ndarray) -> np.ndarray:
+    """Each point's distance to its nearest other point (tests/test_wlop.py)."""
+    from scipy.spatial import cKDTree
+
+    return cKDTree(np.asarray(x, np.float64)).query(np.asarray(x, np.float64), k=2)[0][:, 1]
+
+
+def radius_f64(points: np.ndarray, k: int = 12) -> float:
+    """The support radius (the largest k-NN distance) in float64 from the
+    float32 points: the value both packages' float32 radii approximate."""
+    from scipy.spatial import cKDTree
+
+    p = np.asarray(points, np.float32).astype(np.float64)
+    return float(cKDTree(p).query(p, k=k + 1)[0][:, -1].max())
+
+
+def wlop_float64(points: np.ndarray, mask: np.ndarray, m: int, iterations: int = 20, mu: float = 0.45):
+    """JAX's WLOP steps (kss_icp_tpu/ops/wlop.py:68-88) in float64 from the
+    float32 run's FPS start: the solution both packages' float32 runs
+    approximate, each with its own rounding. (wlop_resample itself in
+    float64 runs its FPS in float64, which can pick another start where two
+    points are near-tied.)"""
+    import jax
+    import jax.numpy as jnp
+
+    from kss_icp_tpu.ops.resample import farthest_point_sampling
+    from kss_icp_tpu.ops.wlop import default_radius
+
+    pf = np.asarray(points, np.float32)
+    idx, smask = farthest_point_sampling(jnp.asarray(pf), jnp.asarray(mask), m)
+    idx, smask = np.asarray(idx), np.asarray(smask)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        p = jnp.asarray(pf.astype(np.float64))
+        eps = jnp.finfo(jnp.float64).tiny
+        h = default_radius(p, jnp.asarray(mask), m)
+        inv_h2 = 16.0 / jnp.maximum(h * h, eps)
+        w_in, w_s = jnp.asarray(mask, jnp.float64), jnp.asarray(smask, jnp.float64)
+        hi = jax.lax.Precision.HIGHEST
+
+        @jax.jit
+        def block(rows, x):
+            """The step of the samples `rows` (a block, to bound the memory)."""
+            xb = x[rows]
+            d2 = jnp.sum((xb[:, None, :] - p[None, :, :]) ** 2, axis=-1)
+            alpha = jnp.exp(-d2 * inv_h2) / jnp.sqrt(jnp.maximum(d2, eps)) * w_in[None, :]
+            attract = jnp.dot(alpha, p, precision=hi) / jnp.maximum(jnp.sum(alpha, axis=1, keepdims=True), eps)
+            diff = xb[:, None, :] - x[None, :, :]
+            d2 = jnp.sum(diff ** 2, axis=-1)
+            beta = jnp.exp(-d2 * inv_h2) / jnp.sqrt(jnp.maximum(d2, eps)) * w_s[None, :]
+            beta = jnp.where(rows[:, None] == jnp.arange(x.shape[0])[None, :], 0.0, beta)
+            repulse = jnp.einsum("mk,mki->mi", beta, diff, precision=hi) / jnp.maximum(
+                jnp.sum(beta, axis=1, keepdims=True), eps)
+            return jnp.where(w_s[rows][:, None] > 0, attract + mu * repulse, xb)
+
+        x = p[idx]
+        blocks = np.array_split(np.arange(m), -(-m // 1000))
+        for _ in range(iterations):
+            x = jnp.concatenate([block(jnp.asarray(r), x) for r in blocks])
+        return np.asarray(x * w_s[:, None])
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def measure_float64(original: np.ndarray, simplified: np.ndarray, normals: np.ndarray, iterations: int = 10) -> dict:
+    """JAX's MLS projection (kss_icp_tpu/measure_resample.py:57-76) in float64
+    on the float32 clouds with the given normals and the float64 12-NN
+    radius: the measure both packages' float32 runs approximate."""
+    import jax
+    import jax.numpy as jnp
+    from scipy.spatial import cKDTree
+
+    o64 = np.asarray(original, np.float32).astype(np.float64)
+    s64 = np.asarray(simplified, np.float32).astype(np.float64)
+    radius = cKDTree(s64).query(s64, k=min(13, len(s64)))[0][:, -1].max()
+    jax.config.update("jax_enable_x64", True)
+    try:
+        eps = jnp.finfo(jnp.float64).tiny
+        inv_h2 = 1.0 / max(radius * radius, eps)
+        s, nrm = jnp.asarray(s64), jnp.asarray(np.asarray(normals, np.float64))
+        hi = jax.lax.Precision.HIGHEST
+
+        @jax.jit
+        def project(x):
+            for _ in range(iterations):
+                w = jnp.exp(-jnp.sum((x[:, None, :] - s[None, :, :]) ** 2, axis=-1) * inv_h2)
+                a = jnp.dot(w, s, precision=hi) / jnp.maximum(jnp.sum(w, axis=1, keepdims=True), eps)
+                n = jnp.dot(w, nrm, precision=hi)
+                n = n / jnp.maximum(jnp.linalg.norm(n, axis=1, keepdims=True), eps)
+                x = x + jnp.sum(n * (a - x), axis=1, keepdims=True) * n
+            return x
+
+        projected = np.concatenate([np.asarray(project(jnp.asarray(b))) for b in np.array_split(o64, -(-len(o64) // 4096))])
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    disp = np.linalg.norm(projected - o64, axis=1)
+    return {"avg_displacement": float(disp.mean()), "max_displacement": float(disp.max()),
+            "sampling_rate": len(s64) / len(o64)}
+
+
+def record_tools(remesh, variants: dict):
+    """The `--tools` record and its arrays (module docstring)."""
+    import tempfile
+
+    import jax.numpy as jnp
+    from scipy.spatial import cKDTree
+
+    from kss_icp_tpu import transfer as jt
+    from kss_icp_tpu.challenge import FAMILIES, _instance
+    from kss_icp_tpu.config import DEFAULT_CONFIG
+    from kss_icp_tpu.core.cloud import PointCloud
+    from kss_icp_tpu.core.transforms import apply_similarity
+    from kss_icp_tpu.io.formats import load_points, save_xyz, uniform_normalize
+    from kss_icp_tpu.measure_resample import simplification_measure
+    from kss_icp_tpu.metrics import registration_measure
+    from kss_icp_tpu.models.kss_icp import register_pair
+    from kss_icp_tpu.ops.normals import estimate_normals
+    from kss_icp_tpu.ops.resample import farthest_point_sampling
+    from kss_icp_tpu.ops.simplify import hierarchy_simplify
+    from kss_icp_tpu.ops.wlop import wlop_resample
+    from kss_icp_tpu.pipeline import pipeline_from_points_without_uniform
+
+    n, m = TOOLS["n_points"], TOOLS["wlop_points"]
+    arrays, originals = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for f, (name, _) in enumerate(FAMILIES):
+            t0 = time.perf_counter()
+            save_xyz(tmp / f"{name}.xyz", _instance(f, 0, n, sample=0))
+            pts = load_points(tmp / f"{name}.xyz")
+            pf = pts.astype(np.float32)
+            pj, mj = jnp.asarray(pf), jnp.ones(n, bool)  # 40960 rows: already a multiple of 256
+            idx, _ = farthest_point_sampling(pj, mj, m)
+            rec = jt.TransferRecord(name, *TOOLS_RECORDS[name])
+            pair = jt.make_pair(pts, rec, wlop_points=m, wlop_iterations=TOOLS["wlop_iterations"])
+            jt.save_pair(pair, tmp)
+            wl = pair.target.astype(np.float32)
+            w64 = wlop_float64(pf, np.ones(n, bool), m, TOOLS["wlop_iterations"])
+            jax_f64_gap = np.linalg.norm(wl - w64, axis=1)
+            diag = float(np.linalg.norm(pf.max(axis=0) - pf.min(axis=0)))
+            spacing = min_pair_dists(wl)
+            on_surface = float(cKDTree(pf.astype(np.float64)).query(wl.astype(np.float64))[0].max())
+            _, keep = hierarchy_simplify(pj, mj, max_cluster_size=TOOLS["cluster_size"])
+            wj, wmj = jnp.asarray(wl), jnp.ones(m, bool)
+            normals = np.asarray(estimate_normals(wj, wmj, k=12))
+            meas = {k: float(v) for k, v in simplification_measure(pj, mj, wj, wmj).items()}
+            meas64 = measure_float64(pf, wl, normals)
+            unit, _ = uniform_normalize(pts)
+            state = pipeline_from_points_without_uniform(unit)
+            arrays[f"{name}_wlop"] = wl
+            arrays[f"{name}_wlop_f64"] = w64
+            arrays[f"{name}_wlop_normals"] = normals
+            arrays[f"{name}_hierarchy"] = np.nonzero(np.asarray(keep))[0].astype(np.int32)
+            originals.append({
+                "name": name, "family": f, "n": n, "points_sha256": sha256(pf),
+                "record": dataclasses.asdict(rec), "line": rec.line(),
+                "fps_start_sha256": sha256(np.asarray(idx, np.int32)),
+                "wlop": {"count": int(len(wl)), "bbox_diag": diag, "spacing_cv": float(spacing.std() / spacing.mean()),
+                         "on_surface_max": on_surface,
+                         "float64_gap": {"median": float(np.median(jax_f64_gap)) / diag,
+                                         "max": float(jax_f64_gap.max()) / diag}},
+                "radius": pair.radius, "radius_f64": radius_f64(pf),
+                "gird": {"count": int(len(pair.source)), "sha256": sha256(pair.source)},
+                "hierarchy": {"count": int(np.asarray(keep).sum())},
+                "measure": meas, "measure_f64": meas64,
+                "pipeline": {"radius": state.radius, "radius_f64": radius_f64(unit), "border": state.border.tolist(),
+                             "count": state.count, "boxes_per_axis": state.boxes_per_axis},
+            })
+            print(f"{name}: wlop {len(wl)} gird {len(pair.source)} hierarchy {originals[-1]['hierarchy']['count']} "
+                  f"radius {pair.radius:.9g} (float64 {originals[-1]['radius_f64']:.9g}) measure {meas} "
+                  f"{time.perf_counter() - t0:.0f} s", file=sys.stderr, flush=True)
+        for o in originals:  # register_pair on JAX's own pair, as the CLI's batch reads it
+            t0 = time.perf_counter()
+            src, tgt = load_points(tmp / f"{o['name']}.gird"), load_points(tmp / f"{o['name']}.wlop")
+            res = register_pair(src, tgt, DEFAULT_CONFIG)
+            aligned = np.asarray(apply_similarity(res.transform, jnp.asarray(src, jnp.float32)))
+            o["register"] = {"rmse": float(registration_measure(aligned, tgt.astype(np.float32))["rmse"]),
+                             "fitness": float(res.fitness), "n_source": int(len(src)), "n_target": int(len(tgt))}
+            print(f"{o['name']}: register_pair RMSE {o['register']['rmse']:.6f} "
+                  f"{time.perf_counter() - t0:.0f} s", file=sys.stderr, flush=True)
+
+        cli = variants["cli_aivs"]
+        src = next(p[1] for p in remesh if p[0] == cli["name"])
+        save_xyz(tmp / cli["file"], src)
+        cloud = PointCloud.from_points(load_points(tmp / cli["file"]))
+        count = min(TOOLS["simplify_count"], int(cloud.count))
+        wl, wm = wlop_resample(cloud.points, cloud.mask, count)
+        w64 = wlop_float64(np.asarray(cloud.points), np.asarray(cloud.mask), count)
+        _, keep = hierarchy_simplify(cloud.points, cloud.mask, max_cluster_size=TOOLS["cluster_size"])
+    arrays["cli_wlop"] = np.asarray(wl)[np.asarray(wm)]
+    arrays["cli_wlop_f64"] = w64[np.asarray(wm)]
+    diag = float(np.linalg.norm(np.ptp(np.asarray(cloud.points)[np.asarray(cloud.mask)], axis=0)))
+    cli_gap = np.linalg.norm(arrays["cli_wlop"] - arrays["cli_wlop_f64"], axis=1) / diag
+    arrays["cli_hierarchy"] = np.nonzero(np.asarray(keep))[0].astype(np.int32)
+    out = {
+        "config": dict(TOOLS, register="DEFAULT_CONFIG through register_pair, as the CLI's batch runs it"),
+        "arrays": "fixtures/torch_port_expected_tools.npz",
+        "originals": originals,
+        "cli_wlop": {"name": cli["name"], "file": cli["file"], "n": int(cloud.count), "count": count,
+                     "printed": f"wlop: {int(cloud.count)} -> {len(arrays['cli_wlop'])} points",
+                     "float64_gap": {"median": float(np.median(cli_gap)), "max": float(cli_gap.max())}},
+        "cli_hierarchy": {"name": cli["name"], "file": cli["file"], "cluster_size": TOOLS["cluster_size"],
+                          "printed": f"hierarchy: {int(cloud.count)} -> {len(arrays['cli_hierarchy'])} points"},
+    }
+    return out, arrays
+
+
 def dump_record(out: dict) -> str:
     """The record as indented JSON, each list of integers (the AIVS picks) on
     one line."""
@@ -400,6 +639,9 @@ def main() -> int:
                       help="record precision mode (--precise) through register_pair: remesh 25, category board")
     mode.add_argument("--variants", action="store_true",
                       help="record the register_pair knobs (point_to_plane, max, diff, aivs) at DEFAULT_CONFIG")
+    mode.add_argument("--tools", action="store_true",
+                      help="record WLOP, hierarchy_simplify, make_pair, simplification_measure and the pipeline at "
+                           "40960 points, and simplify -m wlop|hierarchy")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--limit", type=int, default=0,
                     help="only the first N pairs of each corpus (0 = all)")
@@ -415,6 +657,7 @@ def main() -> int:
                                        "torch_port_expected_largescan.json" if args.largescan else
                                        "torch_port_expected_precise.json" if args.precise else
                                        "torch_port_expected_variants.json" if args.variants else
+                                       "torch_port_expected_tools.json" if args.tools else
                                        "torch_port_expected.json")
     if args.merge:
         return merge(args.merge, out_path)
@@ -578,6 +821,15 @@ def main() -> int:
         out["seconds"] = time.perf_counter() - t_start
         out_path.write_text(dump_record(out))
         print(f"wrote {out_path} in {out['seconds']:.0f} s", file=sys.stderr)
+        return 0
+    if args.tools:
+        variants = json.loads((FIXTURES / "torch_port_expected_variants.json").read_text())
+        out, arrays = record_tools(remesh, variants)
+        out["platform"] = platform
+        out["seconds"] = time.perf_counter() - t_start
+        np.savez_compressed(out_path.with_suffix(".npz"), **arrays)
+        out_path.write_text(dump_record(out))
+        print(f"wrote {out_path} and its .npz in {out['seconds']:.0f} s", file=sys.stderr)
         return 0
     if args.variants:
         out = record_variants(args, shard, shards, run, run_batch, remesh, platform)

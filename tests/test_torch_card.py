@@ -805,3 +805,59 @@ def test_register_pair_knobs_on_the_card_match_cpu(cuda_device, knobs):
         rmse.append(kt.registration_measure(aligned, tgt, device=device)["rmse"])
     assert abs(rmse[0] - rmse[1]) <= 1e-4, rmse
     assert field_sq.launches == (1 if "coarse_error_metric" in knobs else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, s", [(4096, 512), (40960, 8000)])
+def test_fps_points_on_the_card_matches_plain(cuda_device, n, s):
+    """fps_points through one fps launch: the plain version's points and
+    mask exactly, at a test cloud and at WLOP's start of a 40960-point
+    original."""
+    from kss_icp_torch.ops.resample import fps_points
+
+    pts = random_cloud(np.random.default_rng(14), n).astype(np.float32)
+    mask = np.ones(n, bool)
+    mask[-7:] = False
+    fps.launches = 0
+    got = fps_points(_t(pts, cuda_device), _t(mask, cuda_device), s)
+    assert fps.launches == 1
+    want = fps_points(_t(pts), _t(mask), s)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_wlop_on_the_card_matches_cpu(cuda_device):
+    """WLOP on the card (one fps launch, then plain PyTorch) against the CPU
+    run at the WLOP bar: the same start and mask, samples within a median
+    |Δ| of 5e-5 and a max of 2e-3 bounding-box diagonals."""
+    from kss_icp_torch.ops.wlop import wlop_resample
+
+    pts = random_cloud(np.random.default_rng(15), 4096).astype(np.float32)
+    mask = np.ones(4096, bool)
+    fps.launches = 0
+    gx, gm = wlop_resample(_t(pts, cuda_device), _t(mask, cuda_device), 512)
+    assert fps.launches == 1
+    cx, cm = wlop_resample(_t(pts), _t(mask), 512)
+    assert torch.equal(gm.cpu(), cm)
+    start_g, _ = wlop_resample(_t(pts, cuda_device), _t(mask, cuda_device), 512, iterations=0)
+    assert torch.equal(start_g.cpu(), wlop_resample(_t(pts), _t(mask), 512, iterations=0)[0])
+    d = (gx.cpu() - cx).norm(dim=1).numpy() / np.linalg.norm(pts.max(0) - pts.min(0))
+    assert np.median(d) <= 5e-5 and d.max() <= 2e-3, (np.median(d), d.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, cluster, variation", [(8192, 10, 1 / 3), (40960, 10, 1 / 3), (4096, 64, 0.05)])
+def test_hierarchy_simplify_on_the_card_matches_cpu(cuda_device, n, cluster, variation):
+    """The card's kept set equals the CPU's bit for bit: the segment sums
+    add in index order on both (ops/spatial.py::segment_reduce), and the
+    variation stop's eigenvalues (cuSOLVER against LAPACK) decide no split
+    otherwise on this cloud."""
+    from kss_icp_torch.ops.simplify import hierarchy_simplify
+
+    pts = random_cloud(np.random.default_rng(16), n).astype(np.float32)
+    mask = np.ones(n, bool)
+    mask[-5:] = False
+    gp, gk = hierarchy_simplify(_t(pts, cuda_device), _t(mask, cuda_device), cluster, variation)
+    cp, ck = hierarchy_simplify(_t(pts), _t(mask), cluster, variation)
+    assert torch.equal(gk.cpu(), ck) and torch.equal(gp.cpu(), cp)

@@ -1,7 +1,9 @@
 """The port's command line, `python -m kss_icp_torch ... --device cpu`, at
 tiny flags on small seeded clouds, mirroring tests/test_cli_smoke.py: the
 subcommands run as subprocesses with the JAX CLI's printed lines and JSON
-keys, the unported ones exit 2 naming their ROADMAP.md item, `--device
+keys, the tools (simplify -m aivs|wlop|hierarchy, make-pairs,
+measure-resample) against the JAX CLI on the same files, `view`, the one
+not ported, exits 2 naming its ROADMAP.md item, `--device
 cuda` without a card exits nonzero, and one in-process register is held to
 `kss_icp_tpu.cli.main` on the same files (RMSE within JAX + 0.006)."""
 
@@ -173,23 +175,57 @@ def test_resample(files, tmp_path):
     (["simplify", "a.xyz", "b.xyz", "-m", "hierarchy"], "hierarchy"),
 ])
 def test_unported_subcommands_exit_2(capsys, files, tmp_path, argv, item):
-    """Each subcommand or method not ported yet exits 2 naming its ROADMAP.md
-    item. simplify -m aivs is ported: its case runs the port's and the JAX
-    CLI on one file and holds them to the same points and printed line."""
-    if item == "aivs":
-        from kss_icp_tpu import cli as jcli
-
-        outs = {}
-        for name, main, flags in (("jax", jcli.main, ["--platform", "cpu"]), ("torch", cli.main, ["--device", "cpu"])):
-            outs[name] = tmp_path / f"{name}.xyz"
-            assert main(["simplify", str(files / "tgt.xyz"), str(outs[name]), "-m", "aivs", "-n", "300", *flags]) == 0
-            outs[name + " printed"] = capsys.readouterr().out
-        assert outs["torch printed"] == outs["jax printed"] == "aivs: 1200 -> 300 points\n"
-        np.testing.assert_array_equal(load_points(outs["torch"]), load_points(outs["jax"]))
+    """`view`, not ported yet, exits 2 naming its ROADMAP.md item. The other
+    cases are ported: each runs the port's and the JAX CLI on the same files
+    and holds them to the same printed lines and points (WLOP at its bar:
+    median |Δ| 5e-5, max 2e-3 bounding-box diagonals; measure-resample's
+    displacements follow each package's PCA normal signs, so they are held
+    to the port's own simplification_measure, the sampling rate to JAX's)."""
+    if item == "viz/view":
+        assert cli.main(argv) == 2
+        err = capsys.readouterr().err
+        assert "ROADMAP.md queue 1 item 13" in err and item in err
         return
-    assert cli.main(argv + (["--device", "cpu"] if argv[0] != "view" else [])) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md queue 1 item 13" in err and item in err
+    from kss_icp_tpu import cli as jcli
+
+    src, tgt = str(files / "src.xyz"), str(files / "tgt.xyz")
+    cases = {"aivs": ["simplify", tgt, "{out}.xyz", "-m", "aivs", "-n", "300"],
+             "wlop": ["simplify", tgt, "{out}.xyz", "-m", "wlop", "-n", "300"],
+             "hierarchy": ["simplify", tgt, "{out}.xyz", "-m", "hierarchy"],
+             "make-pairs": ["make-pairs", f"t={tgt}:y:0.5", f"s={src}:z:-0.3:1.2:0.1", "-o", "{out}",
+                            "--wlop-points", "300"],
+             "measure_resample": ["measure-resample", tgt, src]}
+    outs = {}
+    for name, main, flags in (("jax", jcli.main, ["--platform", "cpu"]), ("torch", cli.main, ["--device", "cpu"])):
+        out = tmp_path / name
+        assert main([a.replace("{out}", str(out)) for a in cases[item]] + flags) == 0
+        outs[name], outs[name + " printed"] = out, capsys.readouterr().out
+    printed = outs["torch printed"]
+    if item == "measure_resample":
+        from kss_icp_torch.core.cloud import PointCloud
+        from kss_icp_torch.measure_resample import simplification_measure
+
+        o, s = (PointCloud.from_points(load_points(f)) for f in (tgt, src))
+        m = simplification_measure(o.points, o.mask, s.points, s.mask)
+        assert printed == "".join(f"{k}: {float(v):.6g}\n" for k, v in m.items())
+        jlines = outs["jax printed"].splitlines()
+        assert [ln.split(":")[0] for ln in printed.splitlines()] == [ln.split(":")[0] for ln in jlines]
+        assert printed.splitlines()[2] == jlines[2] == "sampling_rate: 0.5"
+        return
+    assert printed == outs["jax printed"]
+    if item == "make-pairs":
+        assert printed.splitlines()[0].startswith("t: wlop=300 gird=")
+        for f in ("t.gird", "s.gird", "transfer.txt"):
+            assert (outs["torch"] / f).read_bytes() == (outs["jax"] / f).read_bytes(), f
+        got, want = (load_points(outs[k] / "t.wlop") for k in ("torch", "jax"))
+    else:
+        got, want = (load_points(f"{outs[k]}.xyz") for k in ("torch", "jax"))
+    if item == "wlop" or item == "make-pairs":
+        pts = load_points(tgt)
+        d = np.linalg.norm(got - want, axis=1) / np.linalg.norm(pts.max(0) - pts.min(0))
+        assert got.shape == want.shape and np.median(d) <= 5e-5 and d.max() <= 2e-3
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 def test_help_lists_the_jax_subcommands():

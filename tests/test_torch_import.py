@@ -39,6 +39,8 @@ def test_imports_with_jax_blocked():
             "import kss_icp_torch.largescan, kss_icp_torch.ops.simplify\n"
             "import kss_icp_torch.cli, kss_icp_torch.io, kss_icp_torch.transfer, kss_icp_torch.utils.log\n"
             "import kss_icp_torch.ops.spatial, kss_icp_torch.ops.normals, kss_icp_torch.ops.aivs\n"
+            "import kss_icp_torch.ops.wlop, kss_icp_torch.measure_resample, kss_icp_torch.pipeline\n"
+            "import kss_icp_torch.utils.cache\n"
             "assert kss_icp_torch.register_many and kss_icp_torch.parallel.register_many\n"
             "print(sorted(kss_icp_torch.__all__))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

@@ -4,8 +4,8 @@
 seeded numpy inputs: records and their log round trips exactly, the
 perturbations at 1e-12 in float64, k-NN indices equal on tie-free clouds and
 the lower index on built ties, the port's one row-blocked path against both
-of JAX's (the dense one and the streaming one), and both radius estimates at
-rtol 1e-5.
+of JAX's (the dense one and the streaming one), both radius estimates at
+rtol 1e-5, and pair generation (make_pair, generate_fixture_set).
 
 k-NN squared distances: the port's are exact float32 differences, held to
 float64 at rtol 1e-6; JAX's come from the ‖a‖² + ‖b‖² − 2ab expansion, whose
@@ -78,11 +78,51 @@ def test_save_pair_writes_jax_files(tmp_path):
 
 
 def test_pair_generation_needs_wlop(tmp_path):
-    pts = np.zeros((10, 3))
-    with pytest.raises(NotImplementedError, match="item 13 \\(wlop\\)"):
-        tt.make_pair(pts, tt.TransferRecord("a"))
-    with pytest.raises(NotImplementedError, match="item 13 \\(wlop\\)"):
-        tt.generate_fixture_set([("a", pts)], [tt.TransferRecord("a")], tmp_path)
+    """make_pair and generate_fixture_set against JAX's (the WLOP they once
+    waited for is ported): at a given grid cell the `.gird` source is JAX's
+    bit for bit and the `.wlop` target holds the WLOP bar (median |Δ| 5e-5,
+    max 2e-3 bounding-box diagonals; tests/test_torch_wlop.py); at the
+    default cell the source is JAX's grid at the port's radius (exact float32
+    differences, within rtol 1e-5 of JAX's expansion-form radius); the files
+    round-trip through save_pair, and transfer.txt is JAX's bytes."""
+    from helpers import random_cloud
+
+    from kss_icp_torch.io.formats import load_points
+    from kss_icp_tpu.ops.simplify import grid_simplify
+
+    pts = random_cloud(np.random.default_rng(8), 1500)
+    diag = np.linalg.norm(pts.max(0) - pts.min(0))
+    rec = tt.TransferRecord("m", "z", 0.9, 1.2, 0.1)
+    jrec = jt.TransferRecord("m", "z", 0.9, 1.2, 0.1)
+    got = tt.make_pair(pts, rec, wlop_points=400, grid_cell=0.07, device="cpu")
+    want = jt.make_pair(pts, jrec, wlop_points=400, grid_cell=0.07)
+    assert got.radius == want.radius and got.name == "m" and got.record == rec
+    assert got.source.dtype == want.source.dtype == np.float64
+    np.testing.assert_array_equal(got.source, want.source)
+    assert got.target.shape == want.target.shape == (400, 3)
+    d = np.linalg.norm(got.target - want.target, axis=1) / diag
+    assert np.median(d) <= 5e-5 and d.max() <= 2e-3
+
+    default = tt.make_pair(pts, rec, wlop_points=400, device="cpu")
+    assert default.radius == tt.estimate_radius(pts, device="cpu")
+    assert default.radius == pytest.approx(jt.estimate_radius(pts), rel=1e-5)
+    padded = np.zeros((1536, 3), np.float32)
+    padded[:1500] = pts
+    gp, gm = grid_simplify(jnp.asarray(padded), jnp.asarray(np.arange(1536) < 1500), default.radius / 1.5)
+    np.testing.assert_array_equal(default.source, jt.apply_record(np.asarray(gp, np.float64)[np.asarray(gm)], jrec))
+
+    clouds = [("m", pts), ("n", random_cloud(np.random.default_rng(9), 900))]
+    records = [rec, tt.TransferRecord("n", "x", -0.4)]
+    pairs = tt.generate_fixture_set(clouds, records, tmp_path / "t", device="cpu", wlop_points=300,
+                                    grid_cell=0.08)
+    jpairs = jt.generate_fixture_set(clouds, [jrec, jt.TransferRecord("n", "x", -0.4)], tmp_path / "j",
+                                     wlop_points=300, grid_cell=0.08)
+    assert (tmp_path / "t" / "transfer.txt").read_bytes() == (tmp_path / "j" / "transfer.txt").read_bytes()
+    for pair, jpair in zip(pairs, jpairs):
+        assert (tmp_path / "t" / f"{pair.name}.gird").read_bytes() == (tmp_path / "j" / f"{pair.name}.gird").read_bytes()
+        np.testing.assert_allclose(load_points(tmp_path / "t" / f"{pair.name}.gird"), pair.source, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(load_points(tmp_path / "t" / f"{pair.name}.wlop"), pair.target, rtol=1e-5, atol=1e-5)
+        assert load_points(tmp_path / "t" / f"{pair.name}.wlop").shape == jpair.target.shape
 
 
 def _cloud(n, seed):
