@@ -184,6 +184,34 @@ Phases, each of which raises on failure (exit code 1, no result line):
           back); and `simplify -m wlop -n 2000` and `-m hierarchy` on
           handg's remesh source as subprocesses (JAX's printed lines; the
           hierarchy's points JAX's, the WLOP at its bar);
+       k. the last modules (fixtures/torch_port_expected_two_stage.json and
+          torch_port_expected_analysis.{json,npz}, JAX on the CPU): the
+          two-stage converge, DEFAULT_CONFIG with refine_max_iterations=8 and
+          refine_polish_iterations=1000, on the remesh 25 one pair at a time
+          and as one register_many batch (within JAX + 0.006, JAX's
+          escalated set; pairs/s unsynced, stage seconds with "two_stage"
+          and lockstep iterations synced, continued pairs, each beside the
+          shipped pass of 4d / 4e) and on the boards' 64 pairs as one batch
+          (the pass/fail set of JAX's shipped register_many, se/7 excepted);
+          vcm_edges at the record's 4096 points on JAX's samples (owners
+          float64's but near-ties, matrices and ratios within 1e-5 of
+          float64, JAX's flags away from the threshold), then on each of the
+          four 40960-point tools originals at 32 samples a point, nn1 at 1 x
+          1310720 x 40960, against the plain version on the card (nn1_plain
+          in place of nn1: owners bit for bit, matrices within rtol 1e-5,
+          flags equal; ms to a sync, peak MiB); lloyd_relax at the record's
+          1024 sites, 512², 10 steps (no farther from float64 than JAX's),
+          then 4096 sites at 1024², nn1 at 1 x 1048576 x 4096 a step, the
+          plain version's bits; mesh_angle_report on a seeded torus grid of
+          199712 faces against float64 (angles within 1e-5 rad, histogram
+          counts but angles within 1e-6 of an edge); `python -m
+          kss_icp_torch view --spin 0.3` as subprocesses on remesh pair 0
+          and Room seed 0's 200k target, each PNG's sha256 JAX's; the native
+          reader on Room seed 0's source as .xyz, binary .ply and .off
+          (arrays equal to the Python readers', save_xyz bytes equal, load
+          ms, files refused) and load_points_batch over the 50 remesh clouds;
+          phase 3 holds nn1 at both new shapes on the same inputs, with
+          launches from 4k;
   5. a measurement that gates nothing: on each remesh pair's 8³ field, does
      field_dot at "default" (one bf16 pass) keep candidate 0 and the top-6
      set of "highest" and of field_ave?
@@ -286,6 +314,7 @@ def phase_kernels(torch, dev) -> dict:
         return torch.as_tensor(x, device=dev)
 
     scan = largescan_inputs(torch, dev)
+    n_tools = load_tools()[0]["originals"][0]["n"]
     cases = []
     # register_many's valid rows: the resampled clouds' pnumber of 2048 and
     # the full clouds padded to 8192, on the remesh 25 and on the five boards.
@@ -322,16 +351,29 @@ def phase_kernels(torch, dev) -> dict:
             (25 * 12, 2048, 2048, 25, "batch precision polish ICP: 25 pairs x 12 lanes, a cloud a pair", (378, 1534),
              "precise many"),
             (1, scan["metric"][0].shape[1], scan["metric"][1].shape[1], 1,
-             f"large-scan metric: Room seed {scan['seed']}, aligned source against target", None, "largescan")):
-        query = t(np.stack([cloud(rng, q_n) for _ in range(lanes)]))
-        ref = t(np.stack([cloud(rng, r_n) for _ in range(groups)]))
-        mask = torch.ones((groups, r_n), dtype=torch.bool, device=dev)
-        if batch == "largescan":  # the scan itself: 200000 valid target rows of 200704
-            query, ref, mask = scan["metric"]
-        elif valid is not None:  # each pair's cloud its own valid prefix
-            mask &= torch.arange(r_n, device=dev)[None] < t(rng.integers(*valid, size=(groups, 1)))
+             f"large-scan metric: Room seed {scan['seed']}, aligned source against target", None, "largescan"),
+            (1, VCM_SAMPLES * n_tools, n_tools, 1, f"VCM sample owners: a {n_tools}-point tools original x "
+             f"{VCM_SAMPLES} ball samples", None, "vcm"),
+            (1, LLOYD["resolution"] ** 2, LLOYD["sites"], 1, f"Voronoi labels: {LLOYD['resolution']}² pixels "
+             f"against {LLOYD['sites']} sites, 2D padded to z = 0", None, "voronoi")):
+        if batch == "vcm":  # the first tools original and its samples, as phase 4k draws them
+            pts, msk, samples = vcm_inputs(torch, dev, 0)
+            query, ref, mask = samples[None], pts[None], msk[None]
+        elif batch == "voronoi":  # Lloyd's first step in phase 4k
+            sites = t(lloyd_start(r_n))
+            query = voronoi_query(torch, dev, LLOYD["resolution"])[None]
+            ref = torch.cat([sites, torch.zeros_like(sites[:, :1])], dim=-1)[None]
+            mask = torch.ones((1, r_n), dtype=torch.bool, device=dev)
         else:
-            mask[:, r_n - r_n // 40:] = False  # a padded tail, as 2000 of 2048
+            query = t(np.stack([cloud(rng, q_n) for _ in range(lanes)]))
+            ref = t(np.stack([cloud(rng, r_n) for _ in range(groups)]))
+            mask = torch.ones((groups, r_n), dtype=torch.bool, device=dev)
+            if batch == "largescan":  # the scan itself: 200000 valid target rows of 200704
+                query, ref, mask = scan["metric"]
+            elif valid is not None:  # each pair's cloud its own valid prefix
+                mask &= torch.arange(r_n, device=dev)[None] < t(rng.integers(*valid, size=(groups, 1)))
+            else:
+                mask[:, r_n - r_n // 40:] = False  # a padded tail, as 2000 of 2048
         if groups == lanes > 1:
             mask &= t(rng.uniform(size=(groups, r_n)) < 0.7)  # each lane its own inlier mask
         lane_ref = torch.arange(groups, dtype=torch.int32, device=dev).repeat_interleave(lanes // groups)
@@ -342,20 +384,21 @@ def phase_kernels(torch, dev) -> dict:
         require(torch.equal(d2k, d2p), f"nn1 {label}: d2 differs from the plain version's bits")
         err = float((d2k - d2p).abs().max())
         reps = 3 if lanes * q_n * r_n > 1e9 else 20
+        slow_reps = 1 if lanes * q_n * r_n > 1e9 else reps  # the plain version and the yardstick: 0.1-1.7 s a call
         call = (lambda: nn1(query, ref, mask)) if groups == 1 else (lambda: nn1(query, ref, mask, lane_ref))
         ms = time_ms(call, reps)  # as the ICP loop calls it
         device_ms = graph_ms(lambda: nn1(query, ref, mask, lane_ref), reps)  # the kernel alone
-        plain_ms = time_ms(lambda: nn1_plain(query, ref, mask, lane_ref), reps)
+        plain_ms = time_ms(lambda: nn1_plain(query, ref, mask, lane_ref), slow_reps)
         if groups == 1:
             valid = ref[0, mask[0]][None]
             # 4096 queries a call keeps cdist's (Q, R) output at 1 GiB in the K4 regime.
             yard_ms = time_ms(lambda: [torch.cdist(query[:, a:a + 4096], valid).min(-1)
-                                       for a in range(0, q_n, 4096)], reps)
+                                       for a in range(0, q_n, 4096)], slow_reps)
         else:  # each lane's cloud, masked rows at +inf, (Q, R) outputs of 1 GiB at the most a call
             far = torch.where(mask[..., None], ref, torch.full_like(ref, float("inf")))[lane_ref.long()]
             step = max(1, min(64, 2 ** 28 // (q_n * r_n)))
             yard_ms = time_ms(lambda: [torch.cdist(query[a:a + step], far[a:a + step]).min(-1)
-                                       for a in range(0, lanes, step)], reps)
+                                       for a in range(0, lanes, step)], slow_reps)
         # 3 sub + 3 mul + 2 add + 1 compare per query and valid reference row.
         evals = q_n * int(mask.sum()) * (lanes // groups)
         b = bound(9.0 * evals, 4 * (lanes * q_n * 3 + groups * r_n * 3) + groups * r_n + 8 * lanes * q_n)
@@ -422,7 +465,7 @@ def phase_kernels(torch, dev) -> dict:
                 f"fps {label}: indices differ at {int((ik != ip).sum())} of {b_n * s} picks")
         ms = time_ms(lambda: fps(pts, pmask, s, steps), 5)
         device_ms = graph_ms(lambda: fps(pts, pmask, s, steps), 5)
-        plain_ms = time_ms(lambda: farthest_point_sampling(pts, pmask, s, steps), 2)
+        plain_ms = time_ms(lambda: farthest_point_sampling(pts, pmask, s, steps), 1)
         # Per step and valid point: 3 sub + 3 mul + 2 add + 1 min + 1 compare. The
         # steps are a dependency chain the bound does not see (PERF.md).
         b = bound(10.0 * float((picks * pmask.sum(dim=1).cpu().numpy()).sum()),
@@ -786,7 +829,8 @@ def drive(torch, dev, cfg, pairs, counters, timer, label, judge, rung_log=None):
         rows.append(dict(judge(name, src, m, aligned), name=name, s=dt, cand=int(res.chosen_candidate),
                          fitness=float(res.fitness),
                          transform=[x.cpu().numpy() for x in res.transform],
-                         iters=int(res.icp_iterations), escalated="escalate" in timer.ran,
+                         iters=int(res.icp_iterations), continued="two_stage" in timer.ran,
+                         escalated="escalate" in timer.ran,
                          won=res.coarse.field.shape[0] == cfg.escalate_rotation_steps and cfg.auto_escalate,
                          finisher="finish" in timer.ran,
                          rungs=[] if rung_log is None else rung_log.rungs))
@@ -1188,17 +1232,17 @@ def phase_many(torch, dev, kernels: dict, e2e: dict) -> None:
 def attach_pass_launches(kernels: dict, e2e: dict) -> None:
     """Each batch and large-scan shape of phase 3 takes its launches from the
     pass that runs it (`batch_pass`); nn1's `launch_shapes` (the esc-default
-    pass's histogram) gains the large-scan metric's shape, which only 4f
-    launches, and fps's lists its cases' launches."""
+    pass's histogram) gains the shapes that only 4f (the large-scan metric)
+    and 4k (the VCM owners, the Voronoi labels) launch, and fps's lists its
+    cases' launches."""
     for name in ("nn1", "fps"):
         for case in kernels[name]["cases"]:
             if case["batch_pass"]:
                 launches = e2e["passes"][case["batch_pass"]]["launches"]
                 case["launches"] = launches["nn1_shapes"].get(case["shape"], 0) if name == "nn1" else launches["fps"]
-    scan_shapes = e2e["passes"]["largescan"]["launches"]["nn1_shapes"]
     kernels["nn1"]["launch_shapes"] = dict(kernels["nn1"]["launch_shapes"], **{
-        case["shape"]: scan_shapes.get(case["shape"], 0)
-        for case in kernels["nn1"]["cases"] if case["batch_pass"] == "largescan"})
+        case["shape"]: e2e["passes"][case["batch_pass"]]["launches"]["nn1_shapes"].get(case["shape"], 0)
+        for case in kernels["nn1"]["cases"] if case["batch_pass"] in ("largescan", "vcm", "voronoi")})
     kernels["fps"]["launch_shapes"] = {case["shape"]: case["launches"] for case in kernels["fps"]["cases"]
                                        if "launches" in case}
 
@@ -2136,6 +2180,443 @@ def phase_tools(torch, dev, e2e: dict, card: str) -> None:
     e2e["passes"]["tools"] = dict(out, launches={"fps": wlop_launches})
 
 
+# Phase 4k: the last modules (scripts/torch_port_expected.py --two-stage and --analysis record JAX's side).
+TWO_STAGE_KNOBS = dict(refine_max_iterations=8, refine_polish_iterations=1000)
+VCM_RADIUS = 0.1  # offset and convolution radius, the record's (unit-scale tools originals)
+VCM_SAMPLES = 32  # samples a point: 1310720 queries against a 40960-point original
+LLOYD = dict(sites=4096, resolution=1024, iterations=10)  # nn1 at 1 x 1048576 x 4096 a step
+EXACT = "donot_use_mm_for_euclid_dist"  # torch.cdist in differences, not the expansion
+
+
+def phase_two_stage(torch, dev, e2e: dict, card: str) -> None:
+    """4k: the two-stage converge, DEFAULT_CONFIG with refine_max_iterations=8
+    and refine_polish_iterations=1000, against
+    fixtures/torch_port_expected_two_stage.json: the remesh 25 one pair at a
+    time and as one register_many batch (within JAX + 0.006, JAX's escalated
+    set), then the boards' 64 pairs as one batch (the pass/fail set of JAX's
+    shipped register_many, fixtures/torch_port_expected_batch.json, se/7
+    excepted). Pairs/s are timed in turns with the shipped DEFAULT_CONFIG
+    (two-stage, shipped, shipped, two-stage; the boards two-stage then
+    shipped, synced), so host drift over the run does not decide them."""
+    from kss_icp_torch.challenge import transform_rmse
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
+    from kss_icp_torch.ops.nn_cuda import nn1
+    from kss_icp_torch.ops.resample_cuda import fps
+    import kss_icp_torch as kt
+
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim}
+    exp = json.loads((FIXTURES / "torch_port_expected_two_stage.json").read_text())
+    require(exp["knobs"] == TWO_STAGE_KNOBS, f"the two-stage record's knobs {exp['knobs']} are not {TWO_STAGE_KNOBS}")
+    cfg = dataclasses.replace(DEFAULT_CONFIG, **TWO_STAGE_KNOBS)
+    pairs = load_pairs()
+
+    def ungated(name, src, m, aligned):
+        return {}
+
+    def report(label, n, seconds, timer, shipped_timer):
+        """pairs/s of each turn, then the synced pass's stages beside shipped's."""
+        rate = {k: [n / t for t in v] for k, v in seconds.items()}
+        log(f"  [{label}] pairs/s in turns: two-stage " + ", ".join(f"{r:.3f}" for r in rate["two-stage"]) +
+            "; shipped " + ", ".join(f"{r:.3f}" for r in rate["shipped"]) + f" ({card})")
+        log(f"  [{label}] stage seconds (synced): " + ", ".join(
+            f"{k} {v:.4f} (shipped {shipped_timer.seconds.get(k, 0.0):.4f})" for k, v in timer.seconds.items()))
+        log(f"  [{label}] lockstep ICP iterations by stage: " + ", ".join(
+            f"{k} {v} (shipped {shipped_timer.iterations.get(k, 0)})" for k, v in timer.iterations.items() if v))
+        return {"pairs_per_s": float(np.mean(rate["two-stage"])), "shipped_pairs_per_s": float(np.mean(rate["shipped"])),
+                "turns": rate, "stage_seconds": dict(timer.seconds), "stage_iterations": dict(timer.iterations),
+                "shipped_stage_seconds": dict(shipped_timer.seconds),
+                "shipped_stage_iterations": dict(shipped_timer.iterations)}
+
+    label = "two-stage"
+    expected = {p["name"]: p for p in exp["pairs"]}
+    judge = remesh_judge(torch, expected)
+    rows, total, launches = drive(torch, dev, cfg, pairs, counters, StageTimer(torch, False), label, judge)
+    report_remesh(label, rows, total, expected, escalation=True)
+    check_launches(label, launches, "vpu", overlap=True)
+    differ = [r["name"] for r in rows if r["escalated"] != expected[r["name"]]["escalated"]]
+    require(not differ, f"{label}: escalated unlike JAX: {differ}")
+    continued = [r["name"] for r in rows if r["continued"]]
+    log(f"  [{label}] continued {len(continued)} {continued} (jax "
+        f"{[p['name'] for p in exp['pairs'] if p['continued']]}); escalated {sum(r['escalated'] for r in rows)} as JAX")
+    seconds = {"two-stage": [total], "shipped": []}
+    for which in ("shipped", "shipped", "two-stage"):
+        _, t, _ = drive(torch, dev, cfg if which == "two-stage" else DEFAULT_CONFIG, pairs, counters,
+                        StageTimer(torch, False), f"{label} turn: {which}", ungated)
+        seconds[which].append(t)
+    timers = [StageTimer(torch, True) for _ in range(2)]
+    for c, timer in zip((cfg, DEFAULT_CONFIG), timers):
+        drive(torch, dev, c, pairs, counters, timer, f"{label} staged", ungated)
+    e2e["passes"][label] = dict(report(label, len(pairs), seconds, *timers), launches=launches,
+                                continued=len(continued))
+
+    label = "two-stage many"
+    exp_many = exp["many"]["two_stage"]["pairs"]
+    require([p["name"] for p in exp_many] == [n for n, _, _ in pairs], f"{label}: the record's pairs differ")
+    res, metrics, ladder, total, launches = drive_many(torch, dev, cfg, pairs, counters, None, label)
+    check_batch_launches(label, launches, len(pairs), ladder, cfg)
+    failures = []
+    for b, (name, _, _) in enumerate(pairs):
+        j, rmse = exp_many[b], float(metrics["rmse"][b])
+        ok = np.isfinite(rmse) and rmse <= j["rmse"] + RMSE_BAND and bool(ladder.escalated[b]) == j["escalated"]
+        log(f"  [{label}] {name}: rmse {rmse:.6f} (jax {j['rmse']:.6f}) continued {int(ladder.continued[b])}/"
+            f"{int(j['continued'])} esc {int(ladder.escalated[b])}/{int(j['escalated'])} won {int(ladder.won[b])} "
+            f"fin {int(ladder.finisher[b])}/{int(j['finisher'])} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+    require(not failures, f"{label}: pairs outside JAX RMSE + {RMSE_BAND} or escalated unlike JAX: {failures}")
+    log(f"  [{label}] continued {int(ladder.continued.sum())} (jax {sum(p['continued'] for p in exp_many)})")
+    seconds = {"two-stage": [total], "shipped": []}
+    for which in ("shipped", "shipped", "two-stage"):
+        seconds[which].append(drive_many(torch, dev, cfg if which == "two-stage" else DEFAULT_CONFIG, pairs,
+                                         counters, None, f"{label} turn: {which}")[3])
+    timers = [StageTimer(torch, True) for _ in range(2)]
+    for c, timer in zip((cfg, DEFAULT_CONFIG), timers):
+        drive_many(torch, dev, c, pairs, counters, timer, f"{label} staged")
+    e2e["passes"][label] = dict(report(label, len(pairs), seconds, *timers), launches=launches,
+                                continued=int(ladder.continued.sum()))
+
+    label = "two-stage many boards"
+    boards = load_boards()
+    jax_rows = {f"{board}:{p['name']}": p for board, rec in
+                json.loads((FIXTURES / "torch_port_expected_batch.json").read_text())["boards"].items()
+                for p in rec["pairs"]}
+    timers = [StageTimer(torch, True) for _ in range(2)]
+    res, metrics, ladder, total, launches = drive_many(torch, dev, cfg, [b[:3] for b in boards], counters,
+                                                       timers[0], label)
+    check_batch_launches(label, launches, len(boards), ladder, cfg)
+    mismatched, passed = [], 0
+    for b, (name, src, _, gt, thr) in enumerate(boards):
+        row = kt.Similarity(*(x[b] for x in res.transform))
+        pose = transform_rmse(kt.apply_similarity(row, torch.as_tensor(src, device=dev)).cpu().numpy(), src, gt)
+        ok = bool(pose <= thr)
+        passed += ok
+        if ok != jax_rows[name]["passed"]:
+            log(f"  [{label}] {name}: pose {pose:.4f} {'pass' if ok else 'FAIL'} (shipped jax "
+                f"{jax_rows[name]['pose_rmse']:.4f}) DIFFERS")
+            if name != f"category:{KNIFE_EDGE}":
+                mismatched.append(name)
+    require(not mismatched, f"{label}: pass/fail differs from JAX's shipped register_many set: {mismatched}")
+    log(f"  [{label}] {passed}/{len(boards)} pass (jax shipped {sum(p['passed'] for p in jax_rows.values())}); "
+        f"continued {int(ladder.continued.sum())}")
+    shipped = drive_many(torch, dev, DEFAULT_CONFIG, [b[:3] for b in boards], counters, timers[1],
+                         f"{label} turn: shipped")[3]
+    e2e["passes"][label] = dict(report(label + " (synced)", len(boards), {"two-stage": [total], "shipped": [shipped]},
+                                       *timers), launches=launches, passed=passed,
+                                continued=int(ladder.continued.sum()))
+
+
+def vcm_inputs(torch, dev, family: int):
+    """A 40960-point tools original (challenge._instance(family, 0, n,
+    sample=0), fixtures/torch_port_expected_tools.json's size) on the card,
+    its mask, and its ball samples from a generator seeded with `family`."""
+    from kss_icp_torch.challenge import _instance
+    from kss_icp_torch.ops.vcm import ball_samples
+
+    n = load_tools()[0]["originals"][0]["n"]
+    pts = torch.as_tensor(np.asarray(_instance(family, 0, n, sample=0), np.float32), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(family)
+    return pts, torch.ones(n, dtype=torch.bool, device=dev), ball_samples(pts, VCM_RADIUS, VCM_SAMPLES, gen)
+
+
+def lloyd_start(n_sites: int) -> np.ndarray:
+    """Seeded sites in the unit square (the record's rule)."""
+    return np.random.default_rng(0).uniform(0.0, 1.0, (n_sites, 2)).astype(np.float32)
+
+
+def voronoi_query(torch, dev, resolution: int):
+    """The raster's pixel centres padded to z = 0: the labels' nn1 queries."""
+    from kss_icp_torch.ops.voronoi2d import _grid
+
+    pix, _ = _grid((0.0, 0.0, 1.0, 1.0), resolution, torch.float32, dev)
+    return torch.cat([pix, torch.zeros_like(pix[:, :1])], dim=-1)
+
+
+@contextlib.contextmanager
+def plain_nn1(module):
+    """`module` calls nn1's plain version where it calls nn1 (unbatched
+    inputs one lane, as nn1 takes them): the plain version of the whole op
+    on the same inputs."""
+    from kss_icp_torch.ops.nn_cuda import nn1_plain
+
+    def plain(query, ref, ref_mask, lane_ref=None):
+        if query.dim() == 2:
+            d2, idx = nn1_plain(query[None], ref[None], ref_mask[None])
+            return d2[0], idx[0]
+        return nn1_plain(query, ref, ref_mask, lane_ref)
+
+    orig = module.nn1
+    module.nn1 = plain
+    try:
+        yield
+    finally:
+        module.nn1 = orig
+
+
+def vcm_float64(torch, points, samples, mask, radius: float, samples_per_point: int):
+    """The VCM in float64 on the card from float32 inputs: exact owners and
+    their second-nearest gap, the matrices (P, 9) and the ratios."""
+    p64, s64 = points.double(), samples.double()
+    owners, d2min, gap = [], [], []
+    for a in range(0, len(s64), 8192):
+        d2 = torch.cdist(s64[a:a + 8192], p64, compute_mode=EXACT) ** 2
+        d2 = torch.where(mask[None], d2, torch.full_like(d2, float("inf")))
+        two = d2.topk(2, dim=1, largest=False)
+        owners.append(two.indices[:, 0])
+        d2min.append(two.values[:, 0])
+        gap.append(two.values[:, 1] - two.values[:, 0])
+    owners, d2min, gap = torch.cat(owners), torch.cat(d2min), torch.cat(gap)
+    diff = (s64 - p64[owners]) * (d2min <= radius ** 2)[:, None]
+    mats = torch.zeros((len(p64), 9), dtype=torch.float64, device=points.device)
+    mats.index_add_(0, owners, (diff[:, :, None] * diff[:, None, :]).reshape(-1, 9))
+    mats *= (4.0 / 3.0) * np.pi * radius ** 3 / samples_per_point
+    conv = torch.cat([((torch.cdist(p64[a:a + 4096], p64, compute_mode=EXACT) <= radius) & mask[None] & mask[a:a + 4096, None]).double()
+                      @ mats for a in range(0, len(p64), 4096)])
+    evals = torch.linalg.eigvalsh(conv.reshape(-1, 3, 3))
+    ratio = evals[:, 1] / evals.sum(-1).clamp_min(torch.finfo(torch.float64).tiny)
+    return owners, gap, conv, ratio
+
+
+def phase_analysis(torch, dev, e2e: dict, card: str) -> None:
+    """4k: vcm_edges, lloyd_relax and mesh_angle_report on the card, held to
+    their plain versions on the card (nn1_plain in place of nn1), to JAX's
+    record at the record's size (fixtures/torch_port_expected_analysis.*) and
+    to float64."""
+    from kss_icp_torch import measure_mesh
+    from kss_icp_torch.ops import vcm as tv
+    from kss_icp_torch.ops import voronoi2d as tvor
+    from kss_icp_torch.ops.nn_cuda import nn1
+
+    rec = json.loads((FIXTURES / "torch_port_expected_analysis.json").read_text())
+    with np.load(FIXTURES / "torch_port_expected_analysis.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    a = rec["analysis"]
+    require(a["offset_radius"] == a["convolve_radius"] == VCM_RADIUS and a["samples_per_point"] == VCM_SAMPLES,
+            "the analysis record's VCM radii or samples differ from phase 4k's")
+
+    def counted(fn):
+        """fn() to a sync, the nn1 counts zeroed just before and read just
+        after: (result, ms, peak MiB, launches, launches by shape)."""
+        nn1.launches = 0
+        nn1.launch_shapes.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        shapes = {shape_key(*k): v for k, v in nn1.launch_shapes.items()}
+        return out, ms, torch.cuda.max_memory_allocated(dev) / 2**20, nn1.launches, shapes
+
+    # VCM at the record's size: JAX's samples, held to float64 and to JAX's flags.
+    label = "vcm record"
+    pts, samples = (torch.as_tensor(arrays[k], device=dev) for k in ("vcm_points", "vcm_samples"))
+    require(sha256(arrays["vcm_points"]) == rec["vcm"]["points_sha256"], f"{label}: the record's points differ")
+    mask = torch.ones(len(pts), dtype=torch.bool, device=dev)
+    args = (pts, mask, VCM_RADIUS, VCM_RADIUS)
+    mats = tv.vcm(*args, samples=samples, samples_per_point=VCM_SAMPLES).reshape(-1, 9)
+    edge, ratio = tv.vcm_edges(*args, a["threshold"], samples=samples, samples_per_point=VCM_SAMPLES)
+    owner, _ = tv.sample_owners(samples, pts, mask, VCM_RADIUS)
+    own64, gap64, mats64, ratio64 = vcm_float64(torch, pts, samples, mask, VCM_RADIUS, VCM_SAMPLES)
+    parted = owner.long() != own64
+    scale = float(mats64.abs().max())
+    mats_gap = float((mats.double() - mats64).abs().max()) / scale
+    ratio_gap = float((ratio.double() - ratio64).abs().max())
+    firm = ((ratio64 - a["threshold"]).abs() > 1e-4).cpu().numpy()
+    edges_differ = int((edge.cpu().numpy() != arrays["vcm_edges"])[firm].sum())
+    log(f"  [{label}] {len(pts)} points, {len(samples)} JAX samples: owners not float64's {int(parted.sum())} (jax "
+        f"{rec['vcm']['jax_owners_not_float64']}), their float64 gap at most "
+        f"{float(gap64[parted].max()) if parted.any() else 0.0:.3g}; matrices {mats_gap:.3g} of the largest from "
+        f"float64 (jax {rec['vcm']['jax_mats_max_gap']:.3g}); ratios {ratio_gap:.3g} (jax "
+        f"{rec['vcm']['jax_ratio_max_gap']:.3g}); edges {int(edge.sum())} (jax {rec['vcm']['edges']}), "
+        f"{edges_differ} differ from JAX's away from the threshold")
+    require(not parted.any() or float(gap64[parted].max()) <= 1e-6,
+            f"{label}: owners not float64's away from a near-tie")
+    require(mats_gap <= 1e-5 and ratio_gap <= 1e-5 and edges_differ == 0,
+            f"{label}: matrices {mats_gap:.3g} or ratios {ratio_gap:.3g} off float64, or {edges_differ} edges unlike JAX")
+
+    # VCM at 40960 points on each tools original: the kernel against the plain version.
+    vcm_runs, launches, shapes = [], 0, defaultdict(int)
+    for family in range(4):
+        label = f"vcm {family}"
+        pts, mask, samples = vcm_inputs(torch, dev, family)
+        args = (pts, mask, VCM_RADIUS, VCM_RADIUS)
+        (edge, ratio), ms, peak, n, hist = counted(
+            lambda: tv.vcm_edges(*args, samples=samples, samples_per_point=VCM_SAMPLES))
+        key = shape_key(1, len(samples), len(pts), 1)
+        require(hist.get(key, 0) >= 1, f"{label}: nn1 did not launch at {key}: {hist}")
+        launches += n
+        for k, v in hist.items():
+            shapes[k] += v
+        owner, dom = tv.sample_owners(samples, pts, mask, VCM_RADIUS)
+        mats = tv.vcm(*args, samples=samples, samples_per_point=VCM_SAMPLES)
+        with plain_nn1(tv):
+            (pedge, pratio), plain_ms, _, _, _ = counted(
+                lambda: tv.vcm_edges(*args, samples=samples, samples_per_point=VCM_SAMPLES))
+            powner, pdom = tv.sample_owners(samples, pts, mask, VCM_RADIUS)
+            pmats = tv.vcm(*args, samples=samples, samples_per_point=VCM_SAMPLES)
+        require(torch.equal(owner, powner) and torch.equal(dom, pdom), f"{label}: owners differ from the plain version")
+        require(torch.allclose(mats, pmats, rtol=1e-5, atol=1e-5 * float(pmats.abs().max())) and torch.equal(edge, pedge),
+                f"{label}: matrices or flags differ from the plain version")
+        log(f"  [{label}] {len(pts)} points x {VCM_SAMPLES} samples: owners bit for bit the plain version's, matrices "
+            f"max|diff| {float((mats - pmats).abs().max()):.3g}, flags equal; {int(edge.sum())} edge points; "
+            f"{ms:.1f} ms to a sync (plain {plain_ms:.1f} ms), peak {peak:.1f} MiB, nn1 launches {hist} ({card})")
+        vcm_runs.append({"family": family, "ms": ms, "plain_ms": plain_ms, "peak_mib": peak, "edges": int(edge.sum())})
+        if family == 0:  # where the time and the memory go, step by step (each from the step's inputs)
+            site, *site_fig = counted(lambda: tv.site_matrices(samples, pts, mask, VCM_RADIUS, VCM_SAMPLES))
+            conv, *conv_fig = counted(lambda: tv.convolve(pts, mask, site, VCM_RADIUS))
+            _, *eig_fig = counted(lambda: tv.edge_ratio(conv.reshape(-1, 3, 3)))
+            log(f"  [{label}] by step, ms to a sync and peak MiB: owners and site sums {site_fig[0]:.1f} / "
+                f"{site_fig[1]:.1f}, convolution {conv_fig[0]:.1f} / {conv_fig[1]:.1f}, eigvalsh {eig_fig[0]:.1f} / "
+                f"{eig_fig[1]:.1f} ({card})")
+    e2e["passes"]["vcm"] = {"launches": {"nn1": launches, "nn1_shapes": dict(shapes)}, "runs": vcm_runs}
+
+    # Lloyd at the record's size against JAX and float64, then at phase 4k's size against the plain version.
+    label = "lloyd record"
+    start = torch.as_tensor(arrays["lloyd_start"], device=dev)
+    smask = torch.ones(len(start), dtype=torch.bool, device=dev)
+    out = tvor.lloyd_relax(start, smask, tuple(a["bbox"]), a["lloyd_resolution"], a["lloyd_iterations"]).cpu().numpy()
+    gap = float(np.abs(out - arrays["lloyd_sites_f64"]).max())
+    log(f"  [{label}] {len(start)} sites at {a['lloyd_resolution']}² for {a['lloyd_iterations']} steps: max |Δ| to "
+        f"float64 {gap:.3g} (jax {rec['lloyd']['jax_max_gap']:.3g}, {rec['lloyd']['jax_labels_not_float64']} of its "
+        f"first labels not float64's); to JAX's sites {float(np.abs(out - arrays['lloyd_sites']).max()):.3g}")
+    require(gap <= rec["lloyd"]["jax_max_gap"], f"{label}: farther from float64 than JAX ({gap:.3g})")
+    label = "lloyd"
+    start = torch.as_tensor(lloyd_start(LLOYD["sites"]), device=dev)
+    smask = torch.ones(len(start), dtype=torch.bool, device=dev)
+    run = (start, smask, (0.0, 0.0, 1.0, 1.0), LLOYD["resolution"], LLOYD["iterations"])
+    out, ms, peak, n, hist = counted(lambda: tvor.lloyd_relax(*run))
+    key = shape_key(1, LLOYD["resolution"] ** 2, LLOYD["sites"], 1)
+    require(hist.get(key, 0) == LLOYD["iterations"], f"{label}: nn1 launches {hist}, one at {key} a step expected")
+    with plain_nn1(tvor):
+        plain, plain_ms, _, _, _ = counted(lambda: tvor.lloyd_relax(*run))
+    require(torch.equal(out, plain), f"{label}: sites differ from the plain version's, max |Δ| "
+                                     f"{float((out - plain).abs().max()):.3g}")
+    log(f"  [{label}] {LLOYD['sites']} sites at {LLOYD['resolution']}² for {LLOYD['iterations']} steps: the plain "
+        f"version's bits; {ms:.1f} ms to a sync (plain {plain_ms:.1f} ms), peak {peak:.1f} MiB, nn1 launches {hist} "
+        f"({card})")
+    e2e["passes"]["voronoi"] = {"launches": {"nn1": n, "nn1_shapes": hist}, "ms": ms, "plain_ms": plain_ms,
+                                "peak_mib": peak}
+
+    # Mesh angles on a seeded, jittered torus grid of about 200k faces, against float64.
+    label = "mesh angles"
+    rng = np.random.default_rng(0)
+    m = 317
+    u, v = np.meshgrid(np.linspace(0, 2 * np.pi, m), np.linspace(0, 2 * np.pi, m), indexing="ij")
+    verts = np.stack([(1 + 0.4 * np.cos(v)) * np.cos(u), (1 + 0.4 * np.cos(v)) * np.sin(u), 0.4 * np.sin(v)], -1)
+    verts = (verts.reshape(-1, 3) + rng.normal(0, 0.0005, (m * m, 3))).astype(np.float32)
+    ij = np.arange(m * m).reshape(m, m)[:-1, :-1].ravel()
+    faces = np.concatenate([np.stack([ij, ij + 1, ij + m], -1), np.stack([ij + 1, ij + m + 1, ij + m], -1)])
+    tv_, tf_ = torch.as_tensor(verts, device=dev), torch.as_tensor(faces, device=dev)
+    rep, ms, _, _, _ = counted(lambda: measure_mesh.mesh_angle_report(tv_, tf_))
+    ang = measure_mesh.triangle_angles(tv_, tf_).cpu().numpy().astype(np.float64)
+    w = verts.astype(np.float64)[faces]
+
+    def corner(p, q, r):
+        x, y = q - p, r - p
+        c = (x * y).sum(-1) / (np.linalg.norm(x, axis=-1) * np.linalg.norm(y, axis=-1))
+        return np.arccos(np.clip(c, -1.0, 1.0))
+
+    ang64 = np.stack([corner(w[:, 0], w[:, 1], w[:, 2]), corner(w[:, 1], w[:, 0], w[:, 2]),
+                      corner(w[:, 2], w[:, 0], w[:, 1])], -1)
+    edges = rep["bin_edges"].astype(np.float64)
+    idx = np.searchsorted(edges, ang64.ravel(), side="right")
+    idx = np.where(ang64.ravel() == edges[-1], len(edges) - 1, idx)
+    hist64 = np.bincount(idx, minlength=len(edges) + 1)[1:len(edges)]
+    near = int((np.abs(ang64.ravel()[:, None] - edges[None]).min(1) < 1e-6).sum())
+    moved = int(np.abs(rep["histogram"] - hist64).sum())
+    angle_gap = float(np.abs(ang - ang64).max())
+    log(f"  [{label}] {len(faces)} faces: angles max |Δ| to float64 {angle_gap:.3g} rad; histogram {moved} counts "
+        f"from float64's, {near} angles within 1e-6 of an edge; slivers {int(rep['sliver_count'])}; {ms:.1f} ms to a "
+        f"sync ({card})")
+    require(angle_gap <= 1e-5 and moved <= 2 * near and int(rep["count"]) == 3 * len(faces),
+            f"{label}: angles {angle_gap:.3g} from float64 or histogram {moved} counts off ({near} near an edge)")
+    e2e["passes"]["mesh angles"] = {"ms": ms, "faces": len(faces)}
+
+
+def phase_view_native(torch, dev, e2e: dict, card: str) -> None:
+    """4k: `python -m kss_icp_torch view` as subprocesses, their PNGs JAX's by
+    sha256 (fixtures/torch_port_expected_analysis.json); the native reader
+    against the Python readers on Room seed 0's 200k source as .xyz, binary
+    .ply and .off, and load_points_batch over the 50 remesh clouds."""
+    import hashlib
+    import tempfile
+
+    from kss_icp_torch import native
+    from kss_icp_torch.io import formats
+    from kss_icp_torch.largescan import room_pair
+
+    rec = json.loads((FIXTURES / "torch_port_expected_analysis.json").read_text())
+    src, tgt, _ = room_pair(200_000, 0)
+    pairs = load_pairs()
+    refused0 = native.load_points_native.refused
+    with tempfile.TemporaryDirectory(prefix="kss_view_") as tmp:
+        tmp = Path(tmp)
+        name, psrc, ptgt = pairs[0]
+        formats.save_xyz(tmp / f"{name}.gird", psrc)
+        formats.save_xyz(tmp / f"{name}.wlop", ptgt)
+        formats.save_xyz(tmp / "room0_target.xyz", tgt)
+        # Both views at once: each subprocess is mostly its interpreter's start-up.
+        walls, procs = {}, []
+        for i, view in enumerate(rec["views"]):
+            argv = [str(tmp / f"view_{i}.png") if x == "view.png" else
+                    str(tmp / x) if (tmp / x).suffix in (".gird", ".wlop", ".xyz") else x for x in view["argv"]]
+            procs.append((view, tmp / f"view_{i}.png", time.perf_counter(),
+                          subprocess.Popen([sys.executable, "-m", "kss_icp_torch", *argv], stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True, cwd=REPO)))
+        deadline = time.perf_counter() + 300
+        while any(proc.poll() is None for *_, proc in procs) and time.perf_counter() < deadline:
+            for view, _, t0, proc in procs:
+                if proc.poll() is not None and view["label"] not in walls:
+                    walls[view["label"]] = time.perf_counter() - t0
+            time.sleep(0.01)
+        for view, png, t0, proc in procs:
+            _, err = proc.communicate(timeout=10)
+            walls.setdefault(view["label"], time.perf_counter() - t0)
+            require(proc.returncode == 0, f"view {view['label']}: exit {proc.returncode}\n{err[-3000:]}")
+            digest = hashlib.sha256(png.read_bytes()).hexdigest()
+            log(f"  [view] {view['label']}: {' '.join(view['argv'])}: png sha256 {digest[:16]}… "
+                f"({'JAX' if digest == view['png_sha256'] else 'NOT JAX'}'s), {walls[view['label']]:.2f} s wall, "
+                f"the two at once ({card})")
+            require(digest == view["png_sha256"], f"view {view['label']}: the PNG is not JAX's")
+
+        files = {"xyz": tmp / "room0_source.xyz", "ply": tmp / "room0_source.ply", "off": tmp / "room0_source.off"}
+        formats.save_xyz(files["xyz"], src, prefer_native=False)
+        formats.save_ply(files["ply"], src)
+        formats.save_off(files["off"], src)
+        times = {}
+        for kind, path in files.items():
+            for reader, prefer in (("native", True), ("python", False)):
+                t0 = time.perf_counter()
+                got = formats.load_points(path, prefer_native=prefer)
+                times[f"{kind} {reader}"] = (time.perf_counter() - t0) * 1e3
+                if reader == "native":
+                    fast = got
+            require(np.array_equal(fast, got), f"native {kind}: the native and Python readers' arrays differ")
+        native.save_xyz_native(tmp / "native.xyz", src)
+        require((tmp / "native.xyz").read_bytes() == files["xyz"].read_bytes(),
+                "native save_xyz: bytes differ from the Python writer's")
+        clouds = []
+        for name, s, t in pairs:
+            for ext, c in (("gird", s), ("wlop", t)):
+                clouds.append(tmp / f"{name}.{ext}")
+                formats.save_xyz(clouds[-1], c)
+        t0 = time.perf_counter()
+        batch = native.load_points_batch(clouds)
+        times["batch of 50 remesh clouds, native"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        each = [formats.load_points(p, prefer_native=False) for p in clouds]
+        times["50 remesh clouds one at a time, python"] = (time.perf_counter() - t0) * 1e3
+        require(all(b is not None and np.array_equal(b, e) for b, e in zip(batch, each)),
+                "load_points_batch: arrays differ from the Python readers'")
+    refused = native.load_points_native.refused - refused0
+    log("  [native] load ms: " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()) +
+        f"; save_xyz bytes equal; files the parser refused {refused} ({card})")
+    require(refused == 0, f"native: the parser refused {refused} files it reads")
+    e2e["passes"]["view"] = {"walls": walls}
+    e2e["passes"]["native"] = {"load_ms": times, "refused": refused}
+
+
 def phase_bf16_ranking(torch, dev) -> None:
     """Does the bf16 dot field keep the 8³ ranking? Gates nothing."""
     from kss_icp_torch.config import DEFAULT_CONFIG as cfg
@@ -2186,6 +2667,9 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        log(f"   ({phase} done at {time.perf_counter() - t_start:.1f} s)")
     log("== 1. device")
     card = nvidia_smi()
     log(card)
@@ -2202,9 +2686,11 @@ def main() -> int:
 
     log("== 3. kernels against their plain versions")
     kernels = phase_kernels(torch, dev)
+    lap("3")
 
     log("== 4. end to end")
     e2e = phase_end_to_end(torch, dev, kernels)
+    lap("4a-4c")
     p = e2e["passes"]
     log(f"pairs/s on the remesh 25 (no stage syncs): escalation off default {p['default']['pairs_per_s']:.3f}, "
         f"bench {p['bench']['pairs_per_s']:.3f}; escalation on default {p['esc-default']['pairs_per_s']:.3f}, "
@@ -2213,34 +2699,40 @@ def main() -> int:
 
     log("== 4d. DEFAULT_CONFIG (the overlap tier on): remesh 25")
     phase_default_config(torch, dev, kernels, e2e)
+    lap("4d")
     log(f"shipped DEFAULT_CONFIG: remesh 25 {p['shipped']['pairs_per_s']:.3f} pairs/s (no stage syncs), "
         f"boards {p['shipped boards']['pairs_per_s']:.3f} pairs/s (synced) ({card})")
 
     log("== 4e. register_many at DEFAULT_CONFIG: the remesh 25 as one batch")
     phase_many(torch, dev, kernels, e2e)
+    lap("4e")
     log(f"register_many at DEFAULT_CONFIG: remesh 25 in one batch {p['many']['pairs_per_s']:.3f} pairs/s (no stage "
         f"syncs) beside register_pair's {p['shipped']['pairs_per_s']:.3f}; boards {p['many boards']['pairs_per_s']:.3f} "
         f"pairs/s (synced) beside {p['shipped boards']['pairs_per_s']:.3f} ({card})")
 
     log("== 4f. large scans: run_largescan at 200k points, DEFAULT_CONFIG, Room seeds 0-2")
     phase_largescan(torch, dev, e2e, card)
+    lap("4f")
     log("large scans: " + "; ".join(f"seed {r['seed']} total {r['total_s']:.4f} s (octree {r['octree_s']:.4f}, register "
                                     f"{r['register_s']:.4f}, metric {r['metric_s']:.4f})"
                                     for r in p["largescan"]["seeds"]) + f" ({card})")
 
     log("== 4g. precision mode (--precise): the remesh 25 one pair at a time")
     phase_precise(torch, dev, kernels, e2e, card)
+    lap("4g")
     log(f"precision mode: remesh 25 {p['precise']['pairs_per_s']:.3f} pairs/s (without the polish "
         f"{p['shipped']['pairs_per_s']:.3f}), in one batch {p['precise many']['pairs_per_s']:.3f}; category "
         f"{p['precise category']['passed']}/32 pass ({card})")
 
     log("== 4h. the command line on the card: python -m kss_icp_torch")
     phase_cli(torch, dev, e2e, card)
+    lap("4h")
     for n, count in p["cli"]["launches"].items():
         kernels[n]["cli_launches"] = count
 
     log("== 4i. the knobs: point_to_plane, max, diff and aivs at DEFAULT_CONFIG")
     phase_knobs(torch, dev, kernels, e2e, card)
+    lap("4i")
     log("knobs: remesh 25 pairs/s " + ", ".join(f"{k} {p['knob ' + k]['pairs_per_s']:.3f}"
                                                 for k in ("point_to_plane", "max", "diff", "aivs")) +
         f"; register_many aivs {p['many aivs']['pairs_per_s']:.3f}, point_to_plane "
@@ -2249,12 +2741,29 @@ def main() -> int:
 
     log("== 4j. the tools: make-pairs -> batch, WLOP, hierarchy, measure-resample, the pipeline at 40960 points")
     phase_tools(torch, dev, e2e, card)
-    attach_pass_launches(kernels, e2e)
+    lap("4j")
     t = p["tools"]
     log("tools: " + "; ".join(f"{n} wlop {r['wlop_ms']:.1f} ms (peak {r['wlop_peak_mib']:.1f} MiB), hierarchy "
                               f"{r['hierarchy_ms']:.1f} ms, measure {r['measure_ms']:.1f} ms, RMSE {r['rmse']:.6f}"
                               for n, r in t["originals"].items()) +
         "; walls " + ", ".join(f"{k} {v:.2f} s" for k, v in t["walls"].items()) + f" ({card})")
+
+    log("== 4k. the two-stage converge: remesh 25 one pair at a time and in one batch, the boards in one batch")
+    phase_two_stage(torch, dev, e2e, card)
+    lap("4k two-stage")
+    log("== 4k. the analysis ops: vcm_edges, lloyd_relax, mesh_angle_report")
+    phase_analysis(torch, dev, e2e, card)
+    lap("4k analysis")
+    log("== 4k. view and the native reader")
+    phase_view_native(torch, dev, e2e, card)
+    lap("4k view and native")
+    attach_pass_launches(kernels, e2e)
+    log(f"two-stage, pairs/s in turns with shipped: remesh 25 {p['two-stage']['pairs_per_s']:.3f} (shipped "
+        f"{p['two-stage']['shipped_pairs_per_s']:.3f}), in one batch {p['two-stage many']['pairs_per_s']:.3f} (shipped "
+        f"{p['two-stage many']['shipped_pairs_per_s']:.3f}); boards in one batch "
+        f"{p['two-stage many boards']['pairs_per_s']:.3f} synced (shipped "
+        f"{p['two-stage many boards']['shipped_pairs_per_s']:.3f}); vcm " + ", ".join(f"{r['ms']:.1f}" for r in p["vcm"]["runs"]) +
+        f" ms; lloyd {p['voronoi']['ms']:.1f} ms; mesh angles {p['mesh angles']['ms']:.1f} ms ({card})")
 
     log("== 5. bf16 dot field against the float32 fields (gates nothing)")
     phase_bf16_ranking(torch, dev)

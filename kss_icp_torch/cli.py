@@ -13,8 +13,8 @@ lines and JSON keys, so a script that parses one parses the other.
 Every subcommand runs on the card (`--device cuda`, the default) unless
 `--device cpu` asks for the plain PyTorch path; `--device cuda` without a
 card exits with status 1 and never falls back to the CPU. The JAX CLI's
-`--platform` is `--device` here. `view`, whose module is not ported yet, is
-parsed, then exits with status 2 naming its ROADMAP.md item.
+`--platform` is `--device` here. `view` renders on the host (numpy), as
+JAX's does, and takes no `--device`.
 """
 
 from __future__ import annotations
@@ -35,10 +35,6 @@ class CLIError(Exception):
     def __init__(self, message: str, status: int):
         super().__init__(message)
         self.status = status
-
-
-def _unported(what: str, item: str):
-    raise CLIError(f"kss_icp_torch does not implement {what} yet: ROADMAP.md queue 1 item 13 ({item})", 2)
 
 
 def _device(args):
@@ -455,7 +451,35 @@ def _measure_resample(args) -> int:
 
 
 def _view(args) -> int:
-    _unported("view", "viz/view")
+    """Render a registration overlay PNG — the headless "Show Result" window
+    (Main_KSS_ICP.cpp:1-14 viewer mode, View.h), JAX's PNG bytes. With
+    --interactive, run the terminal trackball loop instead
+    (viz/interactive.py)."""
+    from kss_icp_torch.io.formats import load_points
+    from kss_icp_torch.viz import Trackball, render_registration
+
+    if args.interactive:
+        from kss_icp_torch.viz.interactive import run_interactive
+
+        clouds = [load_points(args.target)]
+        clouds.append(load_points(args.source) if args.source else np.zeros((0, 3), np.float32))
+        if args.aligned:
+            clouds.append(load_points(args.aligned))
+        return run_interactive(clouds)
+
+    tb = Trackball()
+    if args.spin:
+        tb.drag(0.0, 0.0, args.spin, args.spin / 2)
+    render_registration(
+        args.output,
+        target=load_points(args.target),
+        source=load_points(args.source) if args.source else None,
+        aligned=load_points(args.aligned) if args.aligned else None,
+        rotation=tb.rotation,
+        size=(args.size, args.size),
+    )
+    print(f"saved {args.output}")
+    return 0
 
 
 def _largescan(args) -> int:
@@ -674,7 +698,7 @@ def main(argv=None) -> int:
     add_device(p)
     p.set_defaults(fn=_measure_resample)
 
-    p = sub.add_parser("view", help="render a registration overlay PNG (not ported yet)")
+    p = sub.add_parser("view", help="render a registration overlay PNG")
     p.add_argument("target")
     p.add_argument("-s", "--source", default=None)
     p.add_argument("-a", "--aligned", default=None)
@@ -683,7 +707,8 @@ def main(argv=None) -> int:
     p.add_argument("--spin", type=float, default=0.0,
                    help="trackball drag magnitude for an off-axis view")
     p.add_argument("--interactive", action="store_true",
-                   help="interactive terminal viewer instead of a PNG")
+                   help="interactive terminal viewer (arrow-key trackball, ANSI half-block rendering) instead of "
+                        "a PNG — the reference's GLUT drag loop, View.h:1-22")
     p.set_defaults(fn=_view)
 
     args = parser.parse_args(argv)

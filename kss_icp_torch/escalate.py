@@ -8,9 +8,10 @@ budget) and keep the better answer per row.
 
 The JAX version merges winning rows with jax.tree.map; here the trees are
 the port's NamedTuples (or dicts, tuples and lists) of tensors or numpy
-arrays. `near_tie_margin` is not ported: no call site passes a nonzero value
-(ROADMAP.md "Not ported"). register_pair and register_many both climb
-models/kss_icp.py::escalation_ladder, which calls these three.
+arrays. register_pair and register_many both climb
+models/kss_icp.py::escalation_ladder, which calls these three, and both
+continue a capped converge through polish_rerun (models/kss_icp.py::
+continue_capped).
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ def escalate_rerun(
     cap: Optional[int] = None,
     chunk: Optional[int] = None,
     flags: Optional[np.ndarray] = None,
+    near_tie_margin: float = 0.0,
 ):
     """Run the flag -> padded re-solve -> keep-better pass.
 
@@ -81,6 +83,13 @@ def escalate_rerun(
     tree with leading axis B, takes every row the re-solve improves
     (fit2 < fitness); pass only config-independent leaves (transform and
     fitness, not the coarse field, whose shape follows the grid).
+
+    With `near_tie_margin`, a row adopts the re-solve where
+    fit2 < fitness * (1 + near_tie_margin), not only where it is strictly
+    better (kss_icp_tpu/escalate.py:49-55): the escalation's symmetric-pose
+    tie-break may find the true pose at a slightly worse fitness than a slid
+    impostor. The adopted row's fitness is always the re-solve's own. 0, the
+    default, is strict keep-better.
 
     Returns (result, fitness, wins, n_flagged), `wins` a list of
     (global_index, chunk_result_tree, row_in_chunk) for every improved row."""
@@ -105,7 +114,7 @@ def escalate_rerun(
         res2, fit2 = resolve(csel)
         fit2 = np.asarray(fit2)
         for j, gi in enumerate(csel):
-            if fit2[j] < fitness[gi]:
+            if fit2[j] < fitness[gi] * (1.0 + near_tie_margin):
                 fitness[gi] = fit2[j]
                 wins.append((int(gi), res2, j))
                 if result is not None:

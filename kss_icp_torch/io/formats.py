@@ -12,9 +12,10 @@ Covers every format the reference touches:
     on re-runs — flagged in SURVEY.md §5.4).
 
 Host-side numpy, no torch: the readers return the float64 arrays of the JAX
-package's Python readers, and the writers write its bytes. The JAX package
-tries a native C++ parser first; the port reads and writes with these
-readers only (the native reader is ROADMAP.md queue 1 item 13).
+package's Python readers, and the writers write its bytes. As in JAX,
+`load_points` and `save_xyz` try the native C++ parser and writer first
+(kss_icp_torch/native, built with g++ at first use), whose arrays and bytes
+are these readers'; a failed native build raises (see native/__init__.py).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from pathlib import Path
 from typing import Union
 
 import numpy as np
+
+from kss_icp_torch import native
 
 PathLike = Union[str, Path]
 
@@ -38,12 +41,18 @@ _PLY_TYPES = {
 }
 
 
-def load_points(path: PathLike) -> np.ndarray:
+def load_points(path: PathLike, prefer_native: bool = True) -> np.ndarray:
     """Load (N, 3) float64 points, dispatching on extension.
 
     .gird/.wlop/.xyz/.txt → count format; .ply/.off/.obj → mesh formats.
+    With prefer_native, the native parser reads the file first; a file it
+    refuses goes to these Python readers (kss_icp_tpu/io/formats.py:40-55).
     """
     p = Path(path)
+    if prefer_native:
+        out = native.load_points_native(p)
+        if out is not None:
+            return out
     ext = p.suffix.lower()
     if ext == ".ply":
         return load_ply(p)
@@ -462,9 +471,13 @@ def convert_obj_to_off(src: PathLike, dst: PathLike | None = None, overwrite: bo
     return dst
 
 
-def save_xyz(path: PathLike, points: np.ndarray) -> None:
-    """Write count-format .xyz (Main_KSS_ICP.cpp:49-59 layout, %.6g, truncating)."""
+def save_xyz(path: PathLike, points: np.ndarray, prefer_native: bool = True) -> None:
+    """Write count-format .xyz (Main_KSS_ICP.cpp:49-59 layout, %.6g, truncating),
+    with prefer_native through the native writer, which writes the same bytes
+    (kss_icp_tpu/io/formats.py:475-490)."""
     pts = np.asarray(points, dtype=np.float64)
+    if prefer_native and native.save_xyz_native(path, pts):
+        return
     with open(path, "w") as f:
         f.write(f"{pts.shape[0]}\n")
         np.savetxt(f, pts, fmt="%.6g")

@@ -72,17 +72,19 @@ class LadderLog:
     or the port's register_pair with n=1), in either package's `escalate`
     module, by wrapping its escalate_rerun, polish_rerun and overlap_rerun
     while entered (the ladders look them up at call time). Per row:
-    `escalated` (flagged for the 16^3 re-solve), `won` (the re-solve kept),
-    `finisher` (the uncapped finisher ran) and `rungs`, one entry per
+    `continued` (the two-stage converge continued it: a polish_rerun before
+    the ladder's first escalate_rerun), `escalated` (flagged for the 16^3
+    re-solve), `won` (the re-solve kept), `finisher` (the uncapped finisher
+    ran) and `rungs`, one entry per
     overlap rung the row reached (its fitness above the rung's threshold) in
     the RungLog format: skipped by the crop gate, run, adopted, with the
     trimmed fitnesses tf_old and tf_new of a rung that ran."""
 
     def __init__(self, escalate, n: int):
         self.escalate = escalate
-        self.escalated, self.won, self.finisher = (np.zeros(n, bool) for _ in range(3))
+        self.continued, self.escalated, self.won, self.finisher = (np.zeros(n, bool) for _ in range(4))
         self.rungs = [[] for _ in range(n)]
-        self.in_polish, self.n_rungs = False, 0
+        self.in_polish, self.n_rungs, self.n_escalations = False, 0, 0
         self.orig = {k: getattr(escalate, k) for k in ("escalate_rerun", "polish_rerun", "overlap_rerun")}
 
     def __enter__(self):
@@ -90,12 +92,16 @@ class LadderLog:
             out = self.orig["escalate_rerun"](resolve, fitness, threshold, pad_multiple, result=result, cap=cap,
                                               chunk=chunk, flags=flags, **kw)
             if not self.in_polish:  # polish_rerun runs through escalate_rerun
+                self.n_escalations += 1
                 self.escalated |= np.asarray(flags, bool) if flags is not None else np.asarray(fitness) > threshold
                 self.won[[gi for gi, _, _ in out[2]]] = True
             return out
 
         def polish(resolve, hit_cap, fitness, pad_multiple, result=None, cap=None, chunk=None):
-            self.finisher |= np.asarray(hit_cap, bool)
+            if self.n_escalations:
+                self.finisher |= np.asarray(hit_cap, bool)
+            else:
+                self.continued |= np.asarray(hit_cap, bool)
             self.in_polish = True
             try:
                 return self.orig["polish_rerun"](resolve, hit_cap, fitness, pad_multiple, result=result, cap=cap,

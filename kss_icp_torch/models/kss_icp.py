@@ -37,13 +37,11 @@ grids) and a screen of every 8^3 grid rotation
 and adopted by the trimmed-fitness margin. `overlap_mode=True` runs the
 overlap solve alone.
 
-Implemented: both `multistart_mode`s, the two-tier refine with its
-prefix-target gate probe, the pose tie-break, the precision mode's
-winner-neighborhood restarts (`neighborhood_polish`), escalation, the
-overlap tier and every resampler, field metric and ICP variant. The one knob
-of the JAX pipeline that is not ported, the two-stage converge, raises
-NotImplementedError naming its ROADMAP.md entry, so the port never returns
-an answer that differs from JAX.
+Implemented: every knob of the JAX pipeline: both `multistart_mode`s, the
+two-tier refine with its prefix-target gate probe, the pose tie-break, the
+precision mode's winner-neighborhood restarts (`neighborhood_polish`), the
+two-stage converge (`continue_capped`), escalation, the overlap tier and
+every resampler, field metric and ICP variant.
 """
 
 from __future__ import annotations
@@ -73,20 +71,6 @@ from kss_icp_torch.ops.resample_cuda import fps
 from kss_icp_torch.ops.spatial import estimate_box_scale
 
 BIG = 1e30
-
-# (test, knob, where the port of that knob is queued). `pair_only` knobs are
-# read by register_pair alone, as in the JAX package.
-_UNPORTED = (
-    (lambda c: c.refine_polish_iterations != 0, "refine_polish_iterations != 0",
-     "ROADMAP.md 'Not ported' (two-stage converge)", True),
-)
-
-
-def check_supported(cfg: KSSICPConfig, pair: bool = False) -> None:
-    """Raise NotImplementedError for a knob this slice of the port lacks."""
-    for test, knob, where, pair_only in _UNPORTED:
-        if (pair or not pair_only) and test(cfg):
-            raise NotImplementedError(f"kss_icp_torch does not implement {knob} yet: {where}")
 
 
 class RegistrationResult(NamedTuple):
@@ -257,7 +241,6 @@ def register_batch(
     once (ops/normals.py, JAX :120-124) and every stage's lanes step against
     their prefix of them. `timer`, when given, is entered around each stage
     ("coarse", "screen", "refine", "polish") — a hook for measurement."""
-    check_supported(cfg)
     b, p = source_mask.shape
     dtype, device = source_points.dtype, source_points.device
     params = ICPParams.from_config(cfg)
@@ -514,7 +497,6 @@ def polish_resampled(
     with (B,) transforms: one lane a pair, in one lockstep loop. With
     icp_variant="point_to_plane" the target normals are estimated again
     (JAX :725-732), so the finisher steps point-to-plane too."""
-    check_supported(cfg)
     current = apply_similarity(transform, source_points)
     cap = min(cfg.refine_polish_iterations or cfg.max_icp_iterations, cfg.max_icp_iterations)
     tp, tm = target_points.contiguous(), target_mask.contiguous()
@@ -524,6 +506,41 @@ def polish_resampled(
               variant=cfg.icp_variant, target_normals=normals)
     step = Similarity(scale=res.scale, rotation=res.rotation, translation=res.translation)
     return compose(step, transform), res.fitness, res.iterations
+
+
+def two_stage(cfg: KSSICPConfig) -> bool:
+    """Whether cfg asks for the two-stage converge: a capped final converge
+    (refine_max_iterations) continued by a polish (refine_polish_iterations)."""
+    return bool(cfg.refine_polish_iterations and cfg.refine_max_iterations)
+
+
+def continue_capped(res: RegistrationResult, clouds: tuple, cfg: KSSICPConfig = DEFAULT_CONFIG,
+                    timer: Optional[Timer] = None) -> RegistrationResult:
+    """The two-stage converge (KSSICPConfig.refine_polish_iterations): the
+    pairs of a register_batch result `res` whose capped final converge hit
+    refine_max_iterations are continued by `polish_resampled` at cfg, up to
+    refine_polish_iterations more steps on the same resampled `clouds`, all
+    of them in one lockstep loop, and each keeps the continuation where its
+    fitness is lower (kss_icp_tpu/parallel/batch.py:183-200, through the
+    `escalate` module's polish_rerun; JAX's register_pair :895-904 does the
+    same for its one pair). refine_hit_cap is left as it was: register_pair
+    clears it, register_many keeps it, as in JAX. Stage "two_stage" where
+    some pair continues; without the knob, `res` unchanged."""
+    from kss_icp_torch import escalate as esc
+
+    hit = res.refine_hit_cap.cpu().numpy()
+    if not two_stage(cfg) or not hit.any():
+        return res
+    device = clouds[0].device
+
+    def polish(sel):
+        idx = torch.as_tensor(np.asarray(sel), device=device)
+        tot, fit2, _ = polish_resampled(*(x[idx] for x in clouds), tree_map(lambda x: x[idx], res.transform), cfg)
+        return tot, fit2.cpu().numpy()
+
+    with _stage(timer, "two_stage"):
+        transform, fitness, _, _ = esc.polish_rerun(polish, hit, res.fitness.cpu().numpy(), 1, result=res.transform)
+    return res._replace(transform=transform, fitness=torch.as_tensor(fitness, device=device))
 
 
 def trimmed_fitness(
@@ -747,9 +764,9 @@ def escalation_ladder(
     (kss_icp_tpu/parallel/batch.py:209-337) and, with pair=True at B=1,
     register_pair's (kss_icp_tpu/models/kss_icp.py:905-976).
 
-    1. "escalate": the pairs above `threshold` (cfg.escalate_threshold) or
-       at their refine cap are re-solved at `ecfg` (cfg.escalation_config())
-       and the better fitness kept;
+    1. "escalate": the pairs above `threshold` (cfg.escalate_threshold) or,
+       without the two-stage converge, at their refine cap are re-solved at
+       `ecfg` (cfg.escalation_config()) and the better fitness kept;
     2. "finish": a pair still at its cap is finished uncapped
        (polish_resampled);
     3. with cfg.overlap_escalate, a pair above overlap_threshold climbs the
@@ -797,9 +814,12 @@ def escalation_ladder(
         return (r2.transform, r2.refine_hit_cap), r2.fitness.cpu().numpy()
 
     # The hit-cap fold: a pair still unconverged after the capped final
-    # converge is re-solved whatever its fitness.
+    # converge is re-solved whatever its fitness, unless the two-stage
+    # converge has continued it (JAX batch.py:238-239).
     fitness = res.fitness.cpu().numpy()
-    flags = (fitness > threshold) | res.refine_hit_cap.cpu().numpy()
+    flags = fitness > threshold
+    if not two_stage(cfg):
+        flags |= res.refine_hit_cap.cpu().numpy()
     with _stage(timer if flags.any() else None, "escalate"):
         (transform, hit_cap), fitness, wins, _ = esc.escalate_rerun(
             resolve, fitness, threshold, 1, result=(res.transform, res.refine_hit_cap), flags=flags)
@@ -866,6 +886,11 @@ def register_pair(
     full-resolution source into the target frame: apply it with
     `apply_similarity` and measure with `metrics.registration_measure`.
 
+    With the two-stage converge (refine_polish_iterations and
+    refine_max_iterations both set), a pair whose final converge hit its cap
+    is continued by `continue_capped`, the result with the lower fitness is
+    kept, and refine_hit_cap is cleared (JAX :895-904).
+
     With cfg.auto_escalate, the pair climbs `escalation_ladder` as
     register_pair does in JAX (pair=True): the 16^3 re-solve, the uncapped
     finisher and, with cfg.overlap_escalate, the overlap tier. A result that
@@ -874,10 +899,10 @@ def register_pair(
     fitness is trimmed.
 
     `timer` is entered around each stage: "resample", those of the base
-    register_batch, then "escalate" when the pair is flagged, "finish" when
+    register_batch, "two_stage" when the pair is continued, then "escalate"
+    when the pair is flagged, "finish" when
     the finisher runs, and "overlap8", "overlap16" and "overlap_screen" for
     each overlap rung that runs ("overlap" with overlap_mode)."""
-    check_supported(cfg, pair=True)
     device = _device(device)
     if not isinstance(source, PointCloud):
         source = PointCloud.from_points(source, device=device)
@@ -896,6 +921,9 @@ def register_pair(
         with _stage(timer, "overlap"):
             return _first(register_overlap_resampled(*clouds, cfg))
     res = register_batch(*clouds, cfg, timer)
+    if two_stage(cfg):
+        # The continuation is the designated finisher of the capped converge.
+        res = continue_capped(res, clouds, cfg, timer)._replace(refine_hit_cap=torch.zeros_like(res.refine_hit_cap))
     if cfg.auto_escalate:
         res = escalation_ladder(res, clouds, cfg, timer=timer, pair=True)
     return _first(res)

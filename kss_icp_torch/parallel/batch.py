@@ -23,7 +23,7 @@ from kss_icp_torch.config import DEFAULT_CONFIG, KSSICPConfig
 from kss_icp_torch.core.transforms import Similarity, apply_similarity
 from kss_icp_torch.metrics import registration_measure_padded
 from kss_icp_torch.models import kss_icp as kss
-from kss_icp_torch.models.kss_icp import RegistrationResult, Timer, _stage, check_supported
+from kss_icp_torch.models.kss_icp import RegistrationResult, Timer, _stage
 
 
 def _no_mesh(mesh) -> None:
@@ -84,22 +84,27 @@ def register_many(
     Pads every cloud to `full_pad` rows (truncating a larger one),
     FPS-resamples pair b to resample_count(Ns, Nt) points (one launch over
     the 2B clouds; AIVS with resampler="aivs", its boxes from the largest
-    valid count of the batch), registers the batch (register_batch), applies
+    valid count of the batch), registers the batch (register_batch), continues
+    the pairs whose capped final converge hit its cap with the two-stage
+    converge (models/kss_icp.py::continue_capped; refine_polish_iterations
+    and refine_max_iterations both set), applies
     each transform to its padded full-resolution source and measures it
     against its target (one nn1 launch). With escalation (cfg.auto_escalate by
     default), the batch climbs models/kss_icp.py::escalation_ladder at
     `escalate_threshold` and `escalate_cfg` (cfg.escalation_config()): the
     16^3 re-solve, the uncapped finisher and, with cfg.overlap_escalate, the
-    three overlap rungs, overlap_threshold re-checked before each. The
-    returned result keeps the base pass's candidate fields; the transform,
-    fitness and refine_hit_cap are the ladder's.
+    three overlap rungs, overlap_threshold re-checked before each. With the
+    two-stage converge, the cap no longer flags a pair for the re-solve, and
+    a continued pair keeps its refine_hit_cap, so the finisher runs on it
+    where the re-solve does not win (JAX batch.py:238-239). The returned
+    result keeps the base pass's candidate fields; the transform, fitness
+    and refine_hit_cap are the ladder's.
 
     `timer` is entered around each stage: "resample", "coarse", "screen",
-    "refine", then "escalate", "finish", "overlap8", "overlap16" and
-    "overlap_screen" when they run, and "metric". The two-stage converge
-    (refine_polish_iterations) and `mesh` raise NotImplementedError."""
+    "refine", then "two_stage", "escalate", "finish", "overlap8",
+    "overlap16" and "overlap_screen" when they run, and "metric". `mesh`
+    raises NotImplementedError."""
     _no_mesh(mesh)
-    check_supported(cfg, pair=True)
     device = kss._device(device)
     if escalate is None:
         escalate = cfg.auto_escalate
@@ -120,6 +125,7 @@ def register_many(
         (sp, sm), (tp, tm) = kss.resample_pairs(s_pts, s_msk, t_pts, t_msk, torch.tensor(counts, device=device),
                                                 cfg, steps=max(counts))
     res = kss.register_batch(sp, sm, tp, tm, cfg, timer)
+    res = kss.continue_capped(res, (sp, sm, tp, tm), cfg, timer)
     if escalate:
         res = kss.escalation_ladder(res, (sp, sm, tp, tm), cfg, escalate_threshold, escalate_cfg, timer)
     with _stage(timer, "metric"):

@@ -81,7 +81,28 @@ Three records, each a JSON file under fixtures/:
   the files `save_pair` wrote, as the CLI's `batch` does; then `simplify -m
   wlop -n 2000` (`cli_wlop`, and in float64 `cli_wlop_f64`) and `-m
   hierarchy` (`cli_hierarchy`) on the remesh source that `--variants` gave
-  `simplify -m aivs`. About 9 min on an 8-core CPU.
+  `simplify -m aivs`. About 9 min on an 8-core CPU;
+* `--two-stage`: the two-stage converge, DEFAULT_CONFIG with
+  refine_max_iterations=8 and refine_polish_iterations=1000, on the remesh
+  25 through register_pair (`pairs`) and through register_many in
+  sub-batches of MANY_CHUNK pairs (`many`), each pair with `continued`
+  (its capped converge was continued: a polish_resampled call at the base
+  config in register_pair, a polish_rerun before the first escalate_rerun in
+  register_many), written to fixtures/torch_port_expected_two_stage.json.
+  `--shard`/`--merge` as for `--overlap`;
+* `--analysis`: the analysis ops and the viewer, written to
+  fixtures/torch_port_expected_analysis.json with the arrays in
+  fixtures/torch_port_expected_analysis.npz: `vcm_edges` on a 4096-point
+  tools original (`challenge._instance(0, 0, 4096, sample=0)`) at
+  samples_per_point 32 with JAX's samples (`_ball_samples` jitted from the
+  key, npz `vcm_samples`) and its matrices, ratios and flags (`vcm_mats`,
+  `vcm_ratio`, `vcm_edges`), with the gap of JAX's matrices to the float64
+  evaluation and JAX's sample owners that are not float64's; `lloyd_relax`
+  of 1024 seeded sites at resolution 512 for 10 steps (`lloyd_sites`, and
+  the float64 iteration with exact labels, `lloyd_sites_f64`), with JAX's
+  first-step labels that are not float64's; and the sha256 of the PNGs
+  that JAX's `view` writes with `--spin 0.3` on remesh pair 0 (target and
+  source) and on Room seed 0's 200k target, each written with save_xyz.
 
 Per pair: the chosen candidate, ICP fitness, ICP iteration count, the
 hit-cap flag, the similarity transform and the full-resolution RMSE; with
@@ -100,9 +121,9 @@ fitness was above overlap_threshold when the rung began. chip_smoke.py and tests
 port to these records.
 
     JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation | --overlap | --batch | --largescan
-        | --precise | --variants | --tools] [--limit N] [--shard I/N] [--out PATH]
-    python scripts/torch_port_expected.py [--overlap | --batch | --precise | --variants] --merge SHARD.json ...
-        [--out PATH]
+        | --precise | --variants | --tools | --two-stage | --analysis] [--limit N] [--shard I/N] [--out PATH]
+    python scripts/torch_port_expected.py [--overlap | --batch | --precise | --variants | --two-stage]
+        --merge SHARD.json ... [--out PATH]
 
 About 16 s per remesh pair at DEFAULT_CONFIG and 8 s at the bench config on
 an 8-core x86 CPU with escalation off.
@@ -139,6 +160,13 @@ CLI_AIVS_COUNT = 2000  # simplify -m aivs -n 2000
 TOOLS = dict(n_points=40960, wlop_points=8000, wlop_iterations=20, cluster_size=10, simplify_count=2000)
 TOOLS_RECORDS = {"se": ("x", 0.7, 1.0, 0.0), "rev": ("y", 1.2, 0.9, 0.0), "box": ("z", -0.9, 1.0, 0.15),
                  "tube": ("x", 1.56, 1.1, -0.1)}
+# --two-stage: the knobs set on DEFAULT_CONFIG.
+TWO_STAGE = dict(refine_max_iterations=8, refine_polish_iterations=1000)
+# --analysis: VCM on one tools family at 4096 points, Lloyd from seeded sites in
+# the unit square, the viewer's drag.
+ANALYSIS = dict(vcm_family=0, vcm_points=4096, samples_per_point=32, offset_radius=0.1, convolve_radius=0.1,
+                threshold=0.16, vcm_key=0, lloyd_sites=1024, lloyd_resolution=512, lloyd_iterations=10,
+                lloyd_seed=0, bbox=[0.0, 0.0, 1.0, 1.0], view_spin=0.3)
 
 ESCALATION_NOTE = (
     "JAX on the CPU scores the rotation field on its XLA path whatever coarse_method says "
@@ -155,7 +183,7 @@ class _Counts:
         self.reset()
 
     def reset(self):
-        self.flagged = self.won = self.finished = 0
+        self.flagged = self.won = self.finished = self.continued = 0
 
     def __enter__(self):
         def rerun(*a, **kw):
@@ -165,7 +193,12 @@ class _Counts:
             return out
 
         def polish(*a, **kw):
-            self.finished += 1
+            # The two-stage continuation polishes at the base config, the
+            # finisher at escalation_config(), whose refine_polish_iterations is 0.
+            if a[-1].refine_polish_iterations:
+                self.continued += 1
+            else:
+                self.finished += 1
             return self.orig_polish(*a, **kw)
 
         self.escalate.escalate_rerun = rerun
@@ -573,6 +606,127 @@ def record_tools(remesh, variants: dict):
     return out, arrays
 
 
+def vcm_float64(points: np.ndarray, samples: np.ndarray, offset_radius: float, convolve_radius: float,
+                samples_per_point: int):
+    """VCM in float64 from float32 points and samples: exact owners, matrices
+    and ratios (kss_icp_tpu/ops/vcm.py's steps). Returns (owners, mats (P, 9),
+    ratio)."""
+    p64, s64 = points.astype(np.float64), samples.astype(np.float64)
+    owners = np.empty(len(s64), np.int64)
+    d2min = np.empty(len(s64))
+    for r0 in range(0, len(s64), 4096):
+        d2 = ((s64[r0:r0 + 4096, None, :] - p64[None]) ** 2).sum(-1)
+        owners[r0:r0 + 4096] = d2.argmin(1)
+        d2min[r0:r0 + 4096] = d2.min(1)
+    diff = (s64 - p64[owners]) * (d2min <= offset_radius ** 2)[:, None]
+    outer = (diff[:, :, None] * diff[:, None, :]).reshape(-1, 9)
+    mats = np.zeros((len(p64), 9))
+    np.add.at(mats, owners, outer)
+    mats *= (4.0 / 3.0) * np.pi * offset_radius ** 3 / samples_per_point
+    near = ((p64[:, None, :] - p64[None]) ** 2).sum(-1) <= convolve_radius ** 2
+    conv = near.astype(np.float64) @ mats
+    evals = np.linalg.eigvalsh(conv.reshape(-1, 3, 3))
+    return owners, conv, evals[:, 1] / np.maximum(evals.sum(-1), np.finfo(np.float64).tiny)
+
+
+def lloyd_float64(sites: np.ndarray, bbox, resolution: int, iterations: int):
+    """Lloyd iteration in float64 on the float32 pixel centres, exact labels.
+    Returns (final sites, first-step labels)."""
+    x0, y0, x1, y1 = bbox
+    i = np.arange(resolution, dtype=np.float32) + np.float32(0.5)
+    xs = np.float32(x0) + i * np.float32(x1 - x0) / np.float32(resolution)
+    ys = np.float32(y0) + i * np.float32(y1 - y0) / np.float32(resolution)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    pix = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float64)
+    pts, first = sites.astype(np.float64), None
+    for _ in range(iterations):
+        labels = np.empty(len(pix), np.int64)
+        for r0 in range(0, len(pix), 8192):
+            labels[r0:r0 + 8192] = ((pix[r0:r0 + 8192, None, :] - pts[None]) ** 2).sum(-1).argmin(1)
+        first = labels if first is None else first
+        counts = np.bincount(labels, minlength=len(pts)).astype(np.float64)
+        sums = np.stack([np.bincount(labels, pix[:, k], minlength=len(pts)) for k in range(2)], -1)
+        pts = np.where(counts[:, None] > 0, sums / np.maximum(counts, 1.0)[:, None], pts)
+    return pts, first
+
+
+def record_analysis(remesh):
+    """The `--analysis` record and its arrays (module docstring)."""
+    import hashlib
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    from kss_icp_tpu import cli as jcli
+    from kss_icp_tpu.challenge import _instance
+    from kss_icp_tpu.io.formats import save_xyz
+    from kss_icp_tpu.largescan import room_pair
+    from kss_icp_tpu.ops.nn import pairwise_sqdist
+    from kss_icp_tpu.ops.vcm import _ball_samples, vcm, vcm_edges
+    from kss_icp_tpu.ops.voronoi2d import lloyd_relax, voronoi_cells
+
+    a = ANALYSIS
+    out, arrays = {"analysis": a}, {}
+    t0 = time.perf_counter()
+    pts = np.asarray(_instance(a["vcm_family"], 0, a["vcm_points"], sample=0), np.float32)
+    mask = jnp.ones(len(pts), bool)
+    key = jax.random.PRNGKey(a["vcm_key"])
+    r_off, r_conv, spp = a["offset_radius"], a["convolve_radius"], a["samples_per_point"]
+    # The samples as vcm draws them: its radius is a traced float32 argument.
+    samples = np.asarray(jax.jit(lambda k, p, r: _ball_samples(k, p, jnp.asarray(r, jnp.float32), spp))(
+        key, jnp.asarray(pts), r_off))
+    edges, ratio = vcm_edges(jnp.asarray(pts), mask, r_off, r_conv, key, a["threshold"], spp)
+    mats = np.asarray(vcm(jnp.asarray(pts), mask, r_off, r_conv, key, spp)).reshape(-1, 9)
+    jax_owner = np.asarray(jax.jit(lambda s, p: jnp.argmin(pairwise_sqdist(s, p), axis=-1))(
+        jnp.asarray(samples), jnp.asarray(pts)))
+    owners64, mats64, ratio64 = vcm_float64(pts, samples, r_off, r_conv, spp)
+    arrays.update(vcm_points=pts, vcm_samples=samples, vcm_mats=mats, vcm_ratio=np.asarray(ratio),
+                  vcm_edges=np.asarray(edges))
+    scale = float(np.abs(mats64).max())
+    out["vcm"] = {"points_sha256": sha256(pts), "n_samples": int(len(samples)),
+                  "jax_owners_not_float64": int((jax_owner != owners64).sum()),
+                  "jax_mats_max_gap": float(np.abs(mats - mats64).max() / scale),
+                  "jax_ratio_max_gap": float(np.abs(np.asarray(ratio) - ratio64).max()),
+                  "edges": int(np.asarray(edges).sum()), "edges_float64": int((ratio64 >= a["threshold"]).sum()),
+                  "seconds": time.perf_counter() - t0}
+    print(f"vcm: {out['vcm']}", file=sys.stderr, flush=True)
+
+    t0 = time.perf_counter()
+    bbox = tuple(a["bbox"])
+    sites = np.random.default_rng(a["lloyd_seed"]).uniform(0.0, 1.0, (a["lloyd_sites"], 2)).astype(np.float32)
+    smask = jnp.ones(len(sites), bool)
+    res, iters = a["lloyd_resolution"], a["lloyd_iterations"]
+    relaxed = np.asarray(lloyd_relax(jnp.asarray(sites), smask, bbox, res, iters))
+    labels = np.asarray(voronoi_cells(jnp.asarray(sites), smask, bbox, res).labels).reshape(-1)
+    relaxed64, labels64 = lloyd_float64(sites, bbox, res, iters)
+    arrays.update(lloyd_start=sites, lloyd_sites=relaxed, lloyd_sites_f64=relaxed64)
+    out["lloyd"] = {"jax_labels_not_float64": int((labels != labels64).sum()),
+                    "jax_max_gap": float(np.abs(relaxed - relaxed64).max()),
+                    "seconds": time.perf_counter() - t0}
+    print(f"lloyd: {out['lloyd']}", file=sys.stderr, flush=True)
+
+    views = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        name, src, tgt, _ = remesh[0]
+        save_xyz(tmp / f"{name}.gird", src)
+        save_xyz(tmp / f"{name}.wlop", tgt)
+        save_xyz(tmp / "room0_target.xyz", room_pair(200_000, 0)[1])
+        for label, files in ((f"remesh {name}", [f"{name}.wlop", "-s", f"{name}.gird"]),
+                             ("room seed 0 target", ["room0_target.xyz"])):
+            argv = ["view"] + files + ["-o", "view.png", "--spin", str(a["view_spin"])]
+            t0 = time.perf_counter()
+            if jcli.main([str(tmp / x) if (tmp / x).suffix in (".gird", ".wlop", ".xyz", ".png") else x
+                          for x in argv]) != 0:
+                raise SystemExit(f"JAX's view failed on {label}")
+            digest = hashlib.sha256((tmp / "view.png").read_bytes()).hexdigest()
+            views.append({"label": label, "argv": argv, "png_sha256": digest, "seconds": time.perf_counter() - t0})
+            print(f"view {label}: {digest}", file=sys.stderr, flush=True)
+    out["views"] = views
+    return out, arrays
+
+
 def dump_record(out: dict) -> str:
     """The record as indented JSON, each list of integers (the AIVS picks) on
     one line."""
@@ -642,6 +796,10 @@ def main() -> int:
     mode.add_argument("--tools", action="store_true",
                       help="record WLOP, hierarchy_simplify, make_pair, simplification_measure and the pipeline at "
                            "40960 points, and simplify -m wlop|hierarchy")
+    mode.add_argument("--two-stage", action="store_true",
+                      help="record the two-stage converge through register_pair and register_many: remesh 25")
+    mode.add_argument("--analysis", action="store_true",
+                      help="record vcm_edges at 4096 points, lloyd_relax at 1024 sites, and view's PNG digests")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--limit", type=int, default=0,
                     help="only the first N pairs of each corpus (0 = all)")
@@ -658,6 +816,8 @@ def main() -> int:
                                        "torch_port_expected_precise.json" if args.precise else
                                        "torch_port_expected_variants.json" if args.variants else
                                        "torch_port_expected_tools.json" if args.tools else
+                                       "torch_port_expected_two_stage.json" if args.two_stage else
+                                       "torch_port_expected_analysis.json" if args.analysis else
                                        "torch_port_expected.json")
     if args.merge:
         return merge(args.merge, out_path)
@@ -730,16 +890,18 @@ def main() -> int:
                 "translation": np.asarray(tr.translation, np.float64).tolist(),
                 "rmse": float(rmse),
             }
-            if args.escalation or args.overlap or args.precise or args.variants:
+            if args.escalation or args.overlap or args.precise or args.variants or args.two_stage:
                 rec.update(escalated=counts.flagged > 0, escalation_won=counts.won > 0,
                            finisher=counts.finished > 0)
-            if args.overlap or args.precise or args.variants:
+            if args.two_stage:
+                rec["continued"] = counts.continued > 0
+            if args.overlap or args.precise or args.variants or args.two_stage:
                 rec["rungs"] = rungs.rungs
             if threshold is not None:
                 pose = transform_rmse(aligned, src, gt)
                 rec.update(pose_rmse=float(pose), passed=bool(pose <= threshold))
             pairs.append(rec)
-            extra = "".join(f" {k}={rec[k]}" for k in ("escalated", "escalation_won", "finisher",
+            extra = "".join(f" {k}={rec[k]}" for k in ("continued", "escalated", "escalation_won", "finisher",
                                                          "pose_rmse") if k in rec)
             extra += "".join(f" {r['rung']}={'adopted' if r['adopted'] else 'ran' if r['ran'] else 'skipped'}"
                              for r in rec.get("rungs", ()))
@@ -782,6 +944,8 @@ def main() -> int:
                 "finisher": bool(ladder.finisher[b]),
                 "rungs": ladder.rungs[b],
             }
+            if args.two_stage:
+                rec["continued"] = bool(ladder.continued[b])
             if board is not None:
                 pose = transform_rmse(aligned, src_pad, gt)
                 rec.update(board=board[0], pose_rmse=float(pose), passed=bool(pose <= board[1]))
@@ -818,6 +982,35 @@ def main() -> int:
         out["boards"] = {b: {"threshold": thr, "pairs": []} for b, _, thr in boards}
         for r in rows:
             out["boards"][r.pop("board")]["pairs"].append(r)
+        out["seconds"] = time.perf_counter() - t_start
+        out_path.write_text(dump_record(out))
+        print(f"wrote {out_path} in {out['seconds']:.0f} s", file=sys.stderr)
+        return 0
+    if args.analysis:
+        out, arrays = record_analysis(remesh)
+        out["platform"] = platform
+        out["seconds"] = time.perf_counter() - t_start
+        np.savez_compressed(out_path.with_suffix(".npz"), **arrays)
+        out_path.write_text(dump_record(out))
+        print(f"wrote {out_path} and its .npz in {out['seconds']:.0f} s", file=sys.stderr)
+        return 0
+    if args.two_stage:
+        cfg = dataclasses.replace(DEFAULT_CONFIG, **TWO_STAGE)
+        remesh_items, _ = batch_items(remesh, [], shard, shards, args.limit)
+        chunks = [remesh_items[i:i + MANY_CHUNK] for i in range(0, len(remesh_items), MANY_CHUNK)]
+        out = {
+            "platform": platform,
+            "note": ESCALATION_NOTE,
+            "rmse_band": 0.006,
+            "config": "DEFAULT_CONFIG (escalation and the overlap tier on) with the knobs below: the converge "
+                      "capped at 8 iterations, the capped pairs continued by a polish of up to 1000",
+            "knobs": TWO_STAGE,
+            "pairs": run(cfg, remesh),
+            "many": {"two_stage": {
+                "pairs": [r for chunk in chunks for r in run_batch(cfg, chunk)],
+                "batches": [{"shard": f"{shard}/{shards}", "remesh": [p[0] for _, p, _ in chunk]}
+                            for chunk in chunks]}},
+        }
         out["seconds"] = time.perf_counter() - t_start
         out_path.write_text(dump_record(out))
         print(f"wrote {out_path} in {out['seconds']:.0f} s", file=sys.stderr)

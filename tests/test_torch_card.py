@@ -861,3 +861,76 @@ def test_hierarchy_simplify_on_the_card_matches_cpu(cuda_device, n, cluster, var
     gp, gk = hierarchy_simplify(_t(pts, cuda_device), _t(mask, cuda_device), cluster, variation)
     cp, ck = hierarchy_simplify(_t(pts), _t(mask), cluster, variation)
     assert torch.equal(gk.cpu(), ck) and torch.equal(gp.cpu(), cp)
+
+
+@pytest.mark.cuda
+def test_vcm_on_the_card_matches_cpu(cuda_device):
+    """vcm_edges on the card (one nn1 launch for the sample owners) against
+    the CPU on the same samples: the owners bit for bit, the matrices within
+    rtol 1e-5 of their largest entry (the matmul sums in another order), the
+    flags equal away from the threshold."""
+    from kss_icp_torch.ops import vcm
+
+    pts = random_cloud(np.random.default_rng(17), 2048).astype(np.float32)
+    mask = np.arange(2048) < 2000
+    samples = vcm.ball_samples(_t(pts), 0.15, 8, torch.Generator().manual_seed(0))
+    nn1.launches = 0
+    owner, dom = vcm.sample_owners(samples.to(cuda_device), _t(pts, cuda_device), _t(mask, cuda_device), 0.15)
+    assert nn1.launches == 1
+    cowner, cdom = vcm.sample_owners(samples, _t(pts), _t(mask), 0.15)
+    assert torch.equal(owner.cpu(), cowner) and torch.equal(dom.cpu(), cdom)
+    g = vcm.vcm_edges(_t(pts, cuda_device), _t(mask, cuda_device), 0.15, 0.1, samples=samples.to(cuda_device),
+                      samples_per_point=8)
+    c = vcm.vcm_edges(_t(pts), _t(mask), 0.15, 0.1, samples=samples, samples_per_point=8)
+    np.testing.assert_allclose(g[1].cpu().numpy(), c[1].numpy(), atol=1e-5)
+    firm = (c[1] - 0.16).abs() > 1e-5
+    assert torch.equal(g[0].cpu()[firm], c[0][firm])
+
+
+@pytest.mark.cuda
+def test_lloyd_relax_on_the_card_matches_cpu(cuda_device):
+    """lloyd_relax on the card (an nn1 launch a step for the labels) equals
+    the CPU's bits: exact labels, segment sums in pixel order on both."""
+    from kss_icp_torch.ops.voronoi2d import lloyd_relax
+
+    sites = np.random.default_rng(18).uniform(0, 1, (300, 2)).astype(np.float32)
+    mask = np.arange(300) < 290
+    nn1.launches = 0
+    got = lloyd_relax(_t(sites, cuda_device), _t(mask, cuda_device), (0.0, 0.0, 1.0, 1.0), 256, 5)
+    assert nn1.launches == 5
+    assert torch.equal(got.cpu(), lloyd_relax(_t(sites), _t(mask), (0.0, 0.0, 1.0, 1.0), 256, 5))
+
+
+@pytest.mark.cuda
+def test_mesh_angles_and_two_stage_on_the_card_match_cpu(cuda_device):
+    """mesh_angle_report on the card within 1e-6 rad of the CPU's angles on a
+    well-shaped mesh (a jittered torus grid; a float32 arccos near 0 or π
+    amplifies a rounding difference) and with its histogram; register_pair
+    with the two-stage converge on the card continues the capped pair and
+    lands at the CPU's pose."""
+    import contextlib
+
+    from kss_icp_torch.measure_mesh import mesh_angle_report, triangle_angles
+
+    rng = np.random.default_rng(19)
+    m = 41
+    u, v = np.meshgrid(np.linspace(0, 2 * np.pi, m), np.linspace(0, 2 * np.pi, m), indexing="ij")
+    verts = np.stack([(1 + 0.4 * np.cos(v)) * np.cos(u), (1 + 0.4 * np.cos(v)) * np.sin(u), 0.4 * np.sin(v)], -1)
+    verts = (verts.reshape(-1, 3) + rng.normal(0, 0.005, (m * m, 3))).astype(np.float32)
+    ij = np.arange(m * m).reshape(m, m)[:-1, :-1].ravel()
+    faces = np.concatenate([np.stack([ij, ij + 1, ij + m], -1), np.stack([ij + 1, ij + m + 1, ij + m], -1)])
+    g, c = triangle_angles(verts, faces, device=cuda_device), triangle_angles(verts, faces, device="cpu")
+    np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), atol=1e-6)
+    got, want = mesh_angle_report(verts, faces, device=cuda_device), mesh_angle_report(verts, faces, device="cpu")
+    near = int((np.abs(c.numpy().ravel()[:, None] - want["bin_edges"][None]).min(axis=1) < 1e-6).sum())
+    assert np.abs(got["histogram"] - want["histogram"]).sum() <= 2 * near
+    cfg = KSSICPConfig(max_resample_points=400, resample_pad=512, refine_max_iterations=2, refine_polish_iterations=200)
+    tgt = random_cloud(rng, 1200).astype(np.float32)
+    src = (tgt[::-1] @ np.asarray(euler_xyz_matrix(torch.tensor([0.3, -0.2, 0.4]))).T * 1.2 + 0.1
+           + rng.normal(0, 0.005, tgt.shape)).astype(np.float32)
+    stages = []
+    res = kt.register_pair(src, tgt, cfg, device=cuda_device,
+                           timer=lambda s: stages.append(s) or contextlib.nullcontext())
+    ref = kt.register_pair(src, tgt, cfg, device="cpu")
+    assert "two_stage" in stages and not bool(res.refine_hit_cap)
+    np.testing.assert_allclose(res.transform.rotation.cpu().numpy(), ref.transform.rotation.numpy(), atol=1e-3)

@@ -2,9 +2,8 @@
 tiny flags on small seeded clouds, mirroring tests/test_cli_smoke.py: the
 subcommands run as subprocesses with the JAX CLI's printed lines and JSON
 keys, the tools (simplify -m aivs|wlop|hierarchy, make-pairs,
-measure-resample) against the JAX CLI on the same files, `view`, the one
-not ported, exits 2 naming its ROADMAP.md item, `--device
-cuda` without a card exits nonzero, and one in-process register is held to
+measure-resample) and `view` against the JAX CLI on the same files (view's
+PNG bytes equal), `--device cuda` without a card exits nonzero, and one in-process register is held to
 `kss_icp_tpu.cli.main` on the same files (RMSE within JAX + 0.006)."""
 
 import json
@@ -175,20 +174,26 @@ def test_resample(files, tmp_path):
     (["simplify", "a.xyz", "b.xyz", "-m", "hierarchy"], "hierarchy"),
 ])
 def test_unported_subcommands_exit_2(capsys, files, tmp_path, argv, item):
-    """`view`, not ported yet, exits 2 naming its ROADMAP.md item. The other
-    cases are ported: each runs the port's and the JAX CLI on the same files
-    and holds them to the same printed lines and points (WLOP at its bar:
+    """Every case is ported: each runs the port's and the JAX CLI on the same
+    files and holds them to the same printed lines and points, `view` to the
+    same PNG bytes, with and without the trackball's spin (WLOP at its bar:
     median |Δ| 5e-5, max 2e-3 bounding-box diagonals; measure-resample's
     displacements follow each package's PCA normal signs, so they are held
     to the port's own simplification_measure, the sampling rate to JAX's)."""
-    if item == "viz/view":
-        assert cli.main(argv) == 2
-        err = capsys.readouterr().err
-        assert "ROADMAP.md queue 1 item 13" in err and item in err
-        return
     from kss_icp_tpu import cli as jcli
 
     src, tgt = str(files / "src.xyz"), str(files / "tgt.xyz")
+    if item == "viz/view":
+        # The JAX CLI's view takes no --platform, the port's no --device: both render on the host.
+        for spin in ("0", "0.3"):
+            pngs = {}
+            for name, main in (("jax", jcli.main), ("torch", cli.main)):
+                pngs[name] = tmp_path / f"{name}_{spin}.png"
+                assert main(["view", tgt, "-s", src, "-a", tgt, "-o", str(pngs[name]), "--size", "200",
+                             "--spin", spin]) == 0
+                assert capsys.readouterr().out == f"saved {pngs[name]}\n"
+            assert pngs["torch"].read_bytes() == pngs["jax"].read_bytes()
+        return
     cases = {"aivs": ["simplify", tgt, "{out}.xyz", "-m", "aivs", "-n", "300"],
              "wlop": ["simplify", tgt, "{out}.xyz", "-m", "wlop", "-n", "300"],
              "hierarchy": ["simplify", tgt, "{out}.xyz", "-m", "hierarchy"],

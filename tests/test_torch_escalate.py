@@ -83,6 +83,22 @@ def test_escalate_rerun_difficulty_sort_chunks_matches_jax():
     assert out[3] == 3 and out[0]["x"][:, 0].tolist() == [0, 1, 0, 3, 0, 5]
 
 
+@pytest.mark.parametrize("margin, adopted", [(0.0, [1]), (0.05, [1, 2]), (0.2, [1, 2, 3])])
+def test_escalate_rerun_near_tie_margin_matches_jax(margin, adopted):
+    """near_tie_margin adopts a re-solve up to (1 + margin) x the incumbent's
+    fitness (kss_icp_tpu/escalate.py:49-55), and the adopted row carries the
+    re-solve's own fitness. Row 1 improves; rows 2 and 3 worsen by 4% and
+    15%; row 0 is not flagged; float32 fitnesses, as the ladders pass them."""
+    fitness = np.array([1e-4, 5e-3, 4e-3, 6e-3], np.float32)
+    fit2 = np.array([0.0, 4e-3, 4e-3 * 1.04, 6e-3 * 1.15], np.float32)
+    out = _rerun_both(fitness, 1e-3, 1, {"x": np.zeros(4, np.float32)},
+                      lambda sel: ({"x": np.asarray(sel, np.float32)}, fit2[np.asarray(sel)]),
+                      near_tie_margin=margin)
+    assert [w[0] for w in out[2]] == adopted
+    np.testing.assert_array_equal(out[1][adopted], fit2[adopted])
+    assert out[0]["x"].tolist() == [float(i) if i in adopted else 0.0 for i in range(4)]
+
+
 def test_polish_rerun_keep_better_matches_jax():
     fitness, hit = np.array([2e-3, 4e-3]), np.array([True, True])
 

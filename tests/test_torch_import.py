@@ -1,7 +1,7 @@
-"""The port imports without jax, keeps the JAX package's config, refuses the
-knob it does not implement (and runs every other as JAX does, the shipped
-DEFAULT_CONFIG's overlap tier, the AIVS resampler, point-to-plane ICP and
-every field metric included), and its CPU path launches no kernel."""
+"""The port imports without jax, keeps the JAX package's config, runs every
+knob as JAX does (the shipped DEFAULT_CONFIG's overlap tier, the two-stage
+converge, the AIVS resampler, point-to-plane ICP and every field metric
+included), and its CPU path launches no kernel."""
 
 import ast
 import contextlib
@@ -40,7 +40,10 @@ def test_imports_with_jax_blocked():
             "import kss_icp_torch.cli, kss_icp_torch.io, kss_icp_torch.transfer, kss_icp_torch.utils.log\n"
             "import kss_icp_torch.ops.spatial, kss_icp_torch.ops.normals, kss_icp_torch.ops.aivs\n"
             "import kss_icp_torch.ops.wlop, kss_icp_torch.measure_resample, kss_icp_torch.pipeline\n"
-            "import kss_icp_torch.utils.cache\n"
+            "import kss_icp_torch.utils.cache, kss_icp_torch.utils.fileproc\n"
+            "import kss_icp_torch.viz, kss_icp_torch.viz.render, kss_icp_torch.viz.trackball\n"
+            "import kss_icp_torch.viz.interactive, kss_icp_torch.native\n"
+            "import kss_icp_torch.ops.vcm, kss_icp_torch.ops.voronoi2d, kss_icp_torch.measure_mesh\n"
             "assert kss_icp_torch.register_many and kss_icp_torch.parallel.register_many\n"
             "print(sorted(kss_icp_torch.__all__))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -53,6 +56,10 @@ def test_no_source_file_imports_jax():
     files = sorted((REPO / "kss_icp_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
                                                                   REPO / "scripts" / "torch_kernel_ab.py",
                                                                   REPO / "scripts" / "torch_tree_ab.py"]
+    names = {str(f.relative_to(REPO)) for f in files}
+    for new in ("viz/__init__.py", "viz/render.py", "viz/trackball.py", "viz/interactive.py", "utils/fileproc.py",
+                "native/__init__.py", "ops/vcm.py", "ops/voronoi2d.py", "measure_mesh.py"):
+        assert f"kss_icp_torch/{new}" in names, new
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -98,36 +105,27 @@ def test_from_reference_takes_a_dict_and_refuses_unknown_fields():
 
 _NO_ESC = tcfg.KSSICPConfig(rotation_steps=2, max_candidates=2, max_resample_points=32, resample_pad=64,
                             max_icp_iterations=2, auto_escalate=False)
-# (knobs, read by register_resampled too?)
-UNPORTED = [
-    (dict(auto_escalate=True), False),  # overlap_escalate defaults to True: the overlap tier, ported
-    (dict(auto_escalate=True, overlap_escalate=True), False),
-    (dict(overlap_mode=True), False),
-    (dict(refine_polish_iterations=4, refine_max_iterations=8), False),
-    (dict(resampler="aivs"), False),
-    (dict(neighborhood_fracs=(0.25,)), True),  # ported: the case now holds the port to JAX
-    (dict(pose_tiebreak_margin=0.12), True),  # ported: the case now holds the port to JAX
-    (dict(icp_variant="point_to_plane"), True),
-    (dict(coarse_error_metric="trim"), True),
-    (dict(coarse_error_metric="max"), True),
-    (dict(coarse_error_metric="diff"), True),
-    (dict(icp_trim_fraction=0.7), True),
-    (dict(icp_estimate_scale=True), True),
-]
+# Every knob that was once refused, each now held to JAX (the names of the
+# list and the test are the ones the cases were first collected under).
+UNPORTED = [dict(auto_escalate=True),  # overlap_escalate defaults to True: the overlap tier
+            dict(auto_escalate=True, overlap_escalate=True), dict(overlap_mode=True),
+            dict(refine_polish_iterations=4, refine_max_iterations=8), dict(resampler="aivs"),
+            dict(neighborhood_fracs=(0.25,)), dict(pose_tiebreak_margin=0.12), dict(icp_variant="point_to_plane"),
+            dict(coarse_error_metric="trim"), dict(coarse_error_metric="max"), dict(coarse_error_metric="diff"),
+            dict(icp_trim_fraction=0.7), dict(icp_estimate_scale=True)]
 
 
-# Ported knobs: each case holds the port's register_pair to JAX's on the same inputs.
-PORTED = [dict(pose_tiebreak_margin=0.12), dict(auto_escalate=True), dict(auto_escalate=True, overlap_escalate=True),
-          dict(overlap_mode=True), dict(neighborhood_fracs=(0.25,)), dict(coarse_error_metric="trim"), dict(icp_trim_fraction=0.7),
-          dict(icp_estimate_scale=True), dict(resampler="aivs"), dict(icp_variant="point_to_plane"),
-          dict(coarse_error_metric="max"), dict(coarse_error_metric="diff")]
-
-
-@pytest.mark.parametrize("knobs, in_core", UNPORTED, ids=[",".join(k) for k, _ in UNPORTED])
-def test_unported_knobs_raise(rng, monkeypatch, knobs, in_core):
+@pytest.mark.parametrize("knobs", UNPORTED, ids=[",".join(k) for k in UNPORTED])
+def test_unported_knobs_raise(rng, monkeypatch, knobs):
+    """Each knob through the port's register_pair and JAX's on the same
+    inputs: a target the source does not fit, so the multistart gate fails,
+    the tie-break picks the lane (in JAX: used_multistart) and a flagged pair
+    climbs the whole escalation ladder."""
     cfg = dataclasses.replace(_NO_ESC, **knobs)
     pts = rng.uniform(-1, 1, size=(40, 3)).astype(np.float32)
-    if "icp_variant" in knobs:
+    if "icp_variant" not in knobs:
+        tgt = rng.uniform(-1, 1, size=(40, 3)).astype(np.float32)
+    else:
         # Point-to-plane needs a surface, and neighbourhoods (k = 20) of far
         # fewer points than the cloud, or every normal is the whole cloud's
         # and the step is unconstrained along the plane: a wavy surface and a
@@ -136,47 +134,67 @@ def test_unported_knobs_raise(rng, monkeypatch, knobs, in_core):
         pts = random_cloud(rng, 400).astype(np.float32)
         rot = np.asarray(euler_xyz_matrix(torch.tensor([0.0, 0.0, 0.3])))
         tgt = (pts[::-1] @ rot.T * 1.2 + 0.1 + rng.normal(0, 0.002, pts.shape)).astype(np.float32)
-    if knobs in PORTED:
-        # A target the source does not fit: the multistart gate fails, so the
-        # tie-break picks the lane (in JAX: used_multistart), and a flagged
-        # pair climbs the whole escalation ladder.
-        if "icp_variant" not in knobs:
-            tgt = rng.uniform(-1, 1, size=(40, 3)).astype(np.float32)
-        calls, select = [], tk._pose_tiebreak_select
-        monkeypatch.setattr(tk, "_pose_tiebreak_select", lambda *a: calls.append(a) or select(*a))
-        want = jk.register_pair(pts, tgt, jcfg.KSSICPConfig(**dataclasses.asdict(cfg)))
-        got = tk.register_pair(pts, tgt, cfg, device="cpu")
-        if "pose_tiebreak_margin" in knobs:
-            assert bool(want.used_multistart) and bool(got.used_multistart) and len(calls) == 1
-        if "auto_escalate" not in knobs:
-            # Here two lanes of the 16^3 re-solve converge to one pose, their
-            # fitnesses a few ulps apart, and the tie-break may take either.
-            assert int(got.chosen_candidate) == int(want.chosen_candidate)
+    calls, select = [], tk._pose_tiebreak_select
+    monkeypatch.setattr(tk, "_pose_tiebreak_select", lambda *a: calls.append(a) or select(*a))
+    want = jk.register_pair(pts, tgt, jcfg.KSSICPConfig(**dataclasses.asdict(cfg)))
+    got = tk.register_pair(pts, tgt, cfg, device="cpu")
+    if "pose_tiebreak_margin" in knobs:
+        assert bool(want.used_multistart) and bool(got.used_multistart) and len(calls) == 1
+    if "refine_polish_iterations" in knobs:
+        # The capped converge was continued, and the continuation cleared the flag.
+        assert not bool(got.refine_hit_cap) and not bool(want.refine_hit_cap)
+    if "auto_escalate" not in knobs:
+        # Here two lanes of the 16^3 re-solve converge to one pose, their
+        # fitnesses a few ulps apart, and the tie-break may take either.
+        assert int(got.chosen_candidate) == int(want.chosen_candidate)
+    np.testing.assert_allclose(float(got.fitness), float(want.fitness), rtol=1e-3, atol=1e-7)
+    for f in ("scale", "rotation", "translation"):
+        np.testing.assert_allclose(getattr(got.transform, f).numpy(), np.asarray(getattr(want.transform, f)),
+                                   atol=1e-4)
+
+
+def test_escalation_with_the_overlap_tier_raises_before_any_work(rng):
+    """The two-stage converge beside the shipped ladder: DEFAULT_CONFIG shrunk
+    to tiny sizes with every threshold at 0, and the escalation alone, each
+    with the converge capped at 1 and continued. The port's register_pair
+    gives JAX's pose and fitness, the pair continued in both (the
+    polish_resampled calls at the base config) and refine_hit_cap cleared."""
+    shipped = dataclasses.replace(tcfg.DEFAULT_CONFIG, max_resample_points=48, resample_pad=64, max_icp_iterations=4,
+                                  rotation_steps=3, escalate_rotation_steps=4, overlap_screen_steps=3,
+                                  max_candidates=4, escalate_max_candidates=4,
+                                  escalate_threshold=0.0, overlap_threshold=0.0, overlap_gate_ratio=1e9)
+    pts = rng.uniform(-1, 1, size=(100, 3)).astype(np.float32)
+    # A noisy copy: on an exact copy the port's exact-difference fitness keeps
+    # falling past JAX's expansion-form floor, so the lanes stop apart.
+    tgt = (pts[::-1] @ np.asarray(euler_xyz_matrix(torch.tensor([0.2, -0.1, 0.3]))).T * 1.3
+           + rng.normal(0, 0.01, pts.shape)).astype(np.float32)
+    for cfg in (shipped, dataclasses.replace(_NO_ESC, auto_escalate=True)):
+        cfg = dataclasses.replace(cfg, refine_polish_iterations=4, refine_max_iterations=1)
+        calls = {"jax": [], "torch": []}
+        with contextlib.ExitStack() as stack:
+            for tag, mod in (("jax", jk), ("torch", tk)):
+                orig = mod.polish_resampled
+                stack.enter_context(_patched(mod, "polish_resampled",
+                                             lambda *a, _o=orig, _t=tag, **kw: calls[_t].append(
+                                                 a[-1].refine_polish_iterations) or _o(*a, **kw)))
+            want = jk.register_pair(pts, tgt, jcfg.KSSICPConfig(**dataclasses.asdict(cfg)))
+            got = tk.register_pair(pts, tgt, cfg, device="cpu")
+        assert calls["torch"] == calls["jax"] and calls["jax"][:1] == [4]
+        assert not bool(got.refine_hit_cap) and not bool(want.refine_hit_cap)
         np.testing.assert_allclose(float(got.fitness), float(want.fitness), rtol=1e-3, atol=1e-7)
         for f in ("scale", "rotation", "translation"):
             np.testing.assert_allclose(getattr(got.transform, f).numpy(), np.asarray(getattr(want.transform, f)),
                                        atol=1e-4)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.register_pair(pts, pts, cfg, device="cpu")
-    if in_core:
-        x = torch.as_tensor(pts)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tk.register_resampled(x, torch.ones(40, dtype=torch.bool), x, torch.ones(40, dtype=torch.bool), cfg)
 
 
-def test_escalation_with_the_overlap_tier_raises_before_any_work(monkeypatch):
-    """The shipped ladder is ported; the knob that is not (the two-stage
-    converge), set beside it or alone, is still refused before any work."""
-    def no_work(*a, **kw):
-        raise AssertionError("register_pair started work before refusing the config")
-
-    monkeypatch.setattr(tk, "resample_batch", no_work)
-    pts = np.zeros((40, 3), np.float32)
-    for cfg in (dataclasses.replace(tcfg.DEFAULT_CONFIG, refine_polish_iterations=4, refine_max_iterations=8),
-                dataclasses.replace(_NO_ESC, auto_escalate=True, refine_polish_iterations=4, refine_max_iterations=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tk.register_pair(pts, pts, cfg, device="cpu")
+@contextlib.contextmanager
+def _patched(module, name, fn):
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
 
 
 def test_default_config_runs_the_overlap_ladder(rng):
