@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (kss_icp_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # one card: every phase below
+    python3 chip_smoke.py --mesh-cards   # 2+ cards: phases 1, 2 and 4l's NCCL
+                                         # world over the cards alone
 
 Phases, each of which raises on failure (exit code 1, no result line):
   1. device: require CUDA; print the card's name and power limit
@@ -212,6 +214,32 @@ Phases, each of which raises on failure (exit code 1, no result line):
           ms, files refused) and load_points_batch over the 50 remesh clouds;
           phase 3 holds nn1 at both new shapes on the same inputs, with
           launches from 4k;
+       l. the device mesh (kss_icp_torch.parallel on torch.distributed):
+          4 gloo ranks sharing this card, spawned (torch.multiprocessing,
+          spawn) after the build and rendezvoused through a FileStore in a
+          temporary directory, each with the same global inputs: the 16³
+          field sharded over "rot" on the largest remesh pair's resampled
+          pre-shapes (the unsharded field's bits), point-sharded ICP of a
+          noisy 2048-point copy (pose within 1e-5, fitness rtol 1e-4, ±1
+          iteration of the unsharded ICP), the metric sharded over Room
+          seed 0's 200704 query rows (rtol 1e-5), and register_many over a
+          "pairs" mesh on the remesh 25 at DEFAULT_CONFIG (JAX's batch
+          record + 0.006, JAX's escalated set), at coarse_method="dot" and
+          at the forced ladder of __graft_entry__.py:140-146 (each of the
+          three against the unsharded batch: escalations and rungs run,
+          RMSE within 0.006 and pose within 1.75e-2, each pair whose pose
+          parts by more than 1e-5 named: a batch's answers are not one
+          pair's bits, ROADMAP queue 3); every rank's
+          answer must equal rank 0's; pairs/s of the mesh call beside the
+          unsharded batch in turns (overhead on one card, not scaling),
+          each rank's stage seconds and their max, the ranks' launches
+          summed (nn1, fps, field_ave, field_dot and field_trim must all
+          launch); then an NCCL group of world size 1 through the same entry
+          points, and with 2+ cards NCCL over min(4, count), one rank a
+          card; a rank that fails, dies or outlasts the group's timeout
+          fails the run; phase 3 holds nn1, fps and field_ave at a rank's
+          shapes, with launches from 4l, and every nn1 shape the 4 ranks
+          launch must be one phase 3 held;
   5. a measurement that gates nothing: on each remesh pair's 8³ field, does
      field_dot at "default" (one bf16 pass) keep candidate 0 and the top-6
      set of "highest" and of field_ave?
@@ -227,6 +255,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -295,6 +324,51 @@ def shape_key(lanes: int, q_n: int, r_n: int, groups: int) -> str:
     return f"{lanes}x{q_n}x{r_n}" + (f" G={groups}" if groups > 1 else "")
 
 
+def mesh_slices(n: int) -> list:
+    """Each of phase 4l's MESH_WORLD ranks' pair indices: its contiguous
+    slice of n pairs, the last padded by repeating pair n - 1, as
+    parallel/batch.py splits the "pairs" axis."""
+    per = -(-n // MESH_WORLD)
+    return [[min(i, n - 1) for i in range(k * per, (k + 1) * per)] for k in range(MESH_WORLD)]
+
+
+def mesh_nn1_cases() -> list:
+    """Phase 3's nn1 cases at the shapes of phase 4l's register_many ranks
+    that no other case holds. Each rank registers its slice of the remesh
+    25 (7 pairs), lane_ref = the lane's pair: at DEFAULT_CONFIG and at the
+    forced ladder, 32 lanes a pair x 512 (screen), 4 x 2048 (refine), 16 x
+    512 (escalation screen), 3 and 1 x 2048 (the re-solves' and the
+    finisher's), 512 x 512 and 512 x 2048 forward and reverse (the overlap
+    screen), the metric at 8192; and the escalation's shapes over each
+    rank's count of JAX's escalated pairs (fixtures/torch_port_expected_batch.json).
+    nn1_plan picks a kernel configuration by lanes x tiles, so these shapes
+    run cluster sizes the unsharded batch's do not."""
+    slices = mesh_slices(len(load_pairs()))
+    per = len(slices[0])
+    esc = [r["escalated"] for r in json.loads((FIXTURES / "torch_port_expected_batch.json").read_text())["pairs"]]
+    counts = sorted({sum(esc[i] for i in rows) for rows in slices} - {0})
+    rank = f"a mesh rank's {per} pairs"
+    shapes = [(per * 32, 512, 2048, per, f"{rank} x 32 lanes (screen ICP)", (378, 1534)),
+              (per * 4, 2048, 2048, per, f"{rank} x 4 lanes (refine ICP)", (378, 1534)),
+              (per * 16, 512, 2048, per, f"{rank} x 16 lanes (forced ladder's escalation screen)", (378, 1534)),
+              (per * 3, 2048, 2048, per, f"{rank} x 3 lanes (forced ladder)", (378, 1534)),
+              (per, 2048, 2048, per, f"{rank} x 1 lane (forced ladder)", (378, 1534)),
+              (per * 512, 512, 2048, per, f"{rank} x 512 lanes (overlap screen ICP)", (378, 1534)),
+              (per * 512, 2048, 2048, per, f"{rank} x 512 lanes (overlap screen fitness, forward)", (378, 1534)),
+              (per * 512, 2048, 2048, per * 512, f"{rank} x 512 lanes (overlap screen fitness, reverse)", (378, 1534)),
+              (per, BATCH_PAD, BATCH_PAD, per, f"{rank}' metric: lane b against cloud b", (3951, 8000))]
+    for k in counts:
+        esc_rank = f"a mesh rank's {k} escalated pair{'s' if k > 1 else ''}"
+        shapes += [(k * 16, 512, 2048, k, f"{esc_rank} x 16 lanes (escalation screen)", (378, 1534)),
+                   (k * 4, 2048, 2048, k, f"{esc_rank} x 4 lanes (escalation refine)", (378, 1534)),
+                   (k, 2048, 2048, k, f"{esc_rank} x 1 lane (escalation)", (378, 1534))]
+    # Shapes that another case holds (a rank with one escalated pair runs
+    # the single-pair escalation's) take their launches from that case's pass.
+    held = {(16, 512, 2048, 1), (4, 2048, 2048, 1)}
+    return [(lanes, q_n, r_n, g, label, valid, "mesh") for lanes, q_n, r_n, g, label, valid in shapes
+            if (lanes, q_n, r_n, g) not in held]
+
+
 def phase_kernels(torch, dev) -> dict:
     from kss_icp_torch.config import DEFAULT_CONFIG
     from kss_icp_torch.core.cloud import PointCloud
@@ -355,7 +429,12 @@ def phase_kernels(torch, dev) -> dict:
             (1, VCM_SAMPLES * n_tools, n_tools, 1, f"VCM sample owners: a {n_tools}-point tools original x "
              f"{VCM_SAMPLES} ball samples", None, "vcm"),
             (1, LLOYD["resolution"] ** 2, LLOYD["sites"], 1, f"Voronoi labels: {LLOYD['resolution']}² pixels "
-             f"against {LLOYD['sites']} sites, 2D padded to z = 0", None, "voronoi")):
+             f"against {LLOYD['sites']} sites, 2D padded to z = 0", None, "voronoi"),
+            (1, MESH_ICP_POINTS // MESH_WORLD, MESH_ICP_POINTS, 1,
+             f"point-sharded ICP: one of {MESH_WORLD} ranks' rows", None, "mesh"),
+            (1, scan["metric"][0].shape[1] // MESH_WORLD, scan["metric"][1].shape[1], 1,
+             f"sharded large-scan metric: one of {MESH_WORLD} ranks' rows, Room seed {scan['seed']}", None, "mesh"),
+            *mesh_nn1_cases()):
         if batch == "vcm":  # the first tools original and its samples, as phase 4k draws them
             pts, msk, samples = vcm_inputs(torch, dev, 0)
             query, ref, mask = samples[None], pts[None], msk[None]
@@ -370,6 +449,8 @@ def phase_kernels(torch, dev) -> dict:
             mask = torch.ones((groups, r_n), dtype=torch.bool, device=dev)
             if batch == "largescan":  # the scan itself: 200000 valid target rows of 200704
                 query, ref, mask = scan["metric"]
+            elif batch == "mesh" and q_n * MESH_WORLD == scan["metric"][0].shape[1]:  # rank 0's rows of the scan
+                query, ref, mask = scan["metric"][0][:, :q_n].contiguous(), *scan["metric"][1:]
             elif valid is not None:  # each pair's cloud its own valid prefix
                 mask &= torch.arange(r_n, device=dev)[None] < t(rng.integers(*valid, size=(groups, 1)))
             else:
@@ -433,9 +514,12 @@ def phase_kernels(torch, dev) -> dict:
     # register_many's one launch a batch: each corpus's sources and targets
     # padded to full_pad 8192, steps = the largest pnumber; pair b needs
     # pnumber_b picks.
+    rank0 = [remesh[i] for i in mesh_slices(len(remesh))[0]]
     for corpus, label, batch in ((remesh, "batch resample: the remesh 25's 50 clouds at full_pad 8192", "many"),
                                  ([(n, a, b) for n, a, b, *_ in boards],
-                                  "batch resample: the boards' 128 clouds at full_pad 8192", "many boards")):
+                                  "batch resample: the boards' 128 clouds at full_pad 8192", "many boards"),
+                                 (rank0, f"a mesh rank's resample: rank 0's {len(rank0)} pairs' {2 * len(rank0)} "
+                                  "clouds at full_pad 8192", "mesh")):
         counts = [DEFAULT_CONFIG.resample_count(len(a), len(b)) for _, a, b in corpus]
         clouds = [a for _, a, _ in corpus] + [b for _, _, b in corpus]
         pts = np.zeros((len(clouds), BATCH_PAD, 3), np.float32)
@@ -478,13 +562,14 @@ def phase_kernels(torch, dev) -> dict:
     out["fps"] = dict(cases[0], cases=cases, yardstick_ms=None, source="kss_icp_torch/csrc/fps.cu",
                       replaces="kss_icp_tpu/ops/resample_pallas.py:102")
 
-    def field_inputs(steps, n, valid):
+    def field_inputs(steps, n, valid, parts=1):
         """None: n - n/40 source and n - n/20 target rows valid; an int: both
-        clouds suffix-masked to that many rows, as register_pair pads them."""
+        clouds suffix-masked to that many rows, as register_pair pads them.
+        The grid's first 1/parts of the rotations (a rank's slice)."""
         src, tgt = t(cloud(rng, n)), t(cloud(rng, n))
         rows = torch.arange(n, device=dev)
         smask, tmask = (rows < n - n // 40, rows < n - n // 20) if valid is None else (rows < valid, rows < valid)
-        return src, smask, tgt, tmask, euler_xyz_matrix(rotation_grid(steps, 6.3, dev))
+        return src, smask, tgt, tmask, euler_xyz_matrix(rotation_grid(steps, 6.3, dev))[:steps ** 3 // parts]
 
     def field_bytes(c_n, n):
         return 4 * (n * 3 * 2 + c_n * 9 + c_n) + 2 * n
@@ -502,15 +587,21 @@ def phase_kernels(torch, dev) -> dict:
     # largest and smallest remesh pair's pnumber in register_pair's 2048 slots;
     # the bench config's 512-point prefixes, all valid from pnumber 512 on (23
     # of the 25 pairs).
-    field_shapes = ((8, 2048, None, "base grid"), (16, 512, None, "escalation grid"),
-                    (8, 2048, 1534, "base grid, largest remesh pair"), (8, 2048, 378, "base grid, smallest remesh pair"),
-                    (8, 512, 512, "base grid, bench prefixes"))
+    # And (4l, field_ave only) one of the mesh's ranks' 1024 rotations of the
+    # 16³ grid at the largest remesh pair's pnumber.
+    field_shapes = ((8, 2048, None, "base grid", 1), (16, 512, None, "escalation grid", 1),
+                    (8, 2048, 1534, "base grid, largest remesh pair", 1),
+                    (8, 2048, 378, "base grid, smallest remesh pair", 1), (8, 512, 512, "base grid, bench prefixes", 1),
+                    (MESH_STEPS, 2048, 1534, f"mesh: one of {MESH_WORLD} ranks' rotations of the {MESH_STEPS}³ grid, "
+                     "largest remesh pair", MESH_WORLD))
     for name, kernel, plain, src_file, line, precisions in (
             ("field_ave", field_ave, field_ave_plain, "field.cu", 201, (None,)),
             ("field_dot", field_dot, field_dot_plain, "field_dot.cu", 218, ("highest", "default"))):
         cases = []
-        for steps, n, valid, grid in field_shapes:
-            args = field_inputs(steps, n, valid)
+        for steps, n, valid, grid, parts in field_shapes:
+            if parts > 1 and name != "field_ave":  # the mesh shards field_ave's grid alone
+                continue
+            args = field_inputs(steps, n, valid, parts)
             c_n = args[4].shape[0]
             src, smask, tgt, tmask, rots = args
             if name == "field_ave":
@@ -541,6 +632,7 @@ def phase_kernels(torch, dev) -> dict:
                 evals = c_n * int(smask.sum()) * int(tmask.sum())
                 b = bound(per_eval[prec][0] * evals, field_bytes(c_n, n), per_eval[prec][1] * evals)
                 cases.append(dict({"shape": f"{c_n}x{n}x{n}", "label": grid, "precision": prec, "valid": valid,
+                                   "batch_pass": "mesh" if parts > 1 else None,
                                    "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": err,
                                    "yardstick_ms": yard_ms}, **b))
                 log(f"  {label} ({grid}): max|err| {err:.3g}; kernel {ms:.4f} ms a wrapper call back to back, "
@@ -1232,9 +1324,10 @@ def phase_many(torch, dev, kernels: dict, e2e: dict) -> None:
 def attach_pass_launches(kernels: dict, e2e: dict) -> None:
     """Each batch and large-scan shape of phase 3 takes its launches from the
     pass that runs it (`batch_pass`); nn1's `launch_shapes` (the esc-default
-    pass's histogram) gains the shapes that only 4f (the large-scan metric)
-    and 4k (the VCM owners, the Voronoi labels) launch, and fps's lists its
-    cases' launches."""
+    pass's histogram) gains the shapes that only 4f (the large-scan metric),
+    4k (the VCM owners, the Voronoi labels) and 4l (the ranks' rows) launch,
+    fps's lists its cases' launches, and field_ave's mesh case takes the
+    ranks' launches of the sharded field."""
     for name in ("nn1", "fps"):
         for case in kernels[name]["cases"]:
             if case["batch_pass"]:
@@ -1242,7 +1335,10 @@ def attach_pass_launches(kernels: dict, e2e: dict) -> None:
                 case["launches"] = launches["nn1_shapes"].get(case["shape"], 0) if name == "nn1" else launches["fps"]
     kernels["nn1"]["launch_shapes"] = dict(kernels["nn1"]["launch_shapes"], **{
         case["shape"]: e2e["passes"][case["batch_pass"]]["launches"]["nn1_shapes"].get(case["shape"], 0)
-        for case in kernels["nn1"]["cases"] if case["batch_pass"] in ("largescan", "vcm", "voronoi")})
+        for case in kernels["nn1"]["cases"] if case["batch_pass"] in ("largescan", "vcm", "voronoi", "mesh")})
+    for case in kernels["field_ave"]["cases"]:
+        if case.get("batch_pass") == "mesh":
+            case["launches"] = e2e["passes"]["mesh"]["field_launches"]
     kernels["fps"]["launch_shapes"] = {case["shape"]: case["launches"] for case in kernels["fps"]["cases"]
                                        if "launches" in case}
 
@@ -2617,6 +2713,409 @@ def phase_view_native(torch, dev, e2e: dict, card: str) -> None:
     e2e["passes"]["native"] = {"load_ms": times, "refused": refused}
 
 
+# Phase 4l: the device mesh (kss_icp_torch/parallel on torch.distributed).
+MESH_WORLD = 4  # gloo ranks sharing cuda:0
+MESH_STEPS = 16  # the sharded field's grid: 4096 rotations, 1024 a rank
+MESH_ICP_POINTS = 2048
+MESH_TIMEOUT = 120.0  # seconds a collective may wait before its group fails
+MESH_DEADLINE = 420.0  # seconds a world may take, spawn to its last result
+# __graft_entry__.py:140-146: every pair escalated and offered every overlap rung.
+FORCED_LADDER = dict(escalate_threshold=0.0, overlap_threshold=0.0, overlap_gate_ratio=100.0,
+                     escalate_rotation_steps=8)
+# A batch's pose against another batch's on the card: the widest gap ROADMAP
+# queue 3 records for batch rounding ("A batch's answers are not one pair's
+# bits": 2.4e-3 on the remesh 25, 1.75e-2 on the boards).
+BATCH_POSE_BAND = 1.75e-2
+
+
+def mesh_inputs(torch, dev) -> dict:
+    """Phase 4l's inputs, made alike in the parent and in every rank: the
+    largest remesh pair's resampled clouds, the source moved onto its
+    pre-shape (the field); a noisy copy of a 2048-point cloud (point-sharded
+    ICP); Room seed 0's full-resolution clouds, the source moved by JAX's
+    recorded transform (the metric, 200704 x 200704); the remesh 25
+    (register_many)."""
+    from kss_icp_torch import largescan
+    from kss_icp_torch.config import DEFAULT_CONFIG as cfg
+    from kss_icp_torch.core.preshape import middle_align
+    from kss_icp_torch.core.transforms import Similarity, apply_similarity
+    from kss_icp_torch.models.kss_icp import resample_batch
+
+    pairs = load_pairs()
+    name, src, tgt = max(pairs, key=lambda r: cfg.resample_count(len(r[1]), len(r[2])))
+    pn = torch.tensor([cfg.resample_count(len(src), len(tgt))], device=dev)
+    (sp, sm), (tp, tm) = (resample_batch(torch.as_tensor(c, device=dev)[None],
+                                         torch.ones((1, len(c)), dtype=torch.bool, device=dev), pn, cfg)
+                          for c in (src, tgt))
+    sim0, _, _ = middle_align(sp[0], sm[0], tp[0], tm[0])
+    field = (apply_similarity(sim0, sp[0]).contiguous(), sm[0], tp[0].contiguous(), tm[0].contiguous())
+
+    rng = np.random.default_rng(13)
+    target = cloud(rng, MESH_ICP_POINTS)
+    c, s = np.cos(0.35), np.sin(0.35)
+    moved = (target @ np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32).T + np.float32([0.05, -0.02, 0.01])
+             + rng.normal(0, 0.005, target.shape)).astype(np.float32)
+    ones = torch.ones((MESH_ICP_POINTS,), dtype=torch.bool, device=dev)
+    icp_pair = (torch.as_tensor(moved, device=dev), ones, torch.as_tensor(target, device=dev), ones)
+
+    record = load_largescan()
+    rec = next(r for r in record["seeds"] if r["seed"] == 0)
+    scan = largescan.normalized_pair(record["n_points"], 0, dev)
+    transform = Similarity(*(torch.tensor(rec[k], dtype=torch.float32, device=dev)
+                             for k in ("scale", "rotation", "translation")))
+    metric = (apply_similarity(transform, scan.source[0]).contiguous(), scan.source[1], scan.target[0], scan.target[1])
+    return {"field_pair": name, "field": field, "icp": icp_pair, "metric": metric, "pairs": pairs}
+
+
+def mesh_many(torch, dev, cfg, pairs, timer=None, mesh=None, ladder_n=None):
+    """register_many over `pairs` [(name, src, tgt)], with a mesh or
+    without, its ladder recorded (over ladder_n rows: a rank's padded slice);
+    returns (result, metrics, ladder rows, seconds to a sync)."""
+    from kss_icp_torch import escalate
+    from kss_icp_torch.ladder_log import LadderLog
+    from kss_icp_torch.parallel import register_many
+
+    with LadderLog(escalate, ladder_n or len(pairs)) as ladder:
+        t0 = time.perf_counter()
+        res, metrics = register_many([(a, b) for _, a, b in pairs], cfg, mesh=mesh, full_pad=BATCH_PAD, device=dev,
+                                     timer=timer)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    rows = {"escalated": ladder.escalated.tolist(), "won": ladder.won.tolist(), "finisher": ladder.finisher.tolist(),
+            "rungs": [[(r["rung"], r["ran"], r["adopted"]) for r in rows] for rows in ladder.rungs]}
+    return res, metrics, rows, seconds
+
+
+def many_answer(res, metrics, rows) -> dict:
+    """What the gates read of a register_many call, as numpy."""
+    return dict(rows, rmse=np.asarray(metrics["rmse"]), transform=[x.cpu().numpy() for x in res.transform],
+                fitness=res.fitness.cpu().numpy())
+
+
+def mesh_rank(rank: int, world: int, store: str, backend: str, device: str, full: bool, queue) -> None:
+    """One rank of phase 4l, in a process of its own (spawned): joins the
+    group through the FileStore `store`, drives the mesh entry points on the
+    phase's inputs and puts (rank, traceback or None, outputs) on `queue`.
+    A failure is put on the queue and raised, so the process exits
+    non-zero."""
+    import traceback
+
+    import torch
+
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        out = mesh_rank_run(torch, rank, world, store, backend, dev, full)
+    except BaseException:
+        queue.put((rank, traceback.format_exc(), None))
+        raise
+    queue.put((rank, None, out))
+
+
+def mesh_rank_run(torch, rank, world, store, backend, dev, full: bool) -> dict:
+    import torch.distributed as dist
+
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.models.icp import ICPParams
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
+    from kss_icp_torch.ops.nn_cuda import nn1
+    from kss_icp_torch.ops.resample_cuda import fps
+    from kss_icp_torch.parallel import (distributed_init, icp_point_sharded, make_mesh, mean_nn_distance_sharded,
+                                        score_rotation_field_sharded)
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host's cores
+    distributed_init(f"file://{store}", world, rank, backend, timeout=MESH_TIMEOUT)
+    meshes = {name: make_mesh((name,), device_type=dev.type) for name in ("rot", "points", "pairs")}
+    inputs = mesh_inputs(torch, dev)
+    pairs, per = inputs["pairs"], -(-len(inputs["pairs"]) // world)
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim}
+    out, seconds = {}, {}
+
+    def timed(label, fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        return result
+
+    for fn in counters.values():
+        fn.launches = 0
+    nn1.launch_shapes.clear()
+    # The first register_many is also the rank's warm-up: the dot field's, or the gated default call.
+    if full:
+        out["dot"] = many_answer(*mesh_many(torch, dev, dataclasses.replace(DEFAULT_CONFIG, coarse_method="dot"),
+                                            pairs, mesh=meshes["pairs"], ladder_n=per)[:3])
+    else:
+        *answer, s = mesh_many(torch, dev, DEFAULT_CONFIG, pairs, mesh=meshes["pairs"], ladder_n=per)
+        out["many"], seconds["many"] = many_answer(*answer), [s]
+    before = field_ave.launches
+    field = timed("field", lambda: score_rotation_field_sharded(*inputs["field"], steps=MESH_STEPS,
+                                                               mesh=meshes["rot"]))
+    out["field"], out["field_launches"] = field.cpu().numpy(), field_ave.launches - before
+    res = timed("icp", lambda: icp_point_sharded(*inputs["icp"], ICPParams.from_config(DEFAULT_CONFIG),
+                                                 mesh=meshes["points"]))
+    out["icp"] = {k: v.cpu().numpy() for k, v in res._asdict().items()}
+    out["metric"] = float(timed("metric", lambda: mean_nn_distance_sharded(*inputs["metric"],
+                                                                           mesh=meshes["points"])))
+    if full:
+        turns = []
+        for turn in range(2):
+            dist.barrier()
+            *answer, s = mesh_many(torch, dev, DEFAULT_CONFIG, pairs, mesh=meshes["pairs"], ladder_n=per)
+            turns.append(s)
+        out["many"], seconds["many"] = many_answer(*answer), turns
+        timer = StageTimer(torch, True)
+        dist.barrier()
+        mesh_many(torch, dev, DEFAULT_CONFIG, pairs, timer=timer, mesh=meshes["pairs"], ladder_n=per)
+        out["stage_seconds"], out["stage_iterations"] = dict(timer.seconds), dict(timer.iterations)
+        forced = dataclasses.replace(DEFAULT_CONFIG, **FORCED_LADDER)
+        dist.barrier()
+        *answer, seconds["forced"] = mesh_many(torch, dev, forced, pairs, mesh=meshes["pairs"], ladder_n=per)
+        out["forced"] = many_answer(*answer)
+    torch.cuda.synchronize()
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["nn1_shapes"] = {shape_key(*k): n for k, n in nn1.launch_shapes.items()}
+    # Each rank recorded the ladder of its own slice: gather the rows in rank order.
+    for key in [k for k in ("dot", "many", "forced") if k in out]:
+        parts = [None] * world
+        dist.all_gather_object(parts, {f: out[key][f] for f in ("escalated", "won", "finisher", "rungs")},
+                               group=meshes["pairs"].get_group("pairs"))
+        out[key].update({f: [x for p in parts for x in p[f]][:len(pairs)] for f in parts[0]})
+    out["seconds"] = seconds
+    dist.destroy_process_group()
+    return out
+
+
+def run_mesh_world(world: int, backend: str, devices: list, full: bool, label: str) -> list:
+    """Spawn `world` ranks of mesh_rank (spawn start method), rank r on
+    devices[r] ("cuda:i"), rendezvoused through a FileStore in a temporary
+    directory; wait for every rank's outputs, in rank order. Any rank that
+    fails, dies or outlasts MESH_DEADLINE fails the phase; every process is
+    stopped before this returns."""
+    import queue as queue_mod
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results, errors = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        q = ctx.Queue()
+        procs = [ctx.Process(target=mesh_rank, args=(r, world, str(Path(tmp) / "store"), backend, devices[r], full, q))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.start()
+            while len(results) + len(errors) < world:
+                try:
+                    rank, err, out = q.get(timeout=1.0)
+                except queue_mod.Empty:
+                    dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0) and r not in results]
+                    if dead and not errors:
+                        errors.append(f"rank(s) {dead} exited with {[procs[r].exitcode for r in dead]}")
+                    if errors or time.perf_counter() - t0 > MESH_DEADLINE:
+                        break
+                    continue
+                if err is not None:
+                    errors.append(f"rank {rank}:\n{err}")
+                    break
+                results[rank] = out
+            for p in procs:
+                p.join(timeout=max(1.0, MESH_DEADLINE - (time.perf_counter() - t0)) if not errors else 5.0)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    require(not errors, f"4l {label}: " + "\n".join(errors))
+    require(len(results) == world, f"4l {label}: {world - len(results)} rank(s) gave no result within "
+                                   f"{MESH_DEADLINE:.0f} s")
+    require(all(p.exitcode == 0 for p in procs), f"4l {label}: exit codes {[p.exitcode for p in procs]}")
+    log(f"  [{label}] {world} rank(s) spawned, ran and joined in {time.perf_counter() - t0:.1f} s")
+    return [results[r] for r in range(world)]
+
+
+def check_mesh_world(label, outs: list, ref: dict, exp_rows: list, names: list, full: bool) -> dict:
+    """Phase 4l's gates on one world's outputs against the unsharded
+    answers `ref` (this process, the same card) and JAX's register_many
+    record `exp_rows`; returns the gaps."""
+    head = outs[0]
+    for r, o in enumerate(outs[1:], 1):  # every rank returns the same global answer
+        require(np.array_equal(o["field"], head["field"]) and o["metric"] == head["metric"]
+                and all(np.array_equal(o["icp"][k], head["icp"][k]) for k in head["icp"])
+                and np.array_equal(o["many"]["rmse"], head["many"]["rmse"]),
+                f"4l {label}: rank {r}'s answers differ from rank 0's")
+    gaps = {"field": float(np.abs(head["field"] - ref["field"]).max())}
+    require(np.array_equal(head["field"], ref["field"]),
+            f"4l {label}: the sharded {MESH_STEPS}³ field differs from the unsharded field (max|Δ| {gaps['field']:.3g})")
+    icp, want = head["icp"], ref["icp"]
+    gaps["icp_pose"] = max(float(np.abs(icp[k] - want[k]).max()) for k in ("rotation", "translation"))
+    gaps["icp_fitness_rel"] = abs(float(icp["fitness"]) / float(want["fitness"]) - 1.0)
+    gaps["icp_iterations"] = int(icp["iterations"]) - int(want["iterations"])
+    require(gaps["icp_pose"] <= 1e-5 and gaps["icp_fitness_rel"] <= 1e-4 and abs(gaps["icp_iterations"]) <= 1,
+            f"4l {label}: point-sharded ICP off the unsharded ICP: {gaps}")
+    gaps["metric_rel"] = abs(head["metric"] / ref["metric"] - 1.0)
+    require(gaps["metric_rel"] <= 1e-5, f"4l {label}: the sharded metric {head['metric']!r} off the unsharded "
+                                        f"{ref['metric']!r} by {gaps['metric_rel']:.3g} (bar 1e-5)")
+    many = head["many"]
+    failures = [n for b, n in enumerate(names)
+                if not (np.isfinite(many["rmse"][b]) and many["rmse"][b] <= exp_rows[b]["rmse"] + RMSE_BAND
+                        and many["escalated"][b] == exp_rows[b]["escalated"])]
+    gaps["many_rmse_vs_jax"] = float(np.max(many["rmse"] - np.array([r["rmse"] for r in exp_rows])))
+    require(not failures, f"4l {label}: register_many over the pairs mesh: pairs outside JAX's RMSE + {RMSE_BAND} "
+                          f"or escalated unlike JAX: {failures}")
+    for key in ("many", "dot", "forced") if full else ("many",):
+        got, want = head[key], ref[key]
+        ran = [[(r[0], r[1]) for r in rows] for rows in got["rungs"]]
+        pose = [max(float(np.abs(a[b] - c[b]).max()) for a, c in zip(got["transform"], want["transform"]))
+                for b in range(len(names))]
+        differ = [n for b, n in enumerate(names)
+                  if got["escalated"][b] != want["escalated"][b] or ran[b] != [(r[0], r[1]) for r in want["rungs"][b]]
+                  or not abs(got["rmse"][b] - want["rmse"][b]) <= RMSE_BAND or not pose[b] <= BATCH_POSE_BAND]
+        gaps[f"{key}_rmse_vs_unsharded"] = float(np.abs(got["rmse"] - want["rmse"]).max())
+        gaps[f"{key}_pose_vs_unsharded"] = max(pose)
+        adopted = sum(g[2] != w[2] for rg, rw in zip(got["rungs"], want["rungs"]) for g, w in zip(rg, rw))
+        apart = [f"{n} {pose[b]:.3g} (RMSE {got['rmse'][b] - want['rmse'][b]:+.3g})" for b, n in enumerate(names)
+                 if pose[b] > 1e-5]
+        log(f"  [{label}] {key}: escalated {sum(got['escalated'])} (unsharded {sum(want['escalated'])}), rungs run "
+            f"{sum(r[1] for rows in got['rungs'] for r in rows)} (unsharded "
+            f"{sum(r[1] for rows in want['rungs'] for r in rows)}), adoptions that differ {adopted}; max|ΔRMSE| "
+            f"{gaps[f'{key}_rmse_vs_unsharded']:.3g}, pose max|Δ| {gaps[f'{key}_pose_vs_unsharded']:.3g}; pairs "
+            f"whose pose parts from the unsharded batch's by more than 1e-5: {', '.join(apart) or 'none'}")
+        require(not differ, f"4l {label}: register_many {key} over the pairs mesh unlike the unsharded batch "
+                            f"(escalation, rungs run, RMSE beyond {RMSE_BAND} or pose beyond {BATCH_POSE_BAND}): "
+                            f"{differ}")
+    if full:
+        require(all(r[1] for rows in head["forced"]["rungs"] for r in rows) and all(head["forced"]["escalated"])
+                and all(len(rows) == 3 for rows in head["forced"]["rungs"]),
+                f"4l {label}: the forced ladder left a pair unescalated or a rung not run")
+    log(f"  [{label}] gaps: " + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                                          for k, v in gaps.items()))
+    return gaps
+
+
+def mesh_launches(outs: list) -> tuple:
+    """The ranks' launch counts and nn1 launch shapes, summed."""
+    total, shapes = defaultdict(int), defaultdict(int)
+    for o in outs:
+        for k, v in o["launches"].items():
+            total[k] += v
+        for k, v in o["nn1_shapes"].items():
+            shapes[k] += v
+    return dict(total), dict(shapes)
+
+
+def mesh_world(torch, dev, label: str, world: int, backend: str, devices: list, full: bool, ctx: dict) -> dict:
+    """Run one world of phase 4l and gate it. With `full`, the unsharded
+    register_many on this process's card is timed just before and just
+    after the world (turns: unsharded, mesh, mesh, unsharded). Where
+    ctx["held"] (phase 3's nn1 case shapes) is given, every nn1 shape the
+    ranks launched must be among them."""
+    from kss_icp_torch.config import DEFAULT_CONFIG
+
+    pairs, card = ctx["pairs"], ctx["card"]
+    if full:
+        before = mesh_many(torch, dev, DEFAULT_CONFIG, pairs)[3]
+    outs = run_mesh_world(world, backend, devices, full, label)
+    gaps = check_mesh_world(label, outs, ctx["ref"], ctx["exp"], ctx["names"], full)
+    launches, shapes = mesh_launches(outs)
+    log(f"  [{label}] kernel launches, every rank's summed: {launches}")
+    log(f"  [{label}] nn1 launches by shape, summed: " + ", ".join(f"{k} {v}" for k, v in
+                                                                    sorted(shapes.items(), key=lambda kv: -kv[1])))
+    if ctx["held"] is not None and world == MESH_WORLD:  # phase 3 holds the shapes of MESH_WORLD ranks
+        unheld = sorted(set(shapes) - ctx["held"])
+        require(not unheld, f"4l {label}: nn1 shapes the ranks launched that phase 3 never held against the plain "
+                            f"version: {unheld}")
+    out = {"launches": dict(launches, nn1_shapes=shapes), "gaps": gaps,
+           "field_launches": sum(o["field_launches"] for o in outs),
+           "seconds": {k: max(o["seconds"][k] for o in outs) for k in ("field", "icp", "metric")}}
+    if not full:
+        log(f"  [{label}] seconds, after the gated register_many: " +
+            ", ".join(f"{k} {outs[0]['seconds'][k]:.4f}" for k in ("field", "icp", "metric")) + f" ({card})")
+        return out
+    require(all(launches[k] > 0 for k in ("nn1", "fps", "field_ave", "field_dot", "field_trim")),
+            f"4l {label}: a kernel of the mesh path was never launched in the ranks: {launches}")
+    after = mesh_many(torch, dev, DEFAULT_CONFIG, pairs)[3]
+    mesh_s = [max(o["seconds"]["many"][i] for o in outs) for i in range(2)]
+    shared = (f"{world} ranks share one card, so this measures the collectives' and processes' overhead, not scaling"
+              if len(set(devices)) == 1 else f"one rank a card over {world} cards; the unsharded batch on {dev}")
+    log(f"  [{label}] register_many on the remesh 25, pairs/s in turns (unsharded, mesh, mesh, unsharded): "
+        f"{len(pairs) / before:.3f}, {len(pairs) / mesh_s[0]:.3f}, {len(pairs) / mesh_s[1]:.3f}, "
+        f"{len(pairs) / after:.3f} (mesh: the slowest rank's call to a sync); {shared} ({card})")
+    for key in ("field", "icp", "metric", "forced"):
+        log(f"  [{label}] {key}: " + ", ".join(f"rank {r} {o['seconds'][key]:.4f} s" for r, o in enumerate(outs)) +
+            f"; max {max(o['seconds'][key] for o in outs):.4f} s")
+    stages = sorted({k for o in outs for k in o["stage_seconds"]})
+    for r, o in enumerate(outs):
+        log(f"  [{label}] rank {r} stage seconds (synced pass): " +
+            ", ".join(f"{k} {o['stage_seconds'].get(k, 0.0):.4f}" for k in stages))
+    log(f"  [{label}] stage seconds, max over ranks: " +
+        ", ".join(f"{k} {max(o['stage_seconds'].get(k, 0.0) for o in outs):.4f}" for k in stages))
+    return dict(out, pairs_per_s=[len(pairs) / s for s in mesh_s],
+                unsharded_pairs_per_s=[len(pairs) / before, len(pairs) / after],
+                stage_seconds_max={k: max(o["stage_seconds"].get(k, 0.0) for o in outs) for k in stages})
+
+
+def phase_mesh(torch, dev, kernels, e2e: dict, card: str, cards_only: bool = False) -> None:
+    """4l: the device mesh (kss_icp_torch/parallel) at DEFAULT_CONFIG and the
+    main path's widths, 4 gloo ranks sharing this card, then an NCCL group of
+    world size 1, then (with 2+ cards) NCCL over min(4, count) cards, each
+    against the unsharded answers of this process on the same inputs.
+    `kernels` is phase 3's record (None when phase 3 did not run): the
+    ranks' nn1 shapes are checked against its cases, and it gains the
+    ranks' launches. `cards_only` runs the NCCL world over the cards alone
+    (two cards or more), against the same unsharded answers."""
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.metrics import registration_measure_padded
+    from kss_icp_torch.models.coarse import score_rotation_field
+    from kss_icp_torch.models.icp import ICPParams, icp
+
+    inputs = mesh_inputs(torch, dev)
+    pairs, names = inputs["pairs"], [n for n, _, _ in inputs["pairs"]]
+    exp = json.loads((FIXTURES / "torch_port_expected_batch.json").read_text())["pairs"]
+    require([p["name"] for p in exp] == names, "the batch record's remesh pairs differ")
+    log(f"  [mesh] inputs: the {MESH_STEPS}³ field on {inputs['field_pair']}'s resampled pre-shapes "
+        f"({int(inputs['field'][1].sum())} of {inputs['field'][0].shape[0]} source rows valid); ICP on a noisy "
+        f"{MESH_ICP_POINTS}-point copy; the metric on Room seed 0, {inputs['metric'][0].shape[0]} x "
+        f"{inputs['metric'][2].shape[0]}; register_many on the remesh 25")
+    ref = {"field": score_rotation_field(*inputs["field"], steps=MESH_STEPS).cpu().numpy()}
+    src, smask, tgt, tmask = inputs["icp"]
+    res = icp(src[None], smask[None], tgt, tmask, ICPParams.from_config(DEFAULT_CONFIG))
+    ref["icp"] = {k: v[0].cpu().numpy() for k, v in res._asdict().items()}
+    ref["metric"] = float(registration_measure_padded(*inputs["metric"])["mae"])
+    ref["dot"] = many_answer(*mesh_many(torch, dev, dataclasses.replace(DEFAULT_CONFIG, coarse_method="dot"),
+                                        pairs)[:3])
+    ref["many"] = many_answer(*mesh_many(torch, dev, DEFAULT_CONFIG, pairs)[:3])
+    ref["forced"] = many_answer(*mesh_many(torch, dev, dataclasses.replace(DEFAULT_CONFIG, **FORCED_LADDER),
+                                           pairs)[:3])
+    log(f"  [mesh] unsharded on this card: field, ICP ({int(ref['icp']['iterations'])} iterations, fitness "
+        f"{float(ref['icp']['fitness']):.6g}), metric {ref['metric']:.7g}, register_many default / dot / forced "
+        f"ladder")
+    ctx = {"pairs": pairs, "names": names, "exp": exp, "ref": ref, "card": card,
+           "held": None if kernels is None else {case["shape"] for case in kernels["nn1"]["cases"]}}
+    if kernels is None:
+        log("  [mesh] phase 3 did not run: the ranks' nn1 shapes are not checked against its cases")
+
+    count = torch.cuda.device_count()
+    require(count >= 2 or not cards_only, f"4l over the cards needs two cards or more, found {count}")
+    if not cards_only:
+        e2e["passes"]["mesh"] = mesh_world(torch, dev, f"gloo x{MESH_WORLD} on cuda:0", MESH_WORLD, "gloo",
+                                           [str(dev)] * MESH_WORLD, True, ctx)
+        if kernels is not None:
+            for name in ("nn1", "fps", "field_ave", "field_dot", "field_trim"):
+                kernels[name]["mesh_launches"] = e2e["passes"]["mesh"]["launches"][name]
+        e2e["passes"]["mesh nccl x1"] = mesh_world(torch, dev, "nccl x1 on cuda:0", 1, "nccl", [str(dev)], False,
+                                                   ctx)
+    if count >= 2:
+        world = min(MESH_WORLD, count)
+        e2e["passes"]["mesh cards"] = mesh_world(torch, dev, f"nccl x{world} on cuda:0-{world - 1}", world, "nccl",
+                                                 [f"cuda:{i}" for i in range(world)], True, ctx)
+
+
 def phase_bf16_ranking(torch, dev) -> None:
     """Does the bf16 dot field keep the 8³ ranking? Gates nothing."""
     from kss_icp_torch.config import DEFAULT_CONFIG as cfg
@@ -2660,6 +3159,9 @@ def phase_bf16_ranking(torch, dev) -> None:
 def main() -> int:
     import torch
 
+    args = sys.argv[1:]
+    require(args in ([], ["--mesh-cards"]), f"usage: python3 chip_smoke.py [--mesh-cards]; got {args}")
+    mesh_cards = bool(args)
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     import kss_icp_torch  # noqa: F401  (fails where the repository is absent)
@@ -2683,6 +3185,20 @@ def main() -> int:
     for line in nvcc_out.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("  " + line.strip())
+
+    if mesh_cards:
+        log("== 4l. the device mesh over the cards alone (--mesh-cards): NCCL, one rank a card")
+        e2e = {"passes": {}}
+        phase_mesh(torch, dev, None, e2e, card, cards_only=True)
+        lap("4l")
+        cards = e2e["passes"]["mesh cards"]
+        log(f"mesh over the cards: register_many {', '.join(f'{x:.3f}' for x in cards['pairs_per_s'])} pairs/s "
+            f"beside the unsharded batch's {', '.join(f'{x:.3f}' for x in cards['unsharded_pairs_per_s'])} on one "
+            f"card; field {cards['seconds']['field']:.4f} s, ICP {cards['seconds']['icp']:.4f} s, metric "
+            f"{cards['seconds']['metric']:.4f} s (slowest rank) ({card})")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     log("== 3. kernels against their plain versions")
     kernels = phase_kernels(torch, dev)
@@ -2757,7 +3273,20 @@ def main() -> int:
     log("== 4k. view and the native reader")
     phase_view_native(torch, dev, e2e, card)
     lap("4k view and native")
+    log("== 4l. the device mesh: kss_icp_torch.parallel on torch.distributed, 4 gloo ranks on this card, NCCL x1")
+    phase_mesh(torch, dev, kernels, e2e, card)
+    lap("4l")
     attach_pass_launches(kernels, e2e)
+    g = p["mesh"]["gaps"]
+    log(f"mesh: register_many over 4 ranks sharing the card {', '.join(f'{x:.3f}' for x in p['mesh']['pairs_per_s'])} "
+        f"pairs/s beside the unsharded batch's {', '.join(f'{x:.3f}' for x in p['mesh']['unsharded_pairs_per_s'])} "
+        f"(overhead, not scaling); field {p['mesh']['seconds']['field']:.4f} s, ICP {p['mesh']['seconds']['icp']:.4f} "
+        f"s, metric {p['mesh']['seconds']['metric']:.4f} s (slowest rank); gaps: field {g['field']:.3g}, ICP pose "
+        f"{g['icp_pose']:.3g}, metric {g['metric_rel']:.3g} ({card})")
+    if "mesh cards" in p:
+        c = p["mesh cards"]
+        log(f"mesh over the cards: register_many {', '.join(f'{x:.3f}' for x in c['pairs_per_s'])} pairs/s beside "
+            f"the unsharded batch's {', '.join(f'{x:.3f}' for x in c['unsharded_pairs_per_s'])} on one card ({card})")
     log(f"two-stage, pairs/s in turns with shipped: remesh 25 {p['two-stage']['pairs_per_s']:.3f} (shipped "
         f"{p['two-stage']['shipped_pairs_per_s']:.3f}), in one batch {p['two-stage many']['pairs_per_s']:.3f} (shipped "
         f"{p['two-stage many']['shipped_pairs_per_s']:.3f}); boards in one batch "
@@ -2771,7 +3300,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "cli_launches", "max_abs_err", "ms", "device_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick", "yardstick_ms", "shape", "precision", "cases",
-            "launch_shapes", "squared")
+            "launch_shapes", "squared", "mesh_launches")
     line = {"kernels": [{k: v for k, v in dict(kernels[n], name=n, route="cuda", library_ms=None).items() if k in keys}
                         for n in ("nn1", "fps", "field_ave", "field_dot", "field_trim")]}
     print(json.dumps(line), flush=True)

@@ -16,7 +16,10 @@ similarity ICP (icp.py:226-232): a per-lane quantile gate on the
 correspondences, the Umeyama scale, and the trimmed mean as fitness.
 `variant="point_to_plane"` takes the linearized point-to-plane step
 (icp.py:136-170) against the target's normals, ahead of `estimate_scale`, as
-in JAX. The sharded point axis is not ported (ROADMAP.md queue 1 item 13).
+in JAX. `group` makes the solve SPMD over a sharded point axis
+(icp.py:191-300 with axis_name; parallel/point_shard.py): each rank holds
+its rows of the source, and every sum over the points is all-reduced over
+the group before it is used.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from kss_icp_torch.core.transforms import matmul3, matvec3, rotate_points
 from kss_icp_torch.ops.nn import masked_quantile_threshold, trimmed_masked_mean
@@ -59,22 +63,35 @@ class ICPResult(NamedTuple):
     scale: torch.Tensor        # (L,) accumulated scale (stays at its init unless estimate_scale)
 
 
-def kabsch(source: torch.Tensor, target: torch.Tensor, weights: torch.Tensor, estimate_scale: bool = False):
+def all_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over the ranks of the process `group` (JAX's psum over
+    axis_name), the same bits on every rank; x itself when group is None."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def kabsch(source: torch.Tensor, target: torch.Tensor, weights: torch.Tensor, estimate_scale: bool = False,
+           group=None):
     """Weighted rigid Kabsch over lanes: argmin_R,t sum w ||R s + t - t'||².
 
     source, target (L, N, 3); weights (L, N). Returns (R (L, 3, 3), t (L, 3)),
     with the determinant correction so that R is a proper rotation; with
     estimate_scale, (R, t, s (L,)), the Umeyama similarity
     argmin_s,R,t sum w ||s R x + t - y||², s = trace(D S) / var_src
-    (kss_icp_tpu/models/icp.py:61-114)."""
+    (kss_icp_tpu/models/icp.py:61-114). With a process `group`, each rank
+    holds its rows of the points and every sum is all-reduced over the
+    group, so the 3 x 3 SVD sees the same matrix on every rank."""
     dtype = source.dtype
-    wsum = weights.sum(dim=-1).clamp_min(torch.finfo(dtype).tiny)
+    wsum = all_sum(weights.sum(dim=-1), group).clamp_min(torch.finfo(dtype).tiny)
     w = weights[..., None]
-    cs = (w * source).sum(dim=-2) / wsum[..., None]
-    ct = (w * target).sum(dim=-2) / wsum[..., None]
+    cs = all_sum((w * source).sum(dim=-2), group) / wsum[..., None]
+    ct = all_sum((w * target).sum(dim=-2), group) / wsum[..., None]
     s0 = source - cs[..., None, :]
     t0 = target - ct[..., None, :]
-    h = (w[..., None] * s0[..., :, None] * t0[..., None, :]).sum(dim=-3) / wsum[..., None, None]
+    h = all_sum((w[..., None] * s0[..., :, None] * t0[..., None, :]).sum(dim=-3), group) / wsum[..., None, None]
     u, sv, vh = torch.linalg.svd(h)
     v, ut = vh.transpose(-1, -2), u.transpose(-1, -2)
     det = torch.linalg.det(matmul3(v, ut))
@@ -82,7 +99,7 @@ def kabsch(source: torch.Tensor, target: torch.Tensor, weights: torch.Tensor, es
     r = matmul3(v * d[..., None, :], ut)
     if not estimate_scale:
         return r, ct - matvec3(r, cs)
-    var_s = (weights * (s0 * s0).sum(dim=-1)).sum(dim=-1) / wsum
+    var_s = all_sum((weights * (s0 * s0).sum(dim=-1)).sum(dim=-1), group) / wsum
     scale = (sv * d).sum(dim=-1) / var_s.clamp_min(torch.finfo(dtype).tiny)
     return r, ct - scale[..., None] * matvec3(r, cs), scale
 
@@ -101,7 +118,7 @@ def _rodrigues(omega: torch.Tensor) -> torch.Tensor:
 
 
 def point_to_plane_step(source: torch.Tensor, target: torch.Tensor, target_normals: torch.Tensor,
-                        weights: torch.Tensor):
+                        weights: torch.Tensor, group=None):
     """The linearized point-to-plane update of each lane (Chen & Medioni;
     kss_icp_tpu/models/icp.py:136-170): minimize sum w (n · (R p + t − q))²
     with R ≈ I + [w]x through the 6 x 6 normal equations, damped by 1e-6 I,
@@ -109,18 +126,29 @@ def point_to_plane_step(source: torch.Tensor, target: torch.Tensor, target_norma
     opt-in icp_variant="point_to_plane". source, target, target_normals
     (L, N, 3), weights (L, N). Returns (R (L, 3, 3), t (L, 3)). Negating a
     normal negates its row of A and its residual, so AᵀA and Aᵀb keep their
-    bits: unoriented normals do."""
+    bits: unoriented normals do. With a process `group`, AᵀA and Aᵀb are
+    all-reduced over it (JAX's psum)."""
     n = target_normals
     r = (n * (source - target)).sum(dim=-1)  # (L, N) signed residuals
     a = torch.cat([torch.linalg.cross(source, n, dim=-1), n], dim=-1)  # (L, N, 6)
     aw = a * weights[..., None]
-    ata = aw.transpose(-1, -2) @ a
-    atb = (aw.transpose(-1, -2) @ -r[..., None])[..., 0]
+    ata = all_sum(aw.transpose(-1, -2) @ a, group)
+    atb = all_sum((aw.transpose(-1, -2) @ -r[..., None])[..., 0], group)
     eye = torch.eye(6, dtype=source.dtype, device=source.device)
     # solve_ex: no error check, so no host sync a step; an exactly singular
     # system gives non-finite values, as jnp.linalg.solve does, and no raise.
     x = torch.linalg.solve_ex(ata + 1e-6 * eye, atb)[0]
     return _rodrigues(x[:, :3]), x[:, 3:]
+
+
+def _any_active(active: torch.Tensor, group) -> bool:
+    """Whether any lane is still active: one host sync; with a group, on
+    any rank (the flag all-reduced with MAX)."""
+    if group is None:
+        return bool(active.any())
+    flag = active.any().to(torch.int32).reshape(1)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag)
 
 
 def _where(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
@@ -141,6 +169,7 @@ def icp(
     lane_ref: Optional[torch.Tensor] = None,
     variant: str = "point_to_point",
     target_normals: Optional[torch.Tensor] = None,
+    group=None,
 ) -> ICPResult:
     """Run ICP on L lanes from identity (or a warm start).
 
@@ -161,7 +190,20 @@ def icp(
     variant "point_to_plane" steps by `point_to_plane_step` against
     target_normals, shaped as target, each lane's correspondences' normals
     gathered from its own cloud. It comes before estimate_scale, as JAX's
-    `if variant ... elif estimate_scale` does: such a lane solves no scale."""
+    `if variant ... elif estimate_scale` does: such a lane solves no scale.
+
+    With a process `group` (torch.distributed), each rank holds its rows of
+    the source (and source_mask) and the whole target: nn1 runs on the local
+    rows, and every sum over the points (the Kabsch or point-to-plane sums,
+    the convergence MSE's numerator and denominator, the fitness) is
+    all-reduced over the group before it is used, so every rank takes the
+    same branch and returns the same result. The loop's stop flag is
+    all-reduced too (MAX), so no rank leaves it while another waits in a
+    collective. trim_fraction > 0 raises with a group: a per-rank quantile is
+    not the global quantile (JAX icp.py:234-242)."""
+    if trim_fraction and group is not None:
+        raise ValueError("trim_fraction > 0 is incompatible with a sharded point axis "
+                         "(per-shard quantiles are not global quantiles)")
     if variant not in ("point_to_point", "point_to_plane"):
         raise ValueError(f"unknown ICP variant {variant!r}")
     plane = variant == "point_to_plane"
@@ -193,7 +235,7 @@ def icp(
 
     while True:
         active = (iteration < params.max_iterations) & ~converged
-        if not bool(active.any()):
+        if not _any_active(active, group):
             break
         icp.lockstep_iterations += 1
         cur = positions(rot, trans, scale)
@@ -204,22 +246,22 @@ def icp(
         w = keep.to(dtype)
         corr = tgt[ref_row, idx.long()]
         if plane:
-            dr, dt = point_to_plane_step(cur, corr, target_normals[ref_row, idx.long()], w)
+            dr, dt = point_to_plane_step(cur, corr, target_normals[ref_row, idx.long()], w, group)
             ds = torch.ones_like(scale)
         elif estimate_scale:
-            dr, dt, ds = kabsch(cur, corr, w, estimate_scale=True)
+            dr, dt, ds = kabsch(cur, corr, w, estimate_scale=True, group=group)
         else:
-            (dr, dt), ds = kabsch(cur, corr, w), torch.ones_like(scale)
+            (dr, dt), ds = kabsch(cur, corr, w, group=group), torch.ones_like(scale)
         # new(x) = ds·dr·(s·R·x + t) + dt
         new_r = matmul3(dr, rot)
         new_t = ds[:, None] * matvec3(dr, trans) + dt
         new_s = ds * scale
 
         # Convergence MSE from the matched pairs in exact f32 (icp.py:293-301).
-        wsum = w.sum(dim=-1).clamp_min(1.0)
+        wsum = all_sum(w.sum(dim=-1), group).clamp_min(1.0)
         diff = cur - corr
         d2_exact = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
-        new_mse = (d2_exact * w).sum(dim=-1) / wsum
+        new_mse = all_sum((d2_exact * w).sum(dim=-1), group) / wsum
 
         trans_delta2 = dt[:, 0] * dt[:, 0] + dt[:, 1] * dt[:, 1] + dt[:, 2] * dt[:, 2]
         cos_angle = (dr[:, 0, 0] + dr[:, 1, 1] + dr[:, 2, 2] - 1.0) / 2.0
@@ -245,7 +287,7 @@ def icp(
         fitness = trimmed_masked_mean(d2, smask, trim_fraction)
     else:
         w = smask.to(dtype)
-        fitness = (d2 * w).sum(dim=-1) / w.sum(dim=-1).clamp_min(1.0)
+        fitness = all_sum((d2 * w).sum(dim=-1), group) / all_sum(w.sum(dim=-1), group).clamp_min(1.0)
     return ICPResult(rotation=rot, translation=trans, fitness=fitness,
                      iterations=iteration, converged=converged, scale=scale)
 

@@ -1,4 +1,5 @@
-"""Batched pair registration on one GPU (port of kss_icp_tpu/parallel/batch.py).
+"""Batched pair registration, on one GPU or over a mesh's "pairs" axis (port
+of kss_icp_tpu/parallel/batch.py).
 
 The sweep axis of the reference's Main_KSS_List loop: B independent
 (source, target) pairs through one pipeline. JAX vmaps the single-pair
@@ -7,9 +8,20 @@ models/kss_icp.py takes the pair axis itself. One `fps` launch resamples all
 2B clouds, each pair's fields are scored by their own launches, and each ICP
 stage runs the lanes of all B pairs in one lockstep loop, each lane against
 its own pair's target, so the host pays an iteration once for the batch.
-A device mesh (multi-GPU) is not ported: ROADMAP.md queue 1 item 13.
 The escalation ladder after the base pass is models/kss_icp.py::
 escalation_ladder, which register_pair runs too.
+
+With a mesh (parallel/mesh.py), each rank runs the same on its contiguous
+slice of the pairs and all-gathers every field of the result in rank order,
+so every rank returns the whole batch. No collective crosses a pair. On the
+CPU a pair's answer is the same bits whatever its batch-mates; on the card
+a slice's batched reductions and 3 x 3 SVDs round by its lane count, so the
+mesh's rows equal the unsharded batch's only within that rounding (ROADMAP
+queue 3, "A batch's answers are not one pair's bits"). Where B does not divide
+the axis, the batch is padded by repeating its last pair and the pads are
+dropped after the gather (JAX falls back to a global program instead). Each
+rank climbs the escalation ladder on its own pairs; JAX re-balances the
+flagged pairs over the mesh, for the same answers.
 """
 
 from __future__ import annotations
@@ -21,15 +33,24 @@ import torch
 
 from kss_icp_torch.config import DEFAULT_CONFIG, KSSICPConfig
 from kss_icp_torch.core.transforms import Similarity, apply_similarity
+from kss_icp_torch.escalate import tree_map
 from kss_icp_torch.metrics import registration_measure_padded
 from kss_icp_torch.models import kss_icp as kss
 from kss_icp_torch.models.kss_icp import RegistrationResult, Timer, _stage
+from kss_icp_torch.parallel.mesh import all_gather_rows, axis_rank
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("kss_icp_torch runs on one GPU; a device mesh is not ported yet: "
-                                  "ROADMAP.md queue 1 item 13 (multi-GPU)")
+def _over_pairs(mesh, b: int, run):
+    """run(rows) on this rank's contiguous slice of b pairs along the mesh's
+    "pairs" axis, `rows` their indices (the batch padded by repeating its
+    last pair to a multiple of the axis size), then every rank's result tree
+    all-gathered in rank order and the pads dropped: each rank returns the
+    whole batch's."""
+    size, rank = axis_rank(mesh, "pairs")
+    per = -(-b // size)
+    out = run([min(i, b - 1) for i in range(rank * per, (rank + 1) * per)])
+    group = mesh.get_group("pairs")
+    return tree_map(lambda x: all_gather_rows(x, group)[:b], out)
 
 
 def register_batch(
@@ -42,9 +63,13 @@ def register_batch(
     timer: Optional[Timer] = None,
 ) -> RegistrationResult:
     """Register B resampled pairs at once (kss_icp_tpu/parallel/batch.py:37-74):
-    models/kss_icp.py::register_batch. `mesh` must be None."""
-    _no_mesh(mesh)
-    return kss.register_batch(source_points, source_mask, target_points, target_mask, cfg, timer)
+    models/kss_icp.py::register_batch, with a mesh on each rank's slice of
+    the pairs along its "pairs" axis, the result gathered."""
+    clouds = (source_points, source_mask, target_points, target_mask)
+    if mesh is None:
+        return kss.register_batch(*clouds, cfg, timer)
+    return _over_pairs(mesh, source_points.shape[0],
+                       lambda rows: kss.register_batch(*(x[rows] for x in clouds), cfg, timer))
 
 
 def overlap_batch(
@@ -60,10 +85,14 @@ def overlap_batch(
     """The overlap tier's re-solve of B flagged pairs (batch.py:77-113):
     solver "field" (the 8^3 and 16^3 rungs, overlap_solve_batch) or "screen"
     (overlap_screen_solve_batch). Returns (transform, fit_std, tfit_new,
-    tfit_old), each leading with B. `mesh` must be None."""
-    _no_mesh(mesh)
+    tfit_old), each leading with B; with a mesh, each rank solves its slice
+    of the pairs along its "pairs" axis and the results are gathered."""
     solve = kss.overlap_solve_batch if solver == "field" else kss.overlap_screen_solve_batch
-    return solve(source_points, source_mask, target_points, target_mask, baseline, cfg)
+    args = (source_points, source_mask, target_points, target_mask, baseline)
+    if mesh is None:
+        return solve(*args, cfg)
+    return _over_pairs(mesh, source_points.shape[0],
+                       lambda rows: solve(*tree_map(lambda x: x[rows], args), cfg))
 
 
 def register_many(
@@ -102,12 +131,29 @@ def register_many(
 
     `timer` is entered around each stage: "resample", "coarse", "screen",
     "refine", then "two_stage", "escalate", "finish", "overlap8",
-    "overlap16" and "overlap_screen" when they run, and "metric". `mesh`
-    raises NotImplementedError."""
-    _no_mesh(mesh)
+    "overlap16" and "overlap_screen" when they run, and "metric".
+
+    With a mesh, each rank runs all of the above on its contiguous slice of
+    the pairs along the mesh's "pairs" axis (its own ladder too), and every
+    rank returns the whole batch, gathered. The AIVS boxes come from the
+    whole batch, not from a rank's slice: on the CPU a pair's answer is the
+    same bits on any rank; on the card, within the batch rounding of ROADMAP
+    queue 3."""
     device = kss._device(device)
     if escalate is None:
         escalate = cfg.auto_escalate
+    cfg = kss._resolve_aivs_boxes(cfg, max(min(len(c), full_pad) for pair in pairs for c in pair))
+
+    def run(rows):
+        return _register_many([pairs[i] for i in rows], cfg, full_pad, escalate, escalate_threshold, escalate_cfg,
+                              device, timer)
+
+    res, metrics = run(range(len(pairs))) if mesh is None else _over_pairs(mesh, len(pairs), run)
+    return res, {k: v.cpu().numpy() for k, v in metrics.items()}
+
+
+def _register_many(pairs, cfg, full_pad, escalate, escalate_threshold, escalate_cfg, device, timer):
+    """register_many's body on one rank's pairs: (result, metrics as tensors)."""
 
     def padded(clouds):
         pts = np.zeros((len(clouds), full_pad, 3), np.float32)
@@ -120,7 +166,6 @@ def register_many(
     s_pts, s_msk = padded([s for s, _ in pairs])
     t_pts, t_msk = padded([t for _, t in pairs])
     counts = [cfg.resample_count(min(len(s), full_pad), min(len(t), full_pad)) for s, t in pairs]
-    cfg = kss._resolve_aivs_boxes(cfg, max(min(len(c), full_pad) for pair in pairs for c in pair))
     with _stage(timer, "resample"):
         (sp, sm), (tp, tm) = kss.resample_pairs(s_pts, s_msk, t_pts, t_msk, torch.tensor(counts, device=device),
                                                 cfg, steps=max(counts))
@@ -130,4 +175,4 @@ def register_many(
         res = kss.escalation_ladder(res, (sp, sm, tp, tm), cfg, escalate_threshold, escalate_cfg, timer)
     with _stage(timer, "metric"):
         metrics = registration_measure_padded(apply_similarity(res.transform, s_pts), s_msk, t_pts, t_msk)
-    return res, {k: v.cpu().numpy() for k, v in metrics.items()}
+    return res, metrics

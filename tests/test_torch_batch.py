@@ -26,6 +26,7 @@ import kss_icp_torch.models.icp  # noqa: F401  (the module, behind models/__init
 import kss_icp_tpu.escalate as je
 from kss_icp_torch.ladder_log import LadderLog, RungLog
 from helpers import random_cloud
+import torch_parallel_worker as w
 from kss_icp_torch.challenge import partial_corpus
 from kss_icp_torch.config import from_reference
 from kss_icp_torch.core.transforms import Similarity as TSim
@@ -37,6 +38,7 @@ from kss_icp_tpu.config import KSSICPConfig
 from kss_icp_tpu.core.transforms import Similarity as JSim
 from kss_icp_tpu.models import kss_icp as jk
 from kss_icp_tpu.parallel import batch as jb
+from kss_icp_tpu.parallel.mesh import make_mesh as jax_mesh
 
 torch.set_num_threads(1)
 ti = sys.modules["kss_icp_torch.models.icp"]
@@ -331,18 +333,27 @@ def test_batched_metric_equals_per_pair_metric(rng):
             np.testing.assert_allclose(float(batch[k][b]), float(one[k]), rtol=1e-6)
 
 
-@pytest.mark.parametrize("knobs, kw", [({}, dict(mesh=object())),
+@pytest.mark.parametrize("knobs, kw", [({}, dict(mesh=2)),
                                        (dict(refine_polish_iterations=4, refine_max_iterations=1), {})])
-def test_unported_batch_options_raise(rng, knobs, kw):
-    """A device mesh is not ported and raises. The two-stage converge is: the
-    capped pairs are continued and, their refine_hit_cap kept, finished as in
-    JAX's register_many, with JAX's transforms and ladder."""
+def test_unported_batch_options_raise(rng, tmp_path, knobs, kw):
+    """Two options once refused, each now held to JAX. A device mesh:
+    register_many over a 2-rank CPU "pairs" mesh (gloo ranks of
+    tests/torch_parallel_worker.py) on tests/test_register_many.py's pairs
+    gives JAX's register_many over its "pairs" mesh: the same escalated set,
+    the pose within 1e-4 and an RMSE within JAX's + 1e-4, as
+    test_register_many_matches_jax holds the unsharded call. The two-stage
+    converge: the capped pairs are continued and, their refine_hit_cap kept,
+    finished as in JAX's register_many, with JAX's transforms and ladder."""
     if kw:
-        cfg = dataclasses.replace(from_reference(MANY), **knobs)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tb.register_many(_many_pairs(rng, 1), cfg, full_pad=512, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kt.register_many(_many_pairs(rng, 1), cfg, full_pad=512, device="cpu", **kw)
+        out = w.spawn(kw["mesh"], tmp_path, ("many",))
+        pairs, cfg, many_kw = w.many_settings()["variable sizes"]
+        with LadderLog(je, len(pairs)) as jl:
+            jres, jm = jb.register_many(pairs, KSSICPConfig(**dataclasses.asdict(cfg)), mesh=jax_mesh(("pairs",)),
+                                        **many_kw)
+        assert json.loads(str(out["ladders"]))["variable sizes"]["escalated"] == jl.escalated.tolist()
+        got = TSim(*(torch.as_tensor(out[f"many/variable sizes/res/transform/{f}"]) for f in TSim._fields))
+        _same_transform(got, jres.transform)
+        assert (out["many/variable sizes/metrics/rmse"] <= np.asarray(jm["rmse"]) + 1e-4).all()
         return
     # Noisy copies: on an exact copy the port's exact-difference fitness keeps
     # falling past JAX's expansion-form floor, and the lanes stop apart.

@@ -934,3 +934,20 @@ def test_mesh_angles_and_two_stage_on_the_card_match_cpu(cuda_device):
     ref = kt.register_pair(src, tgt, cfg, device="cpu")
     assert "two_stage" in stages and not bool(res.refine_hit_cap)
     np.testing.assert_allclose(res.transform.rotation.cpu().numpy(), ref.transform.rotation.numpy(), atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world, backend", [(2, "gloo"), (1, "nccl")])
+def test_mesh_on_the_card_matches_the_unsharded_kernels(cuda_device, tmp_path, world, backend):
+    """The device mesh on cuda:0 (tests/torch_parallel_worker.py's "card"
+    case): 2 gloo ranks sharing the card, and an NCCL group of world size 1
+    through make_mesh. The sharded 8³ field is the unsharded field's bits
+    (field_ave launched in the ranks); the sharded metric at 1 x 65536 x
+    65536 (nn1 on each rank's rows) within rtol 1e-5 of the unsharded one."""
+    import torch_parallel_worker as w
+
+    out = w.spawn(world, tmp_path, ("card",), backend)
+    assert out["card/field"].shape == (w.CARD_STEPS,) * 3
+    assert np.array_equal(out["card/field"], out["card/field_unsharded"])
+    np.testing.assert_allclose(float(out["card/metric"]), float(out["card/metric_unsharded"]), rtol=1e-5)
+    assert out["card/launches"].tolist() == [1, 1]

@@ -44,21 +44,30 @@ def test_imports_with_jax_blocked():
             "import kss_icp_torch.viz, kss_icp_torch.viz.render, kss_icp_torch.viz.trackball\n"
             "import kss_icp_torch.viz.interactive, kss_icp_torch.native\n"
             "import kss_icp_torch.ops.vcm, kss_icp_torch.ops.voronoi2d, kss_icp_torch.measure_mesh\n"
+            "import kss_icp_torch.parallel.mesh, kss_icp_torch.parallel.point_shard\n"
+            "import kss_icp_torch.parallel.rotation_shard, kss_icp_torch.parallel\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_parallel_worker\n"
             "assert kss_icp_torch.register_many and kss_icp_torch.parallel.register_many\n"
             "print(sorted(kss_icp_torch.__all__))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     import kss_icp_tpu
+    import kss_icp_tpu.parallel
+    import kss_icp_torch.parallel
     assert out.stdout.strip() == str(sorted(kss_icp_tpu.__all__))
+    assert set(kss_icp_tpu.parallel.__all__) <= set(kss_icp_torch.parallel.__all__)
 
 
 def test_no_source_file_imports_jax():
     files = sorted((REPO / "kss_icp_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
                                                                   REPO / "scripts" / "torch_kernel_ab.py",
-                                                                  REPO / "scripts" / "torch_tree_ab.py"]
+                                                                  REPO / "scripts" / "torch_tree_ab.py",
+                                                                  REPO / "tests" / "torch_parallel_worker.py"]
     names = {str(f.relative_to(REPO)) for f in files}
     for new in ("viz/__init__.py", "viz/render.py", "viz/trackball.py", "viz/interactive.py", "utils/fileproc.py",
-                "native/__init__.py", "ops/vcm.py", "ops/voronoi2d.py", "measure_mesh.py"):
+                "native/__init__.py", "ops/vcm.py", "ops/voronoi2d.py", "measure_mesh.py", "parallel/mesh.py",
+                "parallel/point_shard.py", "parallel/rotation_shard.py"):
         assert f"kss_icp_torch/{new}" in names, new
     bad = []
     for f in files:
