@@ -39,7 +39,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
      survivor clouds of that seed (B=2 x 151552 -> 2048, 2000 steps),
      with its launches from the 4f pass, and at WLOP's start in 4j, one
      40960-point tools original to 8000 samples (B=1, 8000 steps), with
-     its launches from the 4j pass; field_ave, and field_dot at
+     its launches from the 4j pass; fps's cluster cases: every cluster
+     size with the slices in registers and in shared memory, ties across
+     the blocks (a cloud tiled 4x) at steps = S, < S and 0, and
+     MAX_POINTS, each printing its plan and its empty steps (the plan's
+     cluster and threads on one point a block), and a cloud past
+     MAX_POINTS and a cluster of 32 blocks, which must raise; field_ave, and field_dot at
      "highest" and "default", on the base grid C=512, P=T=2048 and the
      escalation grid C=4096, P=T=512, mostly valid, and on the base grid
      with both clouds suffix-masked to the largest and smallest remesh
@@ -496,12 +501,18 @@ def phase_kernels(torch, dev) -> dict:
                       also_replaces="kss_icp_tpu/ops/nn_pallas.py:183",
                       yardstick="torch.cdist(query, valid_ref).min(-1), 4096 queries a call")
 
+    from kss_icp_torch.ops.resample_cuda import MAX_POINTS, block_plan, empty_step_plan, fps_plan
+
+    sms = sm_count(dev.index or 0)
     b_n, p_n, s = 2, 8192, 2048
     pts = t(np.stack([cloud(rng, p_n) for _ in range(b_n)]))
     pmask = torch.ones((b_n, p_n), dtype=torch.bool, device=dev)
     pmask[0, 8000:] = False
     pmask[1, 6201:] = False
-    fps_cases = [(pts, pmask, s, s, "table shape", None)]
+    # (points, mask, S, steps, label, the 4x pass whose launches the case
+    # reports, each cloud's picks (default: steps), a plan other than the
+    # wrapper's)
+    fps_cases = [(pts, pmask, s, s, "table shape", None, None, None)]
     # register_pair's two launches on the remesh pair with the most picks,
     # padded as PointCloud.from_points pads them.
     remesh = load_pairs()
@@ -510,7 +521,7 @@ def phase_kernels(torch, dev) -> dict:
     for points, label in ((src, "remesh source"), (tgt, "remesh target")):
         c = PointCloud.from_points(points, device=dev)
         fps_cases.append((c.points[None].contiguous(), c.mask[None].contiguous(), DEFAULT_CONFIG.resample_pad,
-                          steps, label, None))
+                          steps, label, None, None, None))
     # register_many's one launch a batch: each corpus's sources and targets
     # padded to full_pad 8192, steps = the largest pnumber; pair b needs
     # pnumber_b picks.
@@ -526,39 +537,94 @@ def phase_kernels(torch, dev) -> dict:
         for i, c in enumerate(clouds):
             pts[i, :len(c)] = c
         bmask = t(np.arange(BATCH_PAD)[None] < np.array([len(c) for c in clouds])[:, None])
-        fps_cases.append((t(pts), bmask, DEFAULT_CONFIG.resample_pad, max(counts), label, batch, counts + counts))
-    # run_largescan's one launch a run: both compacted survivor clouds, steps = pnumber.
+        fps_cases.append((t(pts), bmask, DEFAULT_CONFIG.resample_pad, max(counts), label, batch, counts + counts,
+                          None))
+    # run_largescan's one launch a run: both compacted survivor clouds, steps =
+    # pnumber; seed 2's first cloud leaves the cluster's last blocks masked.
     s_pts, s_mask, s_steps = scan["fps"]
     fps_cases.append((s_pts, s_mask, DEFAULT_CONFIG.resample_pad, s_steps,
-                      f"large-scan resample: Room seed {scan['seed']}'s compacted octree survivors", "largescan"))
+                      f"large-scan resample: Room seed {scan['seed']}'s compacted octree survivors", "largescan",
+                      None, None))
     # WLOP's start in 4j: one launch a 40960-point tools original, every step of 8000.
     from kss_icp_torch.challenge import _instance
 
     tools = load_tools()[0]["config"]
     fps_cases.append((t(_instance(0, 0, tools["n_points"], sample=0))[None].contiguous(),
                       torch.ones((1, tools["n_points"]), dtype=torch.bool, device=dev), tools["wlop_points"],
-                      tools["wlop_points"], "WLOP start: a 40960-point tools original (4j)", "tools"))
+                      tools["wlop_points"], "WLOP start: a 40960-point tools original (4j)", "tools", None, None))
+    # The cluster's own cases: every cluster size with the slices in registers
+    # (3000 points a block, ragged) and in shared memory (9000), with an
+    # invalid first point of the last block and a first block wholly masked;
+    # ties across the blocks' borders (a cloud tiled 4x) at all picks, at
+    # steps < S and at steps = 0; and MAX_POINTS.
+    for cluster in (1, 2, 4, 8, 16):
+        for per_block in (3000, 9000):
+            n = cluster * per_block - 7
+            plan = block_plan(n, cluster)
+            cmask = torch.ones((2, n), dtype=torch.bool, device=dev)
+            cmask[0, plan.slice * (cluster - 1)] = False
+            cmask[1, :plan.slice] = False
+            cmask[1, n - n // 3:] = False
+            fps_cases.append((t(np.stack([cloud(rng, n) for _ in range(2)])), cmask, 2048, 2000,
+                              f"cluster of {cluster}, {'registers' if plan.registers else 'shared memory'}", None,
+                              None, plan))
+    tiled = t(np.tile(cloud(rng, 9001), (4, 1))[None])
+    for tie_steps in (2048, 700, 0):
+        fps_cases.append((tiled, torch.ones((1, 36004), dtype=torch.bool, device=dev), 2048, tie_steps,
+                          f"ties across blocks: 9001 points tiled 4x, {tie_steps} steps", None, None, None))
+    fps_cases.append((t(cloud(rng, MAX_POINTS)[None]), torch.ones((1, MAX_POINTS), dtype=torch.bool, device=dev),
+                      2048, 2048, "MAX_POINTS", None, None, None))
     cases = []
-    for pts, pmask, s, steps, label, batch, *picks in fps_cases:
+    for pts, pmask, s, steps, label, batch, picks, plan in fps_cases:
         b_n, p_n = pmask.shape
-        picks = np.array(picks[0] if picks else [steps] * b_n)
-        ik, smk = fps(pts, pmask, s, steps)
+        picks = np.array(picks if picks else [steps] * b_n)
+        plan = plan or fps_plan(b_n, p_n, sms)
+        ik, smk = fps(pts, pmask, s, steps, plan=plan)
         ip, smp = farthest_point_sampling(pts, pmask, s, steps)
         torch.cuda.synchronize()
         require(torch.equal(ik, ip) and torch.equal(smk, smp),
-                f"fps {label}: indices differ at {int((ik != ip).sum())} of {b_n * s} picks")
-        ms = time_ms(lambda: fps(pts, pmask, s, steps), 5)
-        device_ms = graph_ms(lambda: fps(pts, pmask, s, steps), 5)
+                f"fps {label}: indices differ at {int((ik != ip).sum())} of {b_n * s} picks (plan {tuple(plan)})")
+        ms = time_ms(lambda: fps(pts, pmask, s, steps, plan=plan), 5)
+        device_ms = graph_ms(lambda: fps(pts, pmask, s, steps, plan=plan), 5)
         plain_ms = time_ms(lambda: farthest_point_sampling(pts, pmask, s, steps), 1)
+        # The empty step: the plan's cluster and threads on one point a block;
+        # steps of it are the floor the run sits on.
+        floor_plan = empty_step_plan(plan)
+        one = torch.zeros((b_n, plan.cluster, 3), device=dev)
+        one_mask = torch.ones((b_n, plan.cluster), dtype=torch.bool, device=dev)
+        floor_ms = graph_ms(lambda: fps(one, one_mask, s, steps, plan=floor_plan), 5)
         # Per step and valid point: 3 sub + 3 mul + 2 add + 1 min + 1 compare. The
         # steps are a dependency chain the bound does not see (PERF.md).
         b = bound(10.0 * float((picks * pmask.sum(dim=1).cpu().numpy()).sum()),
                   4 * b_n * p_n * 3 + b_n * p_n + b_n * s * 5)
         cases.append(dict({"shape": f"{b_n}x{p_n}->{s}", "steps": steps, "label": label, "batch_pass": batch, "ms": ms,
-                           "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": 0.0}, **b))
+                           "device_ms": device_ms, "plain_ms": plain_ms, "step_floor_ms": floor_ms,
+                           "max_abs_err": 0.0, "plan": plan._asdict()}, **b))
         log(f"  fps B={b_n} P={p_n} S={s} steps={steps} ({label}): indices identical; {ms:.4f} ms a wrapper call "
             f"back to back, {device_ms:.4f} ms on the device (graph replay; centroid and mask ops included), "
-            f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {steps} dependent steps)")
+            f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {steps} dependent steps), "
+            f"empty steps {floor_ms:.4f} ms; plan: a cluster of {plan.cluster}, {plan.slice} points a block, "
+            f"{plan.k} {'points' if plan.registers else 'scores'} a thread x {plan.threads} threads, x, y, z in "
+            f"{'registers' if plan.registers else 'shared memory'}")
+    # No fallback: a cloud past MAX_POINTS and a cluster the card cannot
+    # schedule raise, launch nothing, and the next launch runs.
+    before = fps.launches
+    wide = torch.zeros((1, MAX_POINTS + 1, 3), device=dev)
+    for label, call, error in (
+            ("a cloud of MAX_POINTS + 1", lambda: fps(wide, torch.ones((1, MAX_POINTS + 1), dtype=torch.bool,
+                                                                        device=dev), 8), ValueError),
+            ("a cluster of 32 blocks", lambda: fps(tiled[:, :3200].contiguous(), torch.ones(
+                (1, 3200), dtype=torch.bool, device=dev), 64, plan=block_plan(3200, 32)), RuntimeError)):
+        try:
+            call()
+        except error as e:
+            log(f"  fps refuses {label}: {e}")
+        else:
+            raise SmokeError(f"fps took {label}")
+    require(fps.launches == before, f"fps launched {fps.launches - before} times on refused plans")
+    ik, _ = fps(tiled, torch.ones((1, 36004), dtype=torch.bool, device=dev), 64)
+    require(torch.equal(ik, farthest_point_sampling(tiled, torch.ones((1, 36004), dtype=torch.bool, device=dev),
+                                                    64)[0]), "fps after a refused plan: picks differ")
     out["fps"] = dict(cases[0], cases=cases, yardstick_ms=None, source="kss_icp_torch/csrc/fps.cu",
                       replaces="kss_icp_tpu/ops/resample_pallas.py:102")
 

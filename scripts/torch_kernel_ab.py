@@ -3,9 +3,11 @@
 
     python3 scripts/torch_kernel_ab.py --old DIR [--reps N] [--sass] [--sweep] [--out DIR]
 
-DIR holds older kernel sources, any of: `nn.cu` and `fps.cu` with the C
-interface they had before their launch plans (kss_nn1 without the plan
-arguments, kss_fps without steps and plan); `field.cu` and `field_dot.cu`
+DIR holds older kernel sources, any of: `nn.cu` with the C interface it
+had before its launch plan (kss_nn1 without the plan arguments); `fps.cu`
+with the one-block interface it had before clusters (kss_fps with steps,
+points a thread, threads and a workspace; the old plan is the one-block
+plan, points in registers up to 8192 and the workspace above); `field.cu` and `field_dot.cu`
 with the interface they had before theirs (kss_field_ave and kss_field_dot
 without the target mask's compaction and the plan). They are built with the
 package's nvcc flags into a second ctypes library under
@@ -31,10 +33,13 @@ torch_kernels.sass, and sets beside each field shape the new kernel's issue
 floor: its inner loop's instructions an evaluation, from the SASS, times
 the evaluations on valid rows, over the card's 4 x SMs schedulers at the
 maximum SM clock. --sweep also times every launch plan the new C entry
-points take at those shapes (nn1: each cluster size; fps: each
-points-a-thread count; the fields: each group-slots count), beside the
-plan the wrappers pick, and writes
-them there as torch_kernel_sweep.json.
+points take at those shapes (nn1: each cluster size; fps: each cluster
+size whose slices fit a block, with the slice in registers and in shared
+memory where both hold it, each beside its empty step, the same cluster
+and threads with one point a block; the fields: each group-slots count),
+beside the plan the wrappers pick, and writes them there as
+torch_kernel_sweep.json. Each fps row also carries the new plan's empty
+step.
 
 Imports nothing of JAX and nothing of kss_icp_tpu.
 """
@@ -62,14 +67,15 @@ from kss_icp_torch.ops.coarse_cuda import (FIELD_GROUP, FIELD_SLOTS, dot_operand
                                            field_plan)
 from kss_icp_torch.ops.nn_cuda import nn1, nn1_plan, sm_count  # noqa: E402
 from kss_icp_torch.ops.resample import fps_centroid  # noqa: E402
-from kss_icp_torch.ops.resample_cuda import MAX_THREADS, fps, fps_plan  # noqa: E402
+from kss_icp_torch.ops.resample_cuda import (CLUSTERS, MAX_THREADS, REGISTER_POINTS, SHARED_K,  # noqa: E402
+                                             SHARED_SLICE, FPSPlan, empty_step_plan, fps, fps_plan)
 from kss_icp_torch.timing import graph_ms, time_ms  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # old source -> (C entry point, its argtypes)
 OLD_SIGNATURES = {
     "nn.cu": ("kss_nn1", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
-    "fps.cu": ("kss_fps", (_P, _P, _P, _I, _I, _I, _P, _P, _P)),
+    "fps.cu": ("kss_fps", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),
     "field.cu": ("kss_field_ave", (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P)),
     "field_dot.cu": ("kss_field_dot", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
 }
@@ -81,10 +87,15 @@ NN1_SHAPES = [(32, 512, 2048, "screen"), (16, 512, 2048, "escalation screen"), (
               (1, 3072, 8192, "metric, largest pair"), (1, 768, 4096, "metric, smallest pair"),
               (1, 65536, 65536, "K4 regime")]
 # (B, P, S, steps, label): register_pair's two launches at the largest pair's
-# padded source and target (pnumber 1534 of 2048 slots), and the PERF.md
-# table's shape.
+# padded source and target (pnumber 1534 of 2048 slots), the PERF.md table's
+# shape, register_many's batches (a mesh rank's 14 clouds, the remesh 25's 50,
+# the boards' 128), the large scan's two survivor clouds and WLOP's start.
 FPS_SHAPES = [(1, 3072, 2048, 1534, "remesh source"), (1, 8192, 2048, 1534, "remesh target"),
-              (2, 8192, 2048, 2048, "table shape")]
+              (2, 8192, 2048, 2048, "table shape"), (14, 8192, 2048, 1500, "a mesh rank's 14 clouds"),
+              (50, 8192, 2048, 1534, "many: the remesh 25's 50 clouds"),
+              (128, 8192, 2048, 2000, "many boards: the boards' 128 clouds"),
+              (2, 151552, 2048, 2000, "large scan: two survivor clouds"),
+              (1, 40960, 8000, 8000, "WLOP start")]
 # (grid steps, padded P = T, valid rows of both clouds, label); None: the
 # smoke run's masks, n - n // 40 source and n - n // 20 target rows.
 FIELD_SHAPES = [(8, 2048, 2048, "8³ grid, all valid"), (8, 2048, 1534, "8³ grid, largest remesh pair"),
@@ -149,22 +160,50 @@ def nn1_calls(old, query, ref, mask, lane_ref):
     return run_old, run_new, outs
 
 
+def old_fps_plan(p_n: int) -> tuple:
+    """The one-block plan of the old fps.cu: (points a thread in registers,
+    threads), (0, 512) for the workspace path above 8192 points."""
+    for k in REGISTER_POINTS:
+        if p_n <= k * MAX_THREADS:
+            return k, 32 * -(-p_n // (32 * k))
+    return 0, MAX_THREADS
+
+
+def new_fps(lib, points, mask, centroid, s, steps, plan: FPSPlan, out) -> None:
+    """The new C entry point at `plan`."""
+    batch, p_n = mask.shape
+    _check(lib.kss_fps(points.data_ptr(), mask.data_ptr(), centroid.data_ptr(), batch, p_n, s, steps, plan.cluster,
+                       plan.slice, plan.k, plan.threads, int(plan.registers), out.data_ptr(), _stream()), "kss_fps")
+
+
 def fps_calls(old, points, mask, s, steps):
     batch, p_n = mask.shape
     centroid = fps_centroid(points, mask).contiguous()
-    work = torch.empty((batch, p_n, 4), dtype=torch.float32, device=points.device)
+    k_old, threads_old = old_fps_plan(p_n)
+    work = torch.empty((batch, p_n, 4) if k_old == 0 else (1,), dtype=torch.float32, device=points.device)
     outs = [torch.empty((batch, s), dtype=torch.int32, device=points.device) for _ in range(2)]
-    head = (points.data_ptr(), mask.data_ptr(), centroid.data_ptr(), batch, p_n, s)
-    plan = fps_plan(p_n)
+    plan = fps_plan(batch, p_n, sm_count(points.device.index))
     new = _build.library()
 
     def run_old():
-        _check(old.kss_fps(*head, work.data_ptr(), outs[0].data_ptr(), _stream()), "old kss_fps")
+        _check(old.kss_fps(points.data_ptr(), mask.data_ptr(), centroid.data_ptr(), batch, p_n, s, steps, k_old,
+                           threads_old, work.data_ptr(), outs[0].data_ptr(), _stream()), "old kss_fps")
 
     def run_new(k=steps):
-        _check(new.kss_fps(*head, k, plan.k, plan.threads, work.data_ptr(), outs[1].data_ptr(), _stream()),
-               "kss_fps")
+        new_fps(new, points, mask, centroid, s, k, plan, outs[1])
     return run_old, run_new, outs
+
+
+def fps_floor_ms(dev, batch: int, s: int, steps: int, plan: FPSPlan, reps: int) -> float:
+    """Device ms of `steps` empty steps at `plan`'s cluster and threads
+    (resample_cuda.empty_step_plan): B clouds of one point a block."""
+    floor = empty_step_plan(plan)
+    pts = torch.zeros((batch, plan.cluster, 3), dtype=torch.float32, device=dev)
+    mask = torch.ones((batch, plan.cluster), dtype=torch.bool, device=dev)
+    centroid = fps_centroid(pts, mask).contiguous()
+    out = torch.empty((batch, s), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    return graph_ms(lambda: new_fps(lib, pts, mask, centroid, s, steps, floor, out), reps)
 
 
 def field_inputs(rng, dev, steps: int, n: int, valid):
@@ -242,25 +281,41 @@ def sweep(dev, reps: int) -> dict:
         result["nn1"].append({"shape": f"{lanes}x{q_n}x{r_n}", "label": label, "chosen": chosen, "plans": rows})
         print(f"sweep nn1 {lanes}x{q_n}x{r_n} ({label}): chosen cluster {chosen}; " +
               "; ".join(f"cluster {r['cluster']} {r['ms']:.4f} ms" for r in rows), flush=True)
-    for b_n, p_n, s, steps, label in FPS_SHAPES[:2]:
+    sms = sm_count(dev.index)
+    for b_n, p_n, s, steps, label in FPS_SHAPES:
         pts = torch.as_tensor(np.stack([cloud(rng, p_n) for _ in range(b_n)]), device=dev)
         mask = torch.ones((b_n, p_n), dtype=torch.bool, device=dev)
         centroid = fps_centroid(pts, mask).contiguous()
         idx = torch.empty((b_n, s), dtype=torch.int32, device=dev)
+        want = None
         rows = []
-        for k in (1, 2, 4, 8, 16):
-            threads = 32 * -(-p_n // (32 * k))
-            if threads > MAX_THREADS:
+        for cluster in CLUSTERS:
+            slice_n = -(-p_n // cluster)
+            if slice_n > SHARED_SLICE or b_n * cluster > 2 * sms or (cluster > 1 and slice_n < 256):
                 continue
-
-            def run(k=k, threads=threads):
-                _check(lib.kss_fps(pts.data_ptr(), mask.data_ptr(), centroid.data_ptr(), b_n, p_n, s, steps, k,
-                                   threads, idx.data_ptr(), idx.data_ptr(), _stream()), "kss_fps")
-            rows.append({"k": k, "threads": threads, "ms": graph_ms(run, max(3, reps // 5))})
+            # Every points-a-thread count that holds the slice in registers,
+            # and the slice in shared memory.
+            plans = [FPSPlan(cluster, slice_n, k, 32 * -(-slice_n // (32 * k)), True) for k in REGISTER_POINTS
+                     if slice_n <= k * MAX_THREADS and (k == 1 or slice_n > k // 2 * 32)]
+            plans.append(FPSPlan(cluster, slice_n, SHARED_K, MAX_THREADS, False))
+            for plan in plans:
+                new_fps(lib, pts, mask, centroid, s, steps, plan, idx)
+                torch.cuda.synchronize()
+                want = idx.clone() if want is None else want
+                n = max(3, reps // 10)
+                ms = graph_ms(lambda plan=plan: new_fps(lib, pts, mask, centroid, s, steps, plan, idx), n)
+                floor = fps_floor_ms(dev, b_n, s, steps, plan, n)
+                rows.append(dict(plan._asdict(), ms=ms, floor_ms=floor, same_bits=bool(torch.equal(idx, want)),
+                                 us_per_step=ms * 1e3 / steps, floor_us_per_step=floor * 1e3 / steps))
+        chosen = fps_plan(b_n, p_n, sms)
         result["fps"].append({"shape": f"{b_n}x{p_n}->{s}", "steps": steps, "label": label,
-                              "chosen": fps_plan(p_n)._asdict(), "plans": rows})
-        print(f"sweep fps {b_n}x{p_n} steps {steps} ({label}): chosen {fps_plan(p_n)}; " +
-              "; ".join(f"k {r['k']} x {r['threads']} {r['ms']:.4f}" for r in rows), flush=True)
+                              "chosen": chosen._asdict(), "plans": rows})
+        print(f"sweep fps {b_n}x{p_n} steps {steps} ({label}): chosen {tuple(chosen)}; " +
+              "; ".join(f"C {r['cluster']} k {r['k']} x {r['threads']} {'reg' if r['registers'] else 'smem'} "
+                        f"{r['ms']:.4f} ms (floor {r['floor_ms']:.4f}){'' if r['same_bits'] else ' BITS DIFFER'}"
+                        for r in rows), flush=True)
+        if not all(r["same_bits"] for r in rows):
+            raise RuntimeError(f"fps sweep {b_n}x{p_n}: a plan's picks differ from another's")
     result["fields"] = []
     for steps, n, valid, label in FIELD_SHAPES:
         args = field_inputs(rng, dev, steps, n, valid)
@@ -317,22 +372,25 @@ def ab_fps(old, dev, rng, reps: int) -> list:
         run_new()
         i_new, _ = fps(pts, mask, s, steps)
         torch.cuda.synchronize()
-        same = bool(torch.equal(outs[0], i_full) and torch.equal(outs[1], i_new)
+        same = bool(torch.equal(outs[0][:, :steps], i_full[:, :steps]) and torch.equal(outs[1], i_new)
                     and torch.equal(outs[0][:, :steps], i_new[:, :steps]) and not i_new[:, steps:].any())
-        n = max(3, reps // 5)
+        n = max(3, reps // 5) if p_n <= 8192 else max(3, reps // 10)
+        plan = fps_plan(b_n, p_n, sm_count(dev.index))
         row = dict(in_turns(run_old, run_new, n), shape=f"{b_n}x{p_n}->{s}", steps=steps, label=label,
-                   same_bits=same, reps=n, plan=fps_plan(p_n)._asdict())
+                   same_bits=same, reps=n, plan=plan._asdict(), old_plan=old_fps_plan(p_n))
         # All S picks in both, to split the kernel's gain from the steps cut's.
         row["new_all_steps_ms"] = graph_ms(lambda: run_new(s), n)
         row["us_per_step"] = row["new_all_steps_ms"] * 1e3 / s
-        row["old_us_per_step"] = row["old_ms"] * 1e3 / s
+        row["old_us_per_step"] = row["old_ms"] * 1e3 / steps
+        row["floor_ms"] = fps_floor_ms(dev, b_n, s, steps, plan, n)
         row["wrapper_ms"] = time_ms(lambda: fps(pts, mask, s, steps), n)
         rows.append(row)
         print(f"fps {row['shape']} steps {steps} ({label}): device old {row['old_ms']:.4f} ms, new "
-              f"{row['new_ms']:.4f} ms ({row['old_ms'] / row['new_ms']:.2f}x); all {s} steps "
-              f"{row['new_all_steps_ms']:.4f} ms ({row['us_per_step']:.3f} us a step, old "
-              f"{row['old_us_per_step']:.3f}); new wrapper {row['wrapper_ms']:.4f} ms; same bits {same}, "
-              f"plan {row['plan']}", flush=True)
+              f"{row['new_ms']:.4f} ms ({row['old_ms'] / row['new_ms']:.2f}x; turns {row['turns_ms']}); empty "
+              f"steps {row['floor_ms']:.4f} ms; all {s} steps {row['new_all_steps_ms']:.4f} ms "
+              f"({row['us_per_step']:.3f} us a step, old {row['old_us_per_step']:.3f}); new wrapper "
+              f"{row['wrapper_ms']:.4f} ms; same bits {same}, plan {tuple(plan)}, old plan {row['old_plan']}",
+              flush=True)
     return rows
 
 

@@ -2,7 +2,7 @@
 """Two checkouts of the port against each other, end to end, in turns, on
 one CUDA card.
 
-    python3 scripts/torch_tree_ab.py --old DIR [--new DIR] [--rounds N] [--passes N] [--out DIR]
+    python3 scripts/torch_tree_ab.py --old DIR [--new DIR] [--rounds N] [--passes N] [--largescan] [--out DIR]
 
 DIR is the root of another checkout of this repository (for example a
 commit unpacked with `git archive` into a gitignored directory such as
@@ -20,7 +20,12 @@ kernels there (at first use) and, after a warm-up pair:
     registration_measure, --passes times without stage syncs (pairs/s) and
     --passes times with a sync at each stage border (stage seconds), and
     holds every pair's RMSE to the JAX CPU value + 0.006
-    (fixtures/torch_port_expected_escalation.json).
+    (fixtures/torch_port_expected_escalation.json);
+  - with --largescan, runs `run_largescan(200000, 80000, DEFAULT_CONFIG,
+    seed, repeats=3)` for the Room seeds 0-2 (the stage seconds of the
+    fastest repeat; register_s holds the one `fps` launch of 2 x 135168-
+    151552 points) and holds each seed's unit-scale RMSE to JAX's + 0.006
+    and its pose under 0.1 m (fixtures/torch_port_expected_largescan.json).
 The turns run old, new, new, old, --rounds times. The card's name and power
 limit come first, then one line per turn and, for each checkout, the means
 of the wrapper times and the medians of the passes' seconds and stage
@@ -52,6 +57,7 @@ RMSE_BAND = 0.006
 NN1_SHAPES = [(32, 512, 2048), (4, 2048, 2048), (1, 3072, 8192), (1, 65536, 65536)]
 FPS_SHAPE = (2, 8192, 2048)
 FIELD_SHAPE = (8, 2048, 1070)  # grid steps, padded P = T, valid rows of both clouds
+LARGESCAN_SEEDS = (0, 1, 2)
 
 
 def cloud(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -60,7 +66,24 @@ def cloud(rng: np.random.Generator, n: int) -> np.ndarray:
     return np.stack([u, v, 0.3 * np.sin(3 * u) * np.cos(2 * v)], axis=-1).astype(np.float32)
 
 
-def worker(tree: Path, passes: int) -> dict:
+def largescan_runs(tree: Path, device) -> dict:
+    """run_largescan at 200k points for the Room seeds, by seed: the stage
+    seconds and whether the answer is within JAX's band."""
+    from kss_icp_torch.config import DEFAULT_CONFIG
+    from kss_icp_torch.largescan import run_largescan
+
+    expected = {r["seed"]: r for r in json.loads(
+        (tree / "fixtures" / "torch_port_expected_largescan.json").read_text())["seeds"]}
+    runs = {}
+    for seed in LARGESCAN_SEEDS:
+        out = run_largescan(200_000, 80_000, DEFAULT_CONFIG, seed, repeats=3, device=device)
+        ok = out["unit_rmse"] <= expected[seed]["unit_rmse"] + RMSE_BAND and out["pose_rmse"] < 0.1
+        runs[str(seed)] = {k: out[k] for k in ("octree_s", "register_s", "metric_s", "total_s", "unit_rmse",
+                                               "pose_rmse", "fitness")} | {"ok": bool(ok)}
+    return runs
+
+
+def worker(tree: Path, passes: int, largescan: bool) -> dict:
     """One turn: the wrappers' times and the esc-default passes of the
     `kss_icp_torch` in `tree`."""
     sys.path.insert(0, str(tree))
@@ -145,12 +168,14 @@ def worker(tree: Path, passes: int) -> dict:
 
     return {"build_s": build_s, "nn1_ms": nn1_ms, "fps_ms": fps_ms, "field_ms": field_ms,
             "unsynced": [one_pass(False) for _ in range(passes)],
-            "synced": [one_pass(True) for _ in range(passes)]}
+            "synced": [one_pass(True) for _ in range(passes)],
+            "largescan": largescan_runs(tree, dev) if largescan else {}}
 
 
-def run_turn(tree: Path, passes: int) -> dict:
+def run_turn(tree: Path, passes: int, largescan: bool) -> dict:
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", str(tree),
-                           "--passes", str(passes)], capture_output=True, text=True, timeout=900)
+                           "--passes", str(passes)] + (["--largescan"] if largescan else []),
+                          capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"turn in {tree} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -185,6 +210,9 @@ def summary(turns: list) -> dict:
         "stage_seconds_quartiles": {k: quartiles(p["stage_seconds"].get(k, 0.0) for p in synced) for k in stages},
         "launches": synced[0]["launches"],
         "outside": sorted({n for p in unsynced + synced for n in p["outside"]}),
+        "largescan": {seed: {k: mean(t["largescan"][seed][k] for t in turns) for k in ("register_s", "total_s")}
+                      for seed in turns[0]["largescan"]},
+        "largescan_outside": sorted({seed for t in turns for seed, r in t["largescan"].items() if not r["ok"]}),
     }
 
 
@@ -203,11 +231,12 @@ def main() -> int:
     ap.add_argument("--new", type=Path, default=REPO, help="root of the checkout under test (default: this one)")
     ap.add_argument("--rounds", type=int, default=1, help="rounds of old, new, new, old")
     ap.add_argument("--passes", type=int, default=2, help="esc-default passes a turn, synced and not")
+    ap.add_argument("--largescan", action="store_true", help="also run_largescan at 200k points, seeds 0-2")
     ap.add_argument("--out", type=Path, default=REPO / "_scratch" / "tree_ab", help="directory for the JSON")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker is not None:
-        print(json.dumps(worker(args.worker.resolve(), args.passes)), flush=True)
+        print(json.dumps(worker(args.worker.resolve(), args.passes, args.largescan)), flush=True)
         return 0
     import torch
 
@@ -223,23 +252,28 @@ def main() -> int:
     turns = {"old": [], "new": []}
     for _ in range(args.rounds):
         for which in ("old", "new", "new", "old"):
-            t = run_turn(trees[which], args.passes)
+            t = run_turn(trees[which], args.passes, args.largescan)
             turns[which].append(t)
             print(f"[{which}] build {t['build_s']:.2f} s; nn1 wrapper ms {fmt(t['nn1_ms'])}; fps wrapper ms "
                   f"{fmt(t['fps_ms'])}; field_ave wrapper ms {fmt(t['field_ms'])}; unsynced pass s "
                   + ", ".join(f"{p['seconds']:.4f}" for p in t["unsynced"])
-                  + "; synced pass s " + ", ".join(f"{p['seconds']:.4f}" for p in t["synced"]), flush=True)
+                  + "; synced pass s " + ", ".join(f"{p['seconds']:.4f}" for p in t["synced"])
+                  + "".join(f"; largescan seed {k} register_s {r['register_s']:.4f} total_s {r['total_s']:.4f}"
+                            for k, r in t["largescan"].items()), flush=True)
     result = {"card": card, "trees": {k: str(v) for k, v in trees.items()}, "turns": turns,
               "summary": {k: summary(v) for k, v in turns.items()}}
     for which, s in result["summary"].items():
         print(f"[{which} mean] nn1 wrapper ms {fmt(s['nn1_ms'])}; fps wrapper ms {fmt(s['fps_ms'])}; field_ave "
               f"wrapper ms {fmt(s['field_ms'])}; unsynced pass {s['unsynced_seconds']:.4f} s ({s['pairs_per_s']:.3f} "
               f"pairs/s); synced pass {s['synced_seconds']:.4f} s, stages {fmt(s['stage_seconds'])}; launches "
-              f"{s['launches']}; pairs outside the band {s['outside']}", flush=True)
+              f"{s['launches']}; pairs outside the band {s['outside']}"
+              + "".join(f"; largescan seed {k} register_s {r['register_s']:.4f} total_s {r['total_s']:.4f}"
+                        for k, r in s["largescan"].items())
+              + f"; large scans outside the band {s['largescan_outside']}", flush=True)
         print(f"[{which} quartiles] unsynced pass s {fmt_q(s['unsynced_seconds_quartiles'])}; synced pass s "
               f"{fmt_q(s['synced_seconds_quartiles'])}; stages " + ", ".join(
                   f"{k} {fmt_q(v)}" for k, v in s["stage_seconds_quartiles"].items()), flush=True)
-    result["ok"] = not any(s["outside"] for s in result["summary"].values())
+    result["ok"] = not any(s["outside"] or s["largescan_outside"] for s in result["summary"].values())
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "torch_tree_ab.json").write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)

@@ -183,7 +183,7 @@ def test_fps_kernel_matches_plain_and_jax(cuda_device):
 
 
 @pytest.mark.cuda
-# Registers (1 to 16 points a thread), then shared memory (12801) and global memory.
+# One block (1 to 16 points a thread in registers), then clusters of 2-16 blocks.
 @pytest.mark.parametrize("p", [1, 757, 3072, 8192, 12801, 20000, 65536, 151552])
 def test_fps_kernel_matches_plain_at_width(cuda_device, p):
     rng = np.random.default_rng(p)
@@ -197,10 +197,12 @@ def test_fps_kernel_matches_plain_at_width(cuda_device, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [700, 5000, 9000])
+@pytest.mark.parametrize("p", [700, 5000, 9000, 36004, 100004])
 def test_fps_kernel_ties_short_clouds_and_steps(cuda_device, p):
-    """Duplicate points (tied scores), more samples than valid points, an
-    invalid first point, and steps < S."""
+    """Duplicate points (tied scores; past 8192 points a tile's copies lie
+    in other blocks of the cluster, and from 36004 the blocks' borders cut
+    the tiles), more samples than valid points, an invalid first point, and
+    steps < S."""
     rng = np.random.default_rng(p + 1)
     base = random_cloud(rng, p // 4).astype(np.float32)
     pts = _t(np.stack([np.tile(base, (4, 1)), random_cloud(rng, p).astype(np.float32)]), cuda_device)
@@ -229,6 +231,94 @@ def test_resample_batch_steps_cut_is_bit_identical_on_the_card(cuda_device):
     cpu = resample_batch(pts.cpu(), mask.cpu(), pn.cpu(), cfg, steps=1534)
     for a, b, c in zip(cut, full, cpu):
         assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def _fps_plans():
+    """(cluster, slice kept in registers): every cluster size with a slice in
+    registers and one in shared memory."""
+    return [(c, reg) for c in (1, 2, 4, 8, 16) for reg in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster, registers", _fps_plans())
+def test_fps_kernel_at_every_cluster_size(cuda_device, cluster, registers):
+    """Each cluster size the kernel takes, with the slice in registers (3000
+    points a block, ragged) and in shared memory (9000), at an invalid first
+    point of a later block, a block left wholly masked and steps < S: the
+    plain version's picks."""
+    from kss_icp_torch.ops.resample_cuda import block_plan
+
+    per_block = 3000 if registers else 9000
+    p = cluster * per_block - 7
+    rng = np.random.default_rng(cluster * 2 + registers)
+    pts = _t(np.stack([random_cloud(rng, p) for _ in range(2)]).astype(np.float32), cuda_device)
+    mask = torch.ones((2, p), dtype=torch.bool, device=cuda_device)
+    plan = block_plan(p, cluster)
+    assert plan.registers == registers and plan.cluster * plan.slice >= p
+    mask[0, plan.slice * (cluster - 1)] = False  # the first point of the last block
+    mask[1, : plan.slice] = False  # the first block wholly masked
+    mask[1, p - p // 3:] = False
+    for s, steps in ((512, 512), (512, 300)):
+        before = fps.launches
+        idx, sm = fps(pts, mask, s, steps, plan=plan)
+        assert fps.launches == before + 1
+        idx_p, sm_p = farthest_point_sampling(pts, mask, s, steps)
+        assert torch.equal(idx, idx_p) and torch.equal(sm, sm_p), (s, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, p, cluster", [(1, 3072, 1), (50, 8192, 1), (128, 8192, 1), (1, 8192, 16),
+                                               (2, 8192, 16), (14, 8192, 8), (40, 20000, 2), (20, 20000, 4),
+                                               (16, 20000, 8), (2, 151552, 16), (1, 40960, 16)])
+def test_fps_plan_on_the_card(cuda_device, batch, p, cluster):
+    """The plan the wrapper picks from the card's SM count, at the main
+    path's clouds and batches and at batches whose plan is each cluster size
+    on a card of 132 SMs: the plain version's picks."""
+    from kss_icp_torch.ops.nn_cuda import sm_count
+    from kss_icp_torch.ops.resample_cuda import fps_plan
+
+    plan = fps_plan(batch, p, sm_count(cuda_device.index))
+    assert plan.cluster == cluster or sm_count(cuda_device.index) != 132
+    rng = np.random.default_rng(batch + p)
+    pts = _t(rng.uniform(-1, 1, size=(batch, p, 3)).astype(np.float32), cuda_device)
+    mask = _t(rng.uniform(size=(batch, p)) < 0.9, cuda_device)
+    idx, sm = fps(pts, mask, 256, 200)
+    idx_p, sm_p = farthest_point_sampling(pts, mask, 256, 200)
+    assert torch.equal(idx, idx_p) and torch.equal(sm, sm_p), plan
+
+
+@pytest.mark.cuda
+def test_fps_kernel_at_max_points(cuda_device):
+    """One cloud of MAX_POINTS = 2^18 points, 16384 a block in shared memory."""
+    from kss_icp_torch.ops.nn_cuda import sm_count
+    from kss_icp_torch.ops.resample_cuda import MAX_POINTS, fps_plan
+
+    assert fps_plan(1, MAX_POINTS, sm_count(cuda_device.index))[:2] == (16, 16384)
+    rng = np.random.default_rng(MAX_POINTS)
+    pts = _t(random_cloud(rng, MAX_POINTS).astype(np.float32)[None], cuda_device)
+    mask = torch.arange(MAX_POINTS, device=cuda_device)[None] != 5
+    idx, sm = fps(pts, mask, 512)
+    idx_p, sm_p = farthest_point_sampling(pts, mask, 512)
+    assert torch.equal(idx, idx_p) and torch.equal(sm, sm_p)
+
+
+@pytest.mark.cuda
+def test_fps_kernel_refuses_a_cluster_the_card_cannot_schedule(cuda_device):
+    """A cluster of 32 blocks (an H100 schedules up to 16): the card's
+    occupancy query refuses it and the wrapper raises, with no launch and no
+    fallback; the next launch runs as usual."""
+    from kss_icp_torch.ops.resample_cuda import block_plan
+
+    rng = np.random.default_rng(32)
+    pts = _t(random_cloud(rng, 3200).astype(np.float32)[None], cuda_device)
+    mask = torch.ones((1, 3200), dtype=torch.bool, device=cuda_device)
+    before = fps.launches
+    with pytest.raises(RuntimeError, match="fps: CUDA error"):
+        fps(pts, mask, 64, plan=block_plan(3200, 32))
+    assert fps.launches == before
+    idx, _ = fps(pts, mask, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, farthest_point_sampling(pts, mask, 64)[0])
 
 
 @pytest.mark.cuda
@@ -602,6 +692,11 @@ def test_fps_kernel_at_the_large_scan_pad(cuda_device):
     pts = _t(np.stack([random_cloud(rng, 151552) for _ in range(2)]).astype(np.float32), cuda_device)
     rows = torch.arange(151552, device=cuda_device)
     mask = torch.stack([rows < 93625, rows < 148008])
+    from kss_icp_torch.ops.nn_cuda import sm_count
+    from kss_icp_torch.ops.resample_cuda import fps_plan
+
+    plan = fps_plan(2, 151552, sm_count(cuda_device.index))
+    assert plan.cluster > 1 and 93625 < plan.slice * (plan.cluster - 1)  # the first cloud leaves blocks masked
     before = fps.launches
     idx, sm = fps(pts, mask, 2048, 2000)
     assert fps.launches == before + 1

@@ -7,13 +7,18 @@ partition of work they imply is checked here: every reference row falls in
 exactly one cluster slice, the cluster size is one the card takes, every
 query has a thread, and R is split until every SM has two blocks or the
 cluster is at its cap; every (rotation, source point) pair of a field is
-finished by exactly one block."""
+finished by exactly one block; every point of an `fps` cloud lies in
+exactly one block's contiguous slice, within what a block holds."""
 
 import pytest
 
 from kss_icp_torch.ops.coarse_cuda import FIELD_GROUP, FIELD_Q, FIELD_SLOTS, field_plan
 from kss_icp_torch.ops.nn_cuda import MAX_CLUSTER, MIN_SLICE, SMS, TILE_QUERIES, nn1_plan
-from kss_icp_torch.ops.resample_cuda import MAX_POINTS, MAX_THREADS, fps_plan
+from kss_icp_torch.ops.resample_cuda import (CLUSTER_MIN_POINTS, CLUSTER_POINTS, CLUSTER_THREADS, CLUSTERS,
+                                             MAX_POINTS, MAX_THREADS, MIN_CLUSTER, REGISTER_POINTS, REGISTER_SLICE,
+                                             SHARED_K, SHARED_SLICE, SHARED_THREADS, FPSPlan, block_plan,
+                                             empty_step_plan, fps_plan)
+from kss_icp_torch.ops.resample_cuda import MIN_SLICE as FPS_MIN_SLICE
 
 # (L, Q, R, label, cluster): the ICP screen, refine and escalation screen,
 # the metric at the smallest and largest remesh pair's padded shape, the K4
@@ -73,17 +78,94 @@ def test_nn1_plan_follows_the_sm_count(sms, cluster):
     _assert_two_blocks_an_sm(plan, 32, 512, 8192, sms)
 
 
+def _assert_block_holds_its_slice(plan, p_n):
+    """The slices [r * slice, (r + 1) * slice) of the C blocks cover the
+    cloud in rank order, every block holds a point, and a block's slice fits
+    what csrc/fps.cu takes: registers (1-16 points a thread, <= 512 threads)
+    or shared memory (32 scores a thread, 512 threads), and, in registers,
+    the fewest points a thread with no whole idle warp."""
+    slices = [range(r * plan.slice, min(p_n, (r + 1) * plan.slice)) for r in range(plan.cluster)]
+    assert [i for s in slices for i in s] == list(range(p_n))
+    assert all(len(s) > 0 for s in slices)
+    assert plan.cluster in CLUSTERS and plan.threads % 32 == 0
+    if plan.registers:
+        assert plan.k in REGISTER_POINTS and 32 <= plan.threads <= MAX_THREADS and plan.slice <= REGISTER_SLICE
+        assert plan.k * plan.threads >= plan.slice > plan.k * (plan.threads - 32)  # no whole idle warp
+        if plan.cluster == 1:  # the fewest points a thread
+            assert plan.k == 1 or plan.slice > plan.k // 2 * MAX_THREADS
+        elif plan.threads <= CLUSTER_THREADS:  # the fewest of 4+ points a thread within CLUSTER_THREADS
+            assert plan.k == CLUSTER_MIN_POINTS or plan.slice > plan.k // 2 * CLUSTER_THREADS
+        else:  # past 16 x CLUSTER_THREADS points: 16 a thread
+            assert plan.k == 16 and plan.slice > 16 * CLUSTER_THREADS
+    else:  # the kernel's constant stride: 512 threads, 32 scores each
+        assert (plan.k, plan.threads) == (SHARED_K, SHARED_THREADS) == (32, 512)
+        assert REGISTER_SLICE < plan.slice <= SHARED_SLICE
+
+
 @pytest.mark.parametrize("p_n", [1, 31, 32, 757, 768, 1024, 1025, 2048, 3072, 4096, 6144, 8192, 8193, 12801,
                                  65536, 65537, 151552, MAX_POINTS])
 def test_fps_plan_covers_the_cloud(p_n):
-    plan = fps_plan(p_n)
-    assert plan.threads % 32 == 0 and 32 <= plan.threads <= MAX_THREADS
-    if p_n <= 8192:
-        assert plan.k in (1, 2, 4, 8, 16)
-        assert plan.k * plan.threads >= p_n > plan.k * (plan.threads - 32)  # no whole idle warp
-        assert plan.k == 1 or p_n > plan.k // 2 * MAX_THREADS  # the fewest points a thread
+    """Since clusters: one block a cloud up to 8192 points where no cluster
+    of 4+ blocks pays, else a cluster whose contiguous slices cover the
+    cloud (it was (0, 512) above 8192, one block walking a workspace)."""
+    plan = fps_plan(2, p_n)
+    _assert_block_holds_its_slice(plan, p_n)
+    if p_n <= CLUSTER_POINTS:
+        assert plan.cluster == 1 and plan.registers and plan.slice == p_n
     else:
-        assert plan == (0, MAX_THREADS)
+        assert plan.cluster >= MIN_CLUSTER
+
+
+# (B, P, sms, cluster): the main path's batches at full_pad 8192 (register_
+# pair's one cloud, a mesh rank's 14, the remesh 25's 50, the boards' 128), the
+# remesh source, the large scan's widest pad and others, WLOP's start,
+# MAX_POINTS, clusters the card's SMs cut short, and a batch too large for the
+# card, whose slices still have to fit a block.
+FPS_PLANS = [
+    (1, 8192, 132, 16), (2, 8192, 132, 16), (14, 8192, 132, 8), (50, 8192, 132, 1), (128, 8192, 132, 1),
+    (1, 3072, 132, 1), (1, CLUSTER_POINTS, 132, 1), (1, CLUSTER_POINTS + 1, 132, 8), (33, 8192, 132, 4),
+    (34, 8192, 132, 1), (2, 151552, 132, 16), (2, 135168, 132, 16), (1, 40960, 132, 16), (1, MAX_POINTS, 132, 16),
+    (40, 20000, 132, 2), (20, 20000, 132, 4), (16, 20000, 132, 8), (2, 8193, 132, 16), (2, 151552, 48, 16),
+    (4, 65536, 48, 8), (2, 151552, 16, 16), (50, 151552, 132, 16), (66, 40960, 132, 4), (33, 40960, 132, 4),
+    (16, 40960, 132, 8), (1, 16385, 132, 16), (200, 9000, 132, 2), (1, 5000, 8, 1),
+]
+
+
+@pytest.mark.parametrize("batch, p_n, sms, cluster", FPS_PLANS,
+                         ids=[f"{b}x{p}-sms{s}" for b, p, s, _ in FPS_PLANS])
+def test_fps_plan_fits_the_card(batch, p_n, sms, cluster):
+    """The smallest cluster whose slices fit a block, grown while B x C <=
+    SMs, the slices keep MIN_SLICE points and C <= 16; one block a cloud up
+    to CLUSTER_POINTS, and up to 8192 points where the batch leaves room for
+    a cluster of fewer than MIN_CLUSTER blocks (the 50 and 128 clouds of
+    register_many's batches)."""
+    plan = fps_plan(batch, p_n, sms)
+    assert plan.cluster == cluster
+    _assert_block_holds_its_slice(plan, p_n)
+    smallest = next(c for c in CLUSTERS if -(-p_n // c) <= (REGISTER_SLICE if c == 1 else SHARED_SLICE))
+    if plan.cluster > smallest:  # grown: B x C fits the card and the slices keep their floor
+        assert batch * plan.cluster <= sms and plan.slice >= FPS_MIN_SLICE
+    grown = plan.cluster * 2
+    assert (grown > CLUSTERS[-1] or batch * grown > sms or -(-p_n // grown) < FPS_MIN_SLICE
+            or (plan.cluster == 1 and p_n <= REGISTER_SLICE))
+    if plan.cluster == 1:
+        assert p_n <= CLUSTER_POINTS or (p_n <= REGISTER_SLICE and batch * MIN_CLUSTER > sms)
+
+
+def test_fps_block_plan_refuses_a_slice_past_shared_memory():
+    with pytest.raises(ValueError, match=str(SHARED_SLICE)):
+        block_plan(MAX_POINTS, 8)
+    assert block_plan(MAX_POINTS, 16) == FPSPlan(16, SHARED_SLICE, SHARED_K, SHARED_THREADS, False)
+
+
+@pytest.mark.parametrize("batch, p_n", [(2, 8192), (2, 151552), (1, 40960)])
+def test_fps_empty_step_plan_keeps_the_shape(batch, p_n):
+    """The empty step's plan: the cluster, threads and kind of slice of the
+    run's plan, one point a block, and a slice its threads hold."""
+    plan = fps_plan(batch, p_n)
+    floor = empty_step_plan(plan)
+    assert (floor.cluster, floor.threads, floor.registers) == (plan.cluster, plan.threads, plan.registers)
+    assert floor.slice == 1 and floor.k * floor.threads >= 1 and floor.k in (1, SHARED_K)
 
 
 # (C, P, label, slots): the 8³ and 16³ grids at the main path's padded clouds,

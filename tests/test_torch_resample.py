@@ -15,6 +15,7 @@ from helpers import random_cloud
 from kss_icp_torch.config import from_reference
 from kss_icp_torch.models import kss_icp as tk
 from kss_icp_torch.ops.resample import farthest_point_sampling as t_fps
+from kss_icp_torch.ops.resample import fps_centroid, sqdist3
 from kss_icp_torch.ops.resample_cuda import fps
 from kss_icp_tpu.config import KSSICPConfig
 from kss_icp_tpu.models import kss_icp as jk
@@ -148,3 +149,77 @@ def test_aivs_resampler_is_not_ported(rng):
         got = tk.resample_batch(torch.as_tensor(pts), torch.as_tensor(mask), torch.as_tensor(pn), from_reference(cfg))
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _score_key(score):
+    """csrc/fps.cu's score_key: a valid score s >= 0 maps to bits(s) + 1, an
+    invalid one (-1) to 0; monotone, so a max of keys is a max of scores."""
+    bits = score.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(score >= 0, bits + 1, torch.zeros_like(bits))
+
+
+def _sliced_fps(points, mask, num_samples, cluster):
+    """FPS with csrc/fps.cu's merge rule over `cluster` contiguous slices of
+    ceil(P / cluster) points: each slice's (max key, lowest index), then the
+    max key over the slices and the lowest index among the slices that hold
+    it; an empty slice offers (0, none)."""
+    batch, p_n = mask.shape
+    width = -(-p_n // cluster)
+    none = torch.iinfo(torch.int64).max
+    score = torch.where(mask, sqdist3(points, fps_centroid(points, mask)), torch.tensor(-1.0))
+    rows = torch.arange(batch)
+    idx = torch.zeros((batch, num_samples), dtype=torch.int64)
+    for s in range(num_samples):
+        keys, firsts = [], []
+        for r in range(cluster):
+            part = _score_key(score[:, r * width:(r + 1) * width])
+            if part.shape[1] == 0:
+                keys.append(torch.zeros(batch, dtype=torch.int64))
+                firsts.append(torch.full((batch,), none))
+                continue
+            best = part.max(dim=1).values
+            keys.append(best)
+            firsts.append(r * width + (part == best[:, None]).to(torch.int8).argmax(dim=1))
+        keys, firsts = torch.stack(keys, 1), torch.stack(firsts, 1)
+        top = keys.max(dim=1).values
+        sel = torch.where(keys == top[:, None], firsts, torch.full_like(firsts, none)).min(dim=1).values
+        idx[:, s] = sel
+        d2 = torch.where(mask, sqdist3(points, points[rows, sel]), torch.tensor(-1.0))
+        score = d2 if s == 0 else torch.minimum(score, d2)
+    return idx.to(torch.int32)
+
+
+def _merge_case(rng, kind, p_n, cluster):
+    width = -(-p_n // cluster)
+    if kind == "ties across borders":  # a base cloud tiled 4x: every point has copies in other slices
+        base = random_cloud(rng, -(-p_n // 4)).astype(np.float32)
+        pts = np.tile(base, (4, 1))[:p_n][None]
+        mask = np.ones((1, p_n), bool)
+    else:
+        pts = random_cloud(rng, p_n).astype(np.float32)[None]
+        mask = np.ones((1, p_n), bool)
+        if kind == "invalid first point of a later slice":
+            mask[0, width * (cluster // 2)] = False
+        elif kind == "slices wholly masked":  # the tail's slices, as a short cloud at a wide pad
+            mask[0, width * (cluster // 2) + 3:] = False
+            mask[0, :width] = False  # and the first slice
+    return pts, mask
+
+
+@pytest.mark.parametrize("kind", ["ties across borders", "invalid first point of a later slice",
+                                  "slices wholly masked"])
+@pytest.mark.parametrize("p_n, cluster", [(403, 2), (403, 4), (401, 8), (400, 16), (90, 16)])
+def test_cluster_merge_rule_gives_the_plain_picks(kind, p_n, cluster):
+    """The kernel's cluster merge, each slice's (max key, lowest index)
+    merged across the slices, picks what farthest_point_sampling and JAX's
+    farthest_point_sampling pick: on ties whose copies straddle the slices'
+    borders, an invalid first point of a later slice, and slices left
+    wholly masked (more samples than valid points)."""
+    rng = np.random.default_rng(p_n * 31 + cluster)
+    pts, mask = _merge_case(rng, kind, p_n, cluster)
+    s = min(150, p_n)
+    got = _sliced_fps(torch.as_tensor(pts), torch.as_tensor(mask), s, cluster)
+    want, _ = t_fps(torch.as_tensor(pts), torch.as_tensor(mask), s)
+    assert torch.equal(got, want)
+    idx_j, _ = _xla_batch(pts, mask, s)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(idx_j))
