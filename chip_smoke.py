@@ -55,14 +55,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
      each kernel also by
      CUDA-graph replay (`device_ms`, the device's time of a call); each
      with its bound on the valid rows and a PyTorch composition as a
-     yardstick; field_trim (the per-point mode of the field kernel, the
-     overlap tier's trimmed field) bit for bit, per-point distances and
-     trimmed field, at 512 x 2048 x 2048 with ~70% scattered inlier masks on
-     both clouds, 4096 x 2048 x 2048 and a fully masked target; field_sq
-     (the squared per-point mode, the "max" and "diff" fields) bit for bit
-     at 512 x 2048 x 2048 (~70% masks), 4096 x 512 x 512 and a fully masked
-     target, its numbers under field_trim's row as `squared` with its
-     launches from 4i; plain PyTorch timings, gating nothing, of the AIVS
+     yardstick; field_trim (the overlap tier's trimmed field: one launch
+     that rotates, culls target tiles exactly and reduces each row) bit for
+     bit, its probe mode's per-point distances and the fused field, at
+     512 x 2048 x 2048 and 4096 x 2048 x 2048 with ~70% scattered inlier
+     masks on both clouds, 4096 x 2048 x 2048 padded and a fully masked
+     target, each with its share of (point, row) pairs scanned and its
+     bound on the pairs scanned and the box tests made (`bound_ms`; the
+     brute-force pairs' as `bruteforce_bound_ms`); field_sq
+     (the same kernel's "max" and "diff" fields) bit for bit at
+     512 x 2048 x 2048 and 4096 x 2048 x 2048 (~70% masks), 4096 x 512 x 512,
+     a fully masked target and 8 x 40000 x 20000 (the mins past shared
+     memory in a device scratch, the target in chunks), its numbers under field_trim's row as
+     `squared` with its launches from 4i; field_keys (the sort keys of
+     field_trim's preparation) bit for bit at 2048 + 2048, 512 + 512 and
+     2048 + 4173 rows, with its launches from 4d (one a field_trim launch); plain PyTorch timings, gating nothing, of the AIVS
      resample (a remesh pair's two clouds; the remesh batch's 50 clouds at
      full_pad 8192, twice: the same picks both times, or the run fails) and
      of the PCA normals (1 and 25 resampled targets);
@@ -284,6 +291,9 @@ KNIFE_EDGE = "se/7"
 # counts as two, a min or compare as one) and bf16 tensor-core operations/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# float32 operations of one box test of the field_trim kernel (csrc/field_trim.cu::box_bound and
+# its compare): 6 subtractions, 6 max, 3 products, 2 sums, 1 compare.
+BOX_TEST_OPS = 18.0
 BF16_OPS_PER_S = 989e12
 
 
@@ -708,62 +718,151 @@ def phase_kernels(torch, dev) -> dict:
                          replaces=f"kss_icp_tpu/ops/coarse_pallas.py:{line}")
     out["field_trim"] = phase_field_trim(torch, dev, rng)
     out["field_trim"]["squared"] = phase_field_sq(torch, dev, rng)
+    out["field_keys"] = phase_field_keys(torch, dev, rng)
     phase_plain_knobs(torch, dev)
     return out
 
 
-def phase_field_sq(torch, dev, rng) -> dict:
-    """The field kernel's squared per-point mode (`field_sq`, the "max" and
-    "diff" fields) against its plain version, bit for bit, at the 8^3 grid's
-    padded clouds with ~70% scattered masks, the 16^3 grid's 512-point
-    prefixes and a fully masked target (the biased path)."""
+def cull_case(torch, dev, name, stat, args, plain, probe_plain, label) -> dict:
+    """One shape of the field_trim kernel (`stat` "trim", "max" or "diff")
+    against its plain versions, bit for bit: the probe mode's per-point
+    values and the fused field. Then the share of (point, row) pairs the
+    kernel scanned (its counter), the wrapper's times (back to back, and by
+    graph replay on the device), the kernel's alone on a precomputed order,
+    the preparation's, the plain version's and the yardstick's, and the
+    bounds (inputs and output once): `bound_ms` on the work this run's
+    data needed of the design, the scanned pairs (9 operations each) and
+    the box tests (BOX_TEST_OPS each), both from the kernel's counter;
+    `bruteforce_bound_ms` on every (rotation, valid point, valid row)
+    pair."""
+    from kss_icp_torch.ops import coarse_cuda as cc
+    from kss_icp_torch.timing import graph_ms, time_ms
+
+    src, smask, tgt, tmask, rots = args
+    c_n, p_n, t_n = rots.shape[0], src.shape[0], tgt.shape[0]
+    kernel = (lambda *a, **k: cc.field_trim(*a, 0.7, **k)) if stat == "trim" else \
+        (lambda *a, **k: cc.field_sq(*a, stat, **k))
+    probe = cc.field_trim_distances if stat == "trim" else cc.field_sq_distances
+    dk, dp = probe(*args), probe_plain(cc.rotate_sources(rots, src), smask, tgt, tmask)
+    counter = torch.zeros(2, dtype=torch.int64, device=dev)
+    fk, fp = kernel(*args, scanned=counter), plain(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(dk, dp), f"{name} {label}: the probe mode's values differ from the plain version's bits at "
+                                 f"{int((dk != dp).sum())} of {dk.numel()}")
+    require(torch.equal(fk, fp), f"{name} {label}: the {stat} field differs from the plain version's bits")
+    require(torch.equal(fk, kernel(*args)), f"{name} {label}: repeated runs differ")
+    ns, m = int(smask.sum()), int(tmask.sum())
+    pairs = c_n * ns * (m or t_n)
+    scanned, tests = (int(x) for x in counter.tolist())
+    share = scanned / pairs
+    require(0 < share <= 1, f"{name} {label}: {scanned} pairs scanned of {pairs}")
+    order = cc.field_order(src, smask, tgt, tmask)
+    out = torch.empty((c_n,), dtype=torch.float32, device=dev)
+    rots = rots.contiguous()
+
+    def kernel_alone():
+        cc._cull_launch(name, stat, src, smask, tgt, tmask, order, rots, out)
+
+    ms = time_ms(lambda: kernel(*args), 10)
+    device_ms = graph_ms(lambda: kernel(*args), 10)  # field_order's sort and the kernel
+    kernel_ms = graph_ms(kernel_alone, 10)
+    prep_ms = graph_ms(lambda: cc.field_order(src, smask, tgt, tmask), 10)
+    plain_ms = time_ms(lambda: plain(*args), 2)
+    rotated = cc.rotate_sources(rots, src)
+    valid_tgt = tgt[tmask] if m else tgt
+    step = min(64, max(1, (1 << 31) // (p_n * len(valid_tgt))))  # 64 rotations a call, fewer on wide clouds
+    yard_ms = time_ms(lambda: [torch.cdist(rotated[a:a + step], valid_tgt[None]).amin(-1)
+                               for a in range(0, c_n, step)], 3)
+    nbytes = 4 * (p_n * 3 + t_n * 3 + c_n * 9 + c_n) + p_n + t_n + 8 * (p_n + t_n)
+    b = bound(9.0 * scanned + BOX_TEST_OPS * tests, nbytes)
+    brute = bound(9.0 * pairs, nbytes)["bound_ms"]
+    err = float((fk - fp).abs().max())
+    case = dict({"shape": f"{c_n}x{p_n}x{t_n}", "label": label, "ms": ms, "device_ms": device_ms,
+                 "kernel_device_ms": kernel_ms, "prep_device_ms": prep_ms, "plain_ms": plain_ms, "max_abs_err": err,
+                 "yardstick_ms": yard_ms, "pairs": pairs, "scanned_pairs": scanned, "scanned_share": share,
+                 "box_tests": tests, "bruteforce_bound_ms": brute, "cap": cc.field_cull_plan(p_n, t_n, stat)}, **b)
+    log(f"  {name} {stat} C={c_n} P={p_n} T={t_n} ({label}): probe values and field identical; {share:.4f} of "
+        f"{pairs} pairs scanned, {tests} box tests; {ms:.4f} ms a wrapper call back to back, {device_ms:.4f} ms on "
+        f"the device (graph replay; the kernel alone {kernel_ms:.4f} ms, field_order {prep_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, cdist+min {yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; the pairs "
+        f"scanned and the box tests), {brute:.4f} ms on every pair")
+    return case
+
+
+def phase_field_keys(torch, dev, rng) -> dict:
+    """The keys kernel of field_order (the sort keys of the field_trim
+    kernel's preparation) against its plain version, bit for bit, at the
+    fields' shapes: both clouds at 2048 and at 512 rows, and a target of
+    4173 rows."""
+    from kss_icp_torch.ops.coarse_cuda import field_keys, field_keys_plain
+    from kss_icp_torch.timing import graph_ms, time_ms
+
+    cases = []
+    for p_n, t_n in ((2048, 2048), (512, 512), (2048, 4173)):
+        src, smask, tgt, tmask, _ = field_case_inputs(torch, dev, rng, 2, max(p_n, t_n), "inliers", "inliers")
+        src, smask, tgt, tmask = src[:p_n], smask[:p_n], tgt[:t_n], tmask[:t_n]
+        args = (src.contiguous(), smask.contiguous(), tgt.contiguous(), tmask.contiguous())
+        got, want = field_keys(*args), field_keys_plain(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"field_keys {p_n}+{t_n}: keys differ from the plain version's at "
+                                        f"{int((got != want).sum())} of {got.numel()}")
+        ms, device_ms = time_ms(lambda: field_keys(*args), 20), graph_ms(lambda: field_keys(*args), 20)
+        plain_ms = time_ms(lambda: field_keys_plain(*args), 20)
+        b = bound(0.0, (p_n + t_n) * (12 + 1 + 4))  # rows and masks read once, keys written once
+        cases.append(dict({"shape": f"{p_n}+{t_n}", "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                           "max_abs_err": 0.0}, **b))
+        log(f"  field_keys P={p_n} T={t_n}: keys identical; {ms:.4f} ms a wrapper call back to back, {device_ms:.4f} "
+            f"ms on the device (graph replay), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
+    return dict(cases[0], cases=cases, source="kss_icp_torch/csrc/field_trim.cu (kss_field_keys)",
+                replaces="none: the sort keys of field_trim's preparation (no TPU counterpart)")
+
+
+def field_case_inputs(torch, dev, rng, steps, n, s_kind, t_kind):
+    """(source, source mask, target, target mask, rotations) of a field shape:
+    masks "inliers" (~70% scattered in the first n - n // 20 rows), "padded"
+    (the first n - n // 20 rows) or "none"."""
     from kss_icp_torch.core.transforms import euler_xyz_matrix
     from kss_icp_torch.models.coarse import rotation_grid
-    from kss_icp_torch.ops.coarse_cuda import SQ_PLAIN, field_plan, field_sq, field_sq_distances, rotate_sources
-    from kss_icp_torch.ops.nn import nn_sqdistances
-    from kss_icp_torch.timing import graph_ms, time_ms
 
     def t(x):
         return torch.as_tensor(x, device=dev)
 
+    src, tgt = t(cloud(rng, n)), t(cloud(rng, n))
+    rows = torch.arange(n, device=dev)
+    masks = {"inliers": lambda: (rows < n - n // 20) & t(rng.uniform(size=n) < 0.7),
+             "padded": lambda: rows < n - n // 20, "none": lambda: torch.zeros(n, dtype=torch.bool, device=dev)}
+    smask, tmask = masks[s_kind](), masks[t_kind]()
+    return src, smask, tgt, tmask, euler_xyz_matrix(rotation_grid(steps, 6.3, dev))
+
+
+def phase_field_sq(torch, dev, rng) -> dict:
+    """field_sq (the "max" and "diff" fields of the field_trim kernel)
+    against its plain versions, bit for bit, at the 8^3 and 16^3 grids'
+    padded clouds with ~70% scattered masks, the 16^3 grid's 512-point
+    prefixes, a fully masked target (the biased path), and 8 rotations of
+    a 40000-point source against a 20000-row target (~70% masks): past
+    FIELD_MAX_POINTS, the mins in a device scratch and the target in two
+    chunks."""
+    from kss_icp_torch.ops import coarse_cuda as cc
+    from kss_icp_torch.ops.coarse_cuda import FIELD_MAX_POINTS, SQ_PLAIN
+    from kss_icp_torch.ops.nn import nn_sqdistances
+
     cases = []
-    for steps, n, t_kind, label in ((8, 2048, "inliers", "8^3 field, ~70% scattered masks"),
-                                    (16, 512, "padded", "16^3 field at 512-point prefixes"),
-                                    (8, 2048, "none", "8^3, target fully masked")):
-        src, tgt = t(cloud(rng, n)), t(cloud(rng, n))
-        rows = torch.arange(n, device=dev)
-        smask = (rows < n - n // 40) & t(rng.uniform(size=n) < 0.7)
-        tmask = {"inliers": (rows < n - n // 20) & t(rng.uniform(size=n) < 0.7), "padded": rows < n - n // 20,
-                 "none": torch.zeros(n, dtype=torch.bool, device=dev)}[t_kind]
-        rots = euler_xyz_matrix(rotation_grid(steps, 6.3, dev))
-        c_n = rots.shape[0]
-        rotated, weight = rotate_sources(rots, src), smask.to(torch.float32)
-        dk = field_sq_distances(rotated, weight, tgt, tmask, field_plan(n))
-        dp = nn_sqdistances(rotated, smask, tgt, tmask)
-        torch.cuda.synchronize()
-        require(torch.equal(dk, dp), f"field_sq {label}: squared distances differ from the plain version's bits at "
-                                     f"{int((dk != dp).sum())} of {dk.numel()}")
-        for metric, plain in SQ_PLAIN.items():
-            require(torch.equal(field_sq(src, smask, tgt, tmask, rots, metric), plain(src, smask, tgt, tmask, rots)),
-                    f"field_sq {label}: the {metric} field differs from the plain version's bits")
-        args = (src, smask, tgt, tmask, rots, "max")
-        ms = time_ms(lambda: field_sq(*args), 10)
-        device_ms = graph_ms(lambda: field_sq(*args), 10)  # rotation, kernel and the row reduction
-        kernel_ms = graph_ms(lambda: field_sq_distances(rotated, weight, tgt, tmask, field_plan(n)), 10)
-        plain_ms = time_ms(lambda: SQ_PLAIN["max"](*args[:5]), 2)
-        valid_tgt = tgt[tmask] if bool(tmask.any()) else tgt
-        yard_ms = time_ms(lambda: [torch.cdist(rotated[a:a + 64], valid_tgt[None]).amin(-1)
-                                   for a in range(0, c_n, 64)], 3)
-        evals = c_n * int(smask.sum()) * (int(tmask.sum()) or n)
-        b = bound(9.0 * evals, 4 * (n * 3 * 2 + c_n * 9 + c_n * n) + 2 * n)
-        cases.append(dict({"shape": f"{c_n}x{n}x{n}", "label": label, "ms": ms, "device_ms": device_ms,
-                           "kernel_device_ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": 0.0,
-                           "yardstick_ms": yard_ms}, **b))
-        log(f"  field_sq C={c_n} P=T={n} ({label}): squared distances and both fields identical; {ms:.4f} ms a "
-            f"wrapper call back to back, {device_ms:.4f} ms on the device (graph replay; the kernel alone "
-            f"{kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, cdist+min {yard_ms:.4f} ms, bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return dict(cases[0], cases=cases, source="kss_icp_torch/csrc/field_trim.cu (kss_field_sq)",
+    for steps, n, s_kind, t_kind, label in ((8, 2048, "inliers", "inliers", "8^3 field, ~70% scattered masks"),
+                                            (16, 2048, "inliers", "inliers", "16^3 field, ~70% scattered masks"),
+                                            (16, 512, "inliers", "padded", "16^3 field at 512-point prefixes"),
+                                            (8, 2048, "inliers", "none", "8^3, target fully masked"),
+                                            (2, 40000, "inliers", "inliers", "a source past shared memory")):
+        args = field_case_inputs(torch, dev, rng, steps, n, s_kind, t_kind)
+        if n > FIELD_MAX_POINTS:
+            src, smask, tgt, tmask, rots = args
+            args = (src, smask, tgt[:n // 2].contiguous(), tmask[:n // 2].contiguous(), rots)
+            require(cc.field_cull_plan(n, n // 2, "max") < int(tmask[:n // 2].sum()),
+                    "field_sq: the wide case's target fits one chunk")
+        for metric in ("max", "diff"):
+            cases.append(dict(cull_case(torch, dev, "field_sq", metric, args, SQ_PLAIN[metric], nn_sqdistances,
+                                        label), metric=metric))
+    return dict(cases[0], cases=cases, source="kss_icp_torch/csrc/field_trim.cu (kss_field_cull, max and diff)",
                 replaces="kss_icp_tpu/ops/nn.py:183-194 (the XLA max and diff fields, not a TPU kernel)",
                 yardstick="torch.cdist(rotated, valid_target).amin(-1), 64 rotations a call")
 
@@ -817,61 +916,21 @@ def phase_plain_knobs(torch, dev) -> None:
 
 
 def phase_field_trim(torch, dev, rng) -> dict:
-    """field_trim's per-point distances and trimmed field against the plain
+    """field_trim's probe values and fused trimmed field against the plain
     version, bit for bit, at the overlap rungs' full-resolution shapes."""
-    from kss_icp_torch.core.transforms import euler_xyz_matrix
-    from kss_icp_torch.models.coarse import rotation_grid
-    from kss_icp_torch.ops.coarse_cuda import (field_plan, field_trim, field_trim_distances, field_trim_plain,
-                                               rotate_sources)
+    from kss_icp_torch.ops.coarse_cuda import field_trim_plain
     from kss_icp_torch.ops.nn import nn_distances
-    from kss_icp_torch.timing import graph_ms, time_ms
-
-    def t(x):
-        return torch.as_tensor(x, device=dev)
 
     cases = []
-    n = 2048
     # (grid steps, source mask, target mask, label): ~70% scattered inliers on
     # both clouds, as the overlap re-solves' masks are; a fully masked target.
     for steps, s_kind, t_kind, label in ((8, "inliers", "inliers", "8^3 overlap field, inlier masks"),
+                                          (16, "inliers", "inliers", "16^3 overlap field, inlier masks"),
                                           (16, "padded", "padded", "16^3 overlap field"),
                                           (8, "padded", "none", "8^3, target fully masked")):
-        src, tgt = t(cloud(rng, n)), t(cloud(rng, n))
-        rows = torch.arange(n, device=dev)
-        masks = {"inliers": lambda: (rows < 2000) & t(rng.uniform(size=n) < 0.7), "padded": lambda: rows < 2000,
-                 "none": lambda: torch.zeros(n, dtype=torch.bool, device=dev)}
-        smask, tmask = masks[s_kind](), masks[t_kind]()
-        rots = euler_xyz_matrix(rotation_grid(steps, 6.3, dev))
-        c_n = rots.shape[0]
-        rotated, weight = rotate_sources(rots, src), smask.to(torch.float32)
-        dk = field_trim_distances(rotated, weight, tgt, tmask, field_plan(n))
-        dp = nn_distances(rotated, smask, tgt, tmask)
-        fk = field_trim(src, smask, tgt, tmask, rots, 0.7)
-        fp = field_trim_plain(src, smask, tgt, tmask, rots, 0.7)
-        torch.cuda.synchronize()
-        require(torch.equal(dk, dp), f"field_trim {label}: per-point distances differ from the plain version's bits "
-                                     f"at {int((dk != dp).sum())} of {dk.numel()}")
-        require(torch.equal(fk, fp), f"field_trim {label}: the trimmed field differs from the plain version's bits")
-        args = (src, smask, tgt, tmask, rots, 0.7)
-        ms = time_ms(lambda: field_trim(*args), 10)
-        device_ms = graph_ms(lambda: field_trim(*args), 10)  # rotation, kernel and the trimmed mean
-        kernel_ms = graph_ms(lambda: field_trim_distances(rotated, weight, tgt, tmask, field_plan(n)), 10)
-        plain_ms = time_ms(lambda: field_trim_plain(*args), 2)
-        valid_tgt = tgt[tmask] if bool(tmask.any()) else tgt
-        yard_ms = time_ms(lambda: [torch.cdist(rotated[a:a + 64], valid_tgt[None]).amin(-1)
-                                   for a in range(0, c_n, 64)], 3)
-        # Per evaluation (rotation, valid source point, valid target row): 3 sub
-        # + 3 mul + 2 add + 1 min; every row where the target has no valid one.
-        evals = c_n * int(smask.sum()) * (int(tmask.sum()) or n)
-        b = bound(9.0 * evals, 4 * (n * 3 * 2 + c_n * 9 + c_n * n) + 2 * n)
-        err = float((fk - fp).abs().max())
-        cases.append(dict({"shape": f"{c_n}x{n}x{n}", "label": label, "ms": ms, "device_ms": device_ms,
-                           "kernel_device_ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
-                           "yardstick_ms": yard_ms}, **b))
-        log(f"  field_trim C={c_n} P=T={n} ({label}): distances and field identical; {ms:.4f} ms a wrapper call back "
-            f"to back, {device_ms:.4f} ms on the device (graph replay; the per-point kernel alone {kernel_ms:.4f} ms), "
-            f"plain {plain_ms:.4f} ms, yardstick {yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return dict(cases[0], cases=cases, source="kss_icp_torch/csrc/field_trim.cu",
+        args = field_case_inputs(torch, dev, rng, steps, 2048, s_kind, t_kind)
+        cases.append(cull_case(torch, dev, "field_trim", "trim", args, field_trim_plain, nn_distances, label))
+    return dict(cases[0], cases=cases, source="kss_icp_torch/csrc/field_trim.cu (kss_field_cull, trim)",
                 replaces="kss_icp_tpu/models/coarse.py:121 (the XLA trim path, not a TPU kernel)",
                 yardstick="torch.cdist(rotated, valid_target).amin(-1), 64 rotations a call")
 
@@ -961,6 +1020,25 @@ def nn1_histogram(nn1, label: str) -> dict:
     return {shape_key(*k): n for k, n in shapes}
 
 
+def field_grids(counters, label: str) -> dict:
+    """field_trim's and field_sq's launches since their counts were zeroed,
+    by rotations (512 the 8³ grid, 4096 the 16³): logged, and returned."""
+    grids = {k: {str(c): n for c, n in sorted(counters[k].launch_grids.items())}
+             for k in ("field_trim", "field_sq") if k in counters}
+    if any(grids.values()):
+        log(f"  [{label}] field launches by rotations: {grids}")
+    return grids
+
+
+def zero_counts(counters) -> None:
+    """Every kernel's launch count, and nn1's and the fields' histograms, to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        for hist in ("launch_shapes", "launch_grids"):
+            if hasattr(fn, hist):
+                getattr(fn, hist).clear()
+
+
 def drive(torch, dev, cfg, pairs, counters, timer, label, judge, rung_log=None):
     """One pass of `pairs` through register_pair -> apply_similarity ->
     registration_measure, the launch counts zeroed just before it. Returns
@@ -969,9 +1047,7 @@ def drive(torch, dev, cfg, pairs, counters, timer, label, judge, rung_log=None):
     import kss_icp_torch as kt
 
     rows, total = [], 0.0
-    for fn in counters.values():
-        fn.launches = 0
-    counters["nn1"].launch_shapes.clear()
+    zero_counts(counters)
     for name, src, tgt in pairs:
         timer.ran.clear()
         if rung_log is not None:
@@ -995,6 +1071,7 @@ def drive(torch, dev, cfg, pairs, counters, timer, label, judge, rung_log=None):
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"  [{label}] kernel launches: {launches}")
     launches["nn1_shapes"] = nn1_histogram(counters["nn1"], label)
+    launches["field_grids"] = field_grids(counters, label)
     return rows, total, launches
 
 
@@ -1150,11 +1227,12 @@ def phase_default_config(torch, dev, kernels: dict, e2e: dict) -> None:
     fixtures/torch_port_expected_overlap.json."""
     from kss_icp_torch.challenge import BOARDS, transform_rmse
     from kss_icp_torch.config import DEFAULT_CONFIG as cfg
-    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_keys, field_trim
     from kss_icp_torch.ops.nn_cuda import nn1
     from kss_icp_torch.ops.resample_cuda import fps
 
-    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim}
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim,
+                "field_keys": field_keys}
     exp = json.loads((FIXTURES / "torch_port_expected_overlap.json").read_text())
     pairs = load_pairs()
     expected = {p["name"]: p for p in exp["pairs"]}
@@ -1240,6 +1318,9 @@ def phase_default_config(torch, dev, kernels: dict, e2e: dict) -> None:
                                        "rungs_adopted": adopted, "stage_seconds": dict(timer.seconds),
                                        "stage_iterations": dict(timer.iterations), "rows": rows}
     kernels["field_trim"]["launches"] = launches["field_trim"]
+    require(launches["field_keys"] == launches["field_trim"],
+            f"shipped boards: {launches['field_keys']} field_keys launches for {launches['field_trim']} fields")
+    kernels["field_keys"]["launches"] = launches["field_keys"]
 
 
 def check_batch_launches(label, launches, n_pairs: int, ladder, cfg) -> None:
@@ -1261,9 +1342,7 @@ def drive_many(torch, dev, cfg, pairs, counters, timer, label):
     from kss_icp_torch import escalate
     from kss_icp_torch.ladder_log import LadderLog
 
-    for fn in counters.values():
-        fn.launches = 0
-    counters["nn1"].launch_shapes.clear()
+    zero_counts(counters)
     with LadderLog(escalate, len(pairs)) as ladder:
         t0 = time.perf_counter()
         res, metrics = kt.register_many([(a, b) for _, a, b in pairs], cfg, full_pad=BATCH_PAD, device=dev,
@@ -1273,6 +1352,7 @@ def drive_many(torch, dev, cfg, pairs, counters, timer, label):
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"  [{label}] kernel launches: {launches}")
     launches["nn1_shapes"] = nn1_histogram(counters["nn1"], label)
+    launches["field_grids"] = field_grids(counters, label)
     return res, metrics, ladder, seconds, launches
 
 
@@ -3365,10 +3445,10 @@ def main() -> int:
     log(f"smoke run {time.perf_counter() - t_start:.1f} s ({card})")
 
     keys = ("name", "route", "source", "replaces", "also_replaces", "launches", "cli_launches", "max_abs_err", "ms", "device_ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick", "yardstick_ms", "shape", "precision", "cases",
+            "plain_ms", "bound_ms", "bound_by", "bruteforce_bound_ms", "library_ms", "yardstick", "yardstick_ms", "shape", "precision", "cases",
             "launch_shapes", "squared", "mesh_launches")
     line = {"kernels": [{k: v for k, v in dict(kernels[n], name=n, route="cuda", library_ms=None).items() if k in keys}
-                        for n in ("nn1", "fps", "field_ave", "field_dot", "field_trim")]}
+                        for n in ("nn1", "fps", "field_ave", "field_dot", "field_trim", "field_keys")]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

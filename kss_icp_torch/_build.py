@@ -34,14 +34,15 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes (pointers, ints, then the stream).
 SIGNATURES = {
     "kss_nn1": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "kss_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "kss_field_ave": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "kss_field_dot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "kss_field_trim": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "kss_field_sq": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "kss_field_cull": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
+    "kss_field_keys": (_P, _P, _P, _P, _I, _I, _P, _P),
 }
 
 

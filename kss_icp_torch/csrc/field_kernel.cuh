@@ -1,7 +1,7 @@
-// The one kernel behind the rotation fields: field_ave (field.cu, K1),
-// field_dot (field_dot.cu, K1-dot) and, in its per-point mode, field_trim and
-// field_sq (field_trim.cu). Each .cu file includes this header, instantiates it for
-// its field and carries the design note.
+// The one kernel behind the "ave" rotation fields: field_ave (field.cu, K1) and
+// field_dot (field_dot.cu, K1-dot). Each .cu file includes this header,
+// instantiates it for its field and carries the design note. field_trim and
+// field_sq have a kernel of their own, in field_trim.cu.
 //
 // For each rotation c: the sum over valid source points p of
 //   sqrt(max(min over target rows t of e(p, t) [+ q2_p], 0)) * w_p
@@ -17,12 +17,6 @@
 // contribution is +0, as sqrt(finite) * 0 was. The sum of each rotation keeps
 // its bits at any plan: the same 256-point groups, the same shuffle tree and
 // warp order, then a second pass over the groups in index order.
-//
-// The per-point mode (kPerPoint) writes each (rotation, point)'s
-// sqrt(max(min, 0)) to a (C, P) buffer instead, 0 at a masked source point,
-// and skips the shuffle tree and the second pass; with kSquared it writes the
-// min itself, the squared distance (biased by 1e30 for a target with no valid
-// row, as the plain version's).
 
 #pragma once
 
@@ -127,8 +121,7 @@ __device__ __forceinline__ int stage_rows(const float* __restrict__ target, cons
 // target fits one tile, the block stages it once for every group. Every
 // block does the same work, whatever the masks, since the masks are the same
 // for every rotation. At most 64 registers: 32 warps an SM at any block size.
-// kPerPoint: partial is the (C, P) per-point output; kSquared: the min, not its root.
-template <int kMode, bool kPerPoint = false, bool kSquared = false>
+template <int kMode>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 field_partial_kernel(const float* __restrict__ rotated, const float* __restrict__ q2,
                      const float* __restrict__ weight, const float* __restrict__ target,
@@ -158,13 +151,7 @@ field_partial_kernel(const float* __restrict__ rotated, const float* __restrict_
     const bool writer = tid < slots * kQ && g0 + ws < groups && c0 + wu < C;
     float* out = partial + static_cast<size_t>(c0 + wu) * groups + g0 + ws;
     if (!__syncthreads_or(valid)) {  // a group of masked points
-      if constexpr (kPerPoint) {
-#pragma unroll
-        for (int u = 0; u < kQ; ++u)
-          if (p < P && c0 + u < C) partial[static_cast<size_t>(c0 + u) * P + p] = 0.f;
-      } else if (writer) {
-        *out = 0.f;
-      }
+      if (writer) *out = 0.f;
       continue;
     }
     float qx[kQ], qy[kQ], qz[kQ], best[kQ];
@@ -198,13 +185,6 @@ field_partial_kernel(const float* __restrict__ rotated, const float* __restrict_
         scan_rows<kMode, false>(tile, m, qx, qy, qz, best);
     }
 
-    if constexpr (kPerPoint) {  // consecutive threads, consecutive points: coalesced rows
-#pragma unroll
-      for (int u = 0; u < kQ; ++u)
-        if (p < P && c0 + u < C)
-          partial[static_cast<size_t>(c0 + u) * P + p] = !valid ? 0.f : kSquared ? best[u] : sqrtf(fmaxf(best[u], 0.f));
-      continue;
-    }
 #pragma unroll
     for (int u = 0; u < kQ; ++u) {
       float v = 0.f;
@@ -250,19 +230,6 @@ int launch_field(const float* rotated, const float* q2, const float* weight, con
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   field_sum_kernel<<<(C + 255) / 256, 256, 0, stream>>>(partial, C, (P + kGroup - 1) / kGroup, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The per-point mode: dist (C, P) float32 instead of partial and out, the
-// same plan; one kernel, no second pass. kSquared writes the squared distances.
-template <int kMode, bool kSquared = false>
-int launch_field_points(const float* rotated, const float* weight, const float* target, const unsigned char* tmask,
-                        int C, int P, int T, int slots, float* dist, cudaStream_t stream) {
-  if (C <= 0) return 0;
-  if (C > 65535 || P <= 0 || T <= 0 || (slots != 1 && slots != 2 && slots != kMaxSlots))
-    return static_cast<int>(cudaErrorInvalidValue);
-  field_partial_kernel<kMode, true, kSquared><<<(C + kQ - 1) / kQ, slots * kGroup, 0, stream>>>(
-      rotated, nullptr, weight, target, tmask, C, P, T, dist);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,23 +5,27 @@ rotation_scores_pallas with method="vpu" (K1), exact float32 differences;
 `field_dot` (csrc/field_dot.cu) ports method="dot" (K1-dot), the augmented
 dot product [R q, 1] . [-2 t, |t|^2] with |q|^2 added back, at a precision
 ("default" is one bf16 pass). Both are one kernel (csrc/field_kernel.cuh)
-launched with a plan from `field_plan`. `field_trim` (csrc/field_trim.cu) is
-the same kernel in its per-point mode: it scores the overlap tier's "trim"
-field, which JAX computes with XLA (kss_icp_tpu/models/coarse.py:115-131),
-not a TPU kernel; `field_sq` (the same file) is the per-point mode writing
-squared distances, for the "max" and "diff" fields, which JAX computes with
-XLA too. On CPU tensors each wrapper runs its plain version
+launched with a plan from `field_plan`. `field_trim` and `field_sq`
+(csrc/field_trim.cu, one kernel) score the overlap tier's "trim" field and
+the "max" and "diff" fields, which JAX computes with XLA
+(kss_icp_tpu/models/coarse.py:113-131), not a TPU kernel: the kernel
+rotates the source, culls target tiles by their boxes exactly and reduces
+each rotation's row itself, after `field_order`'s sort; its probe mode
+(`field_trim_distances`, `field_sq_distances`) writes the per-point values
+for the tests. On CPU tensors each wrapper runs its plain version
 (`field_ave_plain`, `field_dot_plain`, `field_trim_plain`, `field_max_plain`,
 `field_diff_plain`); on CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from kss_icp_torch.core.transforms import rotate_points
-from kss_icp_torch.ops.nn import (BIG, _BLOCK_ELEMS, masked_mean, masked_mean_nn_distance, masked_nn_error,
-                                  sq_error, trimmed_masked_mean)
+from kss_icp_torch.ops.nn import (BIG, _BLOCK_ELEMS, QUANTILE_MAX_WIDTH, masked_mean, masked_mean_nn_distance,
+                                  masked_nn_error, nn_distances, nn_sqdistances)
 
 FIELD_GROUP = 256  # kGroup of csrc/field_kernel.cuh: one partial sum per 256 source points
 FIELD_Q = 4  # kQ of csrc/field_kernel.cuh: rotations a block
@@ -225,30 +229,173 @@ field_dot.launches = 0
 
 
 def field_trim_plain(source, source_mask, target, target_mask, rotations, trim_fraction=0.7) -> torch.Tensor:
-    """The plain PyTorch version of `field_trim`, with the same arguments."""
+    """The plain PyTorch version of `field_trim`, with the same arguments:
+    the trimmed mean's cumulative sum in float64, as the kernel's sum."""
     return masked_nn_error(rotate_sources(rotations, source), source_mask, target, target_mask, "trim", trim_fraction)
 
 
-def field_trim_distances(rotated, weight, target, target_mask, slots: int) -> torch.Tensor:
-    """One launch of the field kernel in its per-point mode with `slots`
-    group slots: the (C, P) distances sqrt(max(min, 0)) of each rotated
-    source point to the nearest valid target row, 0 where weight is 0, the
-    bits of its plain version ops/nn.py::nn_distances(rotated, source_mask,
-    target, target_mask). rotated (C, P, 3), weight (P,) float32 0/1,
-    target (T, 3), target_mask (T,) bool, all contiguous on one card. Counts
-    the launch in `field_trim.launches`."""
+def field_max_plain(source, source_mask, target, target_mask, rotations) -> torch.Tensor:
+    """The plain PyTorch version of `field_sq` at metric "max"."""
+    return masked_nn_error(rotate_sources(rotations, source), source_mask, target, target_mask, "max")
+
+
+def field_diff_plain(source, source_mask, target, target_mask, rotations) -> torch.Tensor:
+    """The plain PyTorch version of `field_sq` at metric "diff": the mean's
+    sum in float64, as the kernel's sum."""
+    return masked_nn_error(rotate_sources(rotations, source), source_mask, target, target_mask, "diff")
+
+
+SQ_PLAIN = {"max": field_max_plain, "diff": field_diff_plain}
+
+FIELD_TILE = 16  # kTileRows of csrc/field_trim.cu: target rows a box
+FIELD_RUN = 128  # kRunRows: rows a run of 8 tiles' box; a block's share of the target is a multiple of it
+# Shared memory a block of the field_trim kernel may take on an H100 (227 KB, less its static share).
+FIELD_SMEM = 232448 - 2048
+# Source points whose mins a block holds in shared memory; past it ("max", "diff", the probe
+# modes) they go to a (C, P) scratch in device memory.
+FIELD_MAX_POINTS = 32768
+MORTON_BITS = 9  # bits an axis of field_keys' codes
+# The kernel's statistics: the fields, and the probe modes' (C, P) distances and squared distances.
+CULL_STATS = {"trim": 0, "max": 1, "diff": 2, "distances": 3, "sqdistances": 4}
+_CONSTANTS: dict = {}
+
+
+def cull_smem_bytes(cap: int, p_n: int) -> int:
+    """csrc/field_trim.cu::smem_bytes: a block's dynamic shared memory at
+    `cap` staged target rows (16 B each, a 32 B box a tile and a run) and
+    P source points' mins."""
+    return cap * 16 + cap // FIELD_TILE * 32 + cap // FIELD_RUN * 32 + -(-p_n // 4) * 16
+
+
+def check_width(p_n: int, stat: str) -> None:
+    """Raise, before any launch, for P of 8192 or more at "trim" (the
+    rank's rounding guard, as `trimmed_masked_mean` raises)."""
+    if stat == "trim" and p_n >= QUANTILE_MAX_WIDTH:
+        raise ValueError(f"field_trim takes fewer than {QUANTILE_MAX_WIDTH} values per row (the rank's rounding "
+                         f"guard), got {p_n}")
+
+
+def smem_points(p_n: int) -> int:
+    """The source points whose mins a block holds in shared memory: all P
+    up to FIELD_MAX_POINTS, none past it (a (C, P) scratch holds them)."""
+    return p_n if p_n <= FIELD_MAX_POINTS else 0
+
+
+def field_cull_plan(p_n: int, t_n: int, stat: str) -> int:
+    """The target rows a block of the field_trim kernel stages at once, a
+    multiple of FIELD_RUN: the whole target where it fits beside the mins
+    `smem_points` keeps, else the most that fit (the kernel walks the target
+    in chunks of it). Raises as `check_width` does."""
+    check_width(p_n, stat)
+    whole = -(-t_n // FIELD_RUN) * FIELD_RUN
+    fit = (FIELD_SMEM - cull_smem_bytes(0, smem_points(p_n))) // cull_smem_bytes(FIELD_RUN, 0) * FIELD_RUN
+    return min(whole, fit)
+
+
+def _spread(device) -> torch.Tensor:
+    """(512,) int32: each 9-bit index with its bits spread three apart, cached a device."""
+    key = str(device)
+    if key not in _CONSTANTS:
+        i = torch.arange(1 << MORTON_BITS, dtype=torch.int32)
+        _CONSTANTS[key] = sum(((i >> b) & 1) << (3 * b) for b in range(MORTON_BITS)).to(device)
+    return _CONSTANTS[key]
+
+
+def field_keys_plain(source, source_mask, target, target_mask) -> torch.Tensor:
+    """The plain PyTorch version of `field_keys`, with the same arguments
+    and bits."""
+    p_n = source.shape[0]
+    pts = torch.cat((source, target))
+    lo, hi = torch.aminmax(pts, dim=0)
+    span = (hi - lo).clamp_min(1e-30)
+    scale = torch.full_like(span, float(1 << MORTON_BITS)) / span  # a division, as the kernel's
+    cell = ((pts - lo) * scale).to(torch.int32).clamp_(0, (1 << MORTON_BITS) - 1)
+    code = (_spread(source.device)[cell] << torch.arange(3, dtype=torch.int32, device=source.device)).sum(
+        dim=-1, dtype=torch.int32)
+    flags = torch.cat((source_mask, target_mask)).logical_not().to(torch.int32) << 27
+    flags[p_n:] += 1 << 28
+    return code + flags
+
+
+def field_keys(source, source_mask, target, target_mask) -> torch.Tensor:
+    """The sort keys of `field_order`: (P + T,) int32, cloud * 2^28 +
+    invalid * 2^27 + the Morton code (9 bits an axis, x lowest) of the row's
+    cell in a 512^3 grid over the box around both clouds' rows. One launch
+    of csrc/field_trim.cu's keys kernel on CUDA tensors (counted in
+    `field_keys.launches`), the plain version on CPU tensors. The inputs as
+    `field_trim` takes them, contiguous."""
+    if source.device.type == "cpu":
+        return field_keys_plain(source, source_mask, target, target_mask)
     from kss_icp_torch import _build
 
-    c_n, p_n = rotated.shape[:2]
-    dist = torch.empty((c_n, p_n), dtype=torch.float32, device=rotated.device)
-    lib = _build.library()
-    with torch.cuda.device(rotated.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.kss_field_trim(rotated.data_ptr(), weight.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
-                                  c_n, p_n, target.shape[0], slots, dist.data_ptr(), stream)
-    _build.check(code, "field_trim")
-    field_trim.launches += 1
-    return dist
+    keys = torch.empty((source.shape[0] + target.shape[0],), dtype=torch.int32, device=source.device)
+    with torch.cuda.device(source.device):
+        code = _build.library().kss_field_keys(source.data_ptr(), source_mask.data_ptr(), target.data_ptr(),
+                                               target_mask.data_ptr(), source.shape[0], target.shape[0],
+                                               keys.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "field_keys")
+    field_keys.launches += 1
+    return keys
+
+
+field_keys.launches = 0
+
+
+def field_order(source, source_mask, target, target_mask) -> torch.Tensor:
+    """The field_trim kernel's order of both clouds: (P + T,) int64, the
+    indices of a stable sort of `field_keys`, so the source's rows come
+    first (indices 0..P-1), then the target's (P..P+T-1), each cloud's
+    valid rows first, in the Z order of the grid. Any order gives the kernel
+    the same bits; this one keeps each warp's 32 source points, and each
+    tile's 16 target rows, near each other."""
+    return torch.sort(field_keys(source, source_mask, target, target_mask), stable=True).indices
+
+
+def _cull_launch(name, stat, source, source_mask, target, target_mask, order, rotations, out, trim_fraction=0.7,
+                 scanned=None, cap=None) -> None:
+    """One launch of the field_trim kernel (csrc/field_trim.cu) at `stat`
+    into `out` ((C,) float32, or (C, P) in the probe modes) on contiguous
+    inputs and `field_order`'s order; counts nothing (`_field_cull` counts
+    the wrapper's launches; the smoke run and the A/B script time the
+    kernel alone through it). `scanned`: a (2,) int64 tensor on the card
+    the kernel adds the (point, row) pairs it scanned and the box tests it
+    made to, or None. `cap`: the target rows a block stages at once, by
+    default `field_cull_plan`'s (the tests force chunks with it). Past
+    FIELD_MAX_POINTS source points the mins go to a (C, P) scratch."""
+    from kss_icp_torch import _build
+
+    c_n, p_n, t_n = rotations.shape[0], source.shape[0], target.shape[0]
+    cap = cap or field_cull_plan(p_n, t_n, stat)
+    if cap % FIELD_RUN:
+        raise ValueError(f"{name}: a block's share of the target must be a multiple of {FIELD_RUN}, got {cap}")
+    scratch = None if smem_points(p_n) else torch.empty((c_n, p_n), dtype=torch.float32, device=source.device)
+    with torch.cuda.device(source.device):
+        code = _build.library().kss_field_cull(
+            source.data_ptr(), source_mask.data_ptr(), target.data_ptr(), target_mask.data_ptr(), order.data_ptr(),
+            rotations.data_ptr(), c_n, p_n, t_n, CULL_STATS[stat], float(trim_fraction), cap, out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), None if scanned is None else scanned.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, name)
+
+
+def _field_cull(name, counter, stat, source, source_mask, target, target_mask, rotations, trim_fraction=0.7,
+                scanned=None, cap=None) -> torch.Tensor:
+    """`field_order`, then one `_cull_launch` on inputs `_use_plain`
+    accepted: (C,) float32, or (C, P) in the probe modes; `cap` as
+    `_cull_launch` takes it. Raises as `check_width` does before any
+    launch. Counts the launch in
+    `counter.launches`, and by rotations in `counter.launch_grids`."""
+    c_n, p_n = rotations.shape[0], source.shape[0]
+    check_width(p_n, stat)
+    source, source_mask, rotations = source.contiguous(), source_mask.contiguous(), rotations.contiguous()
+    order = field_order(source, source_mask, target, target_mask)
+    out = torch.empty((c_n, p_n) if stat in ("distances", "sqdistances") else (c_n,), dtype=torch.float32,
+                      device=source.device)
+    _cull_launch(name, stat, source, source_mask, target, target_mask, order, rotations, out, trim_fraction,
+                 scanned, cap)
+    counter.launches += 1
+    counter.launch_grids[c_n] += 1
+    return out
 
 
 def field_trim(
@@ -258,57 +405,39 @@ def field_trim(
     target_mask: torch.Tensor,
     rotations: torch.Tensor,
     trim_fraction: float = 0.7,
+    *,
+    scanned: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The trimmed field: for every rotation, the mean of the smallest
     ceil(trim_fraction * n_valid) 1-NN distances of the valid points of
     R_c · source to the valid target (kss_icp_tpu/ops/nn.py:195-198).
 
-    Same arguments as `field_ave`, plus the fraction. The kernel writes the
-    (C, P) per-point distances; the trimmed mean along P (`trimmed_masked_mean`:
-    a sort, a cumulative sum) runs in PyTorch. Returns (C,) float32."""
+    Same arguments as `field_ave`, plus the fraction; on the card, `scanned`
+    as `_cull_launch` takes it. One kernel launch after
+    `field_order`'s sort: the kernel rotates the source, culls target tiles
+    exactly and reduces each rotation's row itself. Returns (C,) float32,
+    the plain version's bits."""
     if _use_plain("field_trim", source, source_mask, target, target_mask, rotations):
         return field_trim_plain(source, source_mask, target, target_mask, rotations, trim_fraction)
-    rotated = rotate_sources(rotations, source)
-    weight = source_mask.to(torch.float32).contiguous()
-    dist = field_trim_distances(rotated, weight, target, target_mask, field_plan(source.shape[0]))
-    return trimmed_masked_mean(dist, source_mask.expand(dist.shape), trim_fraction)
+    return _field_cull("field_trim", field_trim, "trim", source, source_mask, target, target_mask, rotations,
+                       trim_fraction, scanned)
 
 
 field_trim.launches = 0
+field_trim.launch_grids = Counter()  # rotations C -> launches, counted beside `launches`
 
 
-def field_max_plain(source, source_mask, target, target_mask, rotations) -> torch.Tensor:
-    """The plain PyTorch version of `field_sq` at metric "max"."""
-    return masked_nn_error(rotate_sources(rotations, source), source_mask, target, target_mask, "max")
-
-
-def field_diff_plain(source, source_mask, target, target_mask, rotations) -> torch.Tensor:
-    """The plain PyTorch version of `field_sq` at metric "diff"."""
-    return masked_nn_error(rotate_sources(rotations, source), source_mask, target, target_mask, "diff")
-
-
-SQ_PLAIN = {"max": field_max_plain, "diff": field_diff_plain}
-
-
-def field_sq_distances(rotated, weight, target, target_mask, slots: int) -> torch.Tensor:
-    """One launch of the field kernel in its squared per-point mode with
-    `slots` group slots: the (C, P) squared distances of each rotated source
-    point to the nearest valid target row (the raw biased min), 0 where weight
-    is 0, the bits of its plain version ops/nn.py::nn_sqdistances(rotated,
-    source_mask, target, target_mask). Arguments as `field_trim_distances`.
-    Counts the launch in `field_sq.launches`."""
-    from kss_icp_torch import _build
-
-    c_n, p_n = rotated.shape[:2]
-    dist = torch.empty((c_n, p_n), dtype=torch.float32, device=rotated.device)
-    lib = _build.library()
-    with torch.cuda.device(rotated.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.kss_field_sq(rotated.data_ptr(), weight.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
-                                c_n, p_n, target.shape[0], slots, dist.data_ptr(), stream)
-    _build.check(code, "field_sq")
-    field_sq.launches += 1
-    return dist
+def field_trim_distances(source, source_mask, target, target_mask, rotations, *, scanned=None) -> torch.Tensor:
+    """The probe mode of `field_trim`'s kernel: the (C, P) distances
+    sqrt(max(min, 0)) of each rotated source point to the nearest valid
+    target row, 0 at a masked source point, in the caller's point order; on
+    CPU tensors its plain version ops/nn.py::nn_distances of the rotated
+    source, whose bits the kernel's equal. For tests and the smoke run: the
+    main path never calls it. Counts the launch in `field_trim.launches`."""
+    if _use_plain("field_trim", source, source_mask, target, target_mask, rotations):
+        return nn_distances(rotate_sources(rotations, source), source_mask, target, target_mask)
+    return _field_cull("field_trim", field_trim, "distances", source, source_mask, target, target_mask, rotations,
+                       scanned=scanned)
 
 
 def field_sq(
@@ -318,22 +447,36 @@ def field_sq(
     target_mask: torch.Tensor,
     rotations: torch.Tensor,
     metric: str,
+    *,
+    scanned: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The "max" or "diff" field (kss_icp_tpu/ops/nn.py:183-194): for every
     rotation, the largest squared 1-NN distance of the valid points of
     R_c · source to the valid target, or the largest distance less the mean.
 
-    Same arguments as `field_ave`, plus the metric. The kernel writes the
-    (C, P) squared distances; each row's metric (`ops/nn.py::sq_error`)
-    runs in PyTorch. Returns (C,) float32."""
+    Same arguments as `field_ave`, plus the metric; `scanned` as
+    `field_trim`'s. One launch of `field_trim`'s kernel, which reduces each
+    rotation's row to its metric (past FIELD_MAX_POINTS source points,
+    through a (C, P) scratch of the mins). Returns (C,) float32, the plain
+    version's bits."""
     if metric not in SQ_PLAIN:
         raise ValueError(f"field_sq scores 'max' or 'diff', not {metric!r}")
     if _use_plain("field_sq", source, source_mask, target, target_mask, rotations):
         return SQ_PLAIN[metric](source, source_mask, target, target_mask, rotations)
-    rotated = rotate_sources(rotations, source)
-    weight = source_mask.to(torch.float32).contiguous()
-    return sq_error(field_sq_distances(rotated, weight, target, target_mask, field_plan(source.shape[0])),
-                    source_mask, metric)
+    return _field_cull("field_sq", field_sq, metric, source, source_mask, target, target_mask, rotations,
+                       scanned=scanned)
 
 
 field_sq.launches = 0
+field_sq.launch_grids = Counter()  # rotations C -> launches, counted beside `launches`
+
+
+def field_sq_distances(source, source_mask, target, target_mask, rotations, *, scanned=None) -> torch.Tensor:
+    """The probe mode of `field_sq`: the (C, P) squared distances (the raw
+    biased min), 0 at a masked source point; on CPU tensors its plain
+    version ops/nn.py::nn_sqdistances of the rotated source. Arguments as
+    `field_trim_distances`. Counts the launch in `field_sq.launches`."""
+    if _use_plain("field_sq", source, source_mask, target, target_mask, rotations):
+        return nn_sqdistances(rotate_sources(rotations, source), source_mask, target, target_mask)
+    return _field_cull("field_sq", field_sq, "sqdistances", source, source_mask, target, target_mask, rotations,
+                       scanned=scanned)

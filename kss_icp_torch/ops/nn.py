@@ -75,7 +75,7 @@ def nn_distances(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tenso
     """Each valid query point's 1-NN distance, sqrt(max(min, 0)) of the raw
     biased min as `masked_mean_nn_distance` takes it, and 0 at a masked query
     point: the per-point values of the "trim" field and the contract of the
-    `field_trim` kernel's per-point mode. A fully masked reference gives 1e15."""
+    `field_trim` kernel's probe mode. A fully masked reference gives 1e15."""
     return torch.sqrt(nn_sqdistances(query, query_mask, ref, ref_mask).clamp_min(0.0))
 
 
@@ -84,7 +84,7 @@ def nn_sqdistances(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Ten
     """Each valid query point's raw biased min ((dx² + dy²) + dz²) + bias, the
     squared 1-NN distance, and 0 at a masked query point: the per-point
     values of the "max" and "diff" fields and the contract of the field
-    kernel's squared per-point mode (`field_sq`). A fully masked reference
+    kernel's squared probe mode (`field_sq`). A fully masked reference
     gives 1e30, as JAX's where(ref_mask, d², 1e30) does."""
     m, _ = _min_rel(query, ref, ref_mask)
     return torch.where(query_mask, m, torch.zeros_like(m))
@@ -95,13 +95,18 @@ def sq_error(min_d2: torch.Tensor, query_mask: torch.Tensor, metric: str) -> tor
     last axis (kss_icp_tpu/ops/nn.py:188-194): "max" is the largest squared
     distance, never its root (initRegistration_Error, a quirk of the
     reference kept); "diff" the largest distance less the mean, in JAX's
-    order: sum(d w) / max(sum w, 1), the max over where(mask, d, -1e30)."""
+    order: sum(d w) / max(sum w, 1), the max over where(mask, d, -1e30). The
+    sum is taken in float64 and rounded once to float32, so that its bits do
+    not depend on the order of the terms (the `field_sq` kernel's sum takes
+    another order than PyTorch's)."""
     mask = query_mask.expand(min_d2.shape)
     neg = torch.full_like(min_d2, -BIG)
     if metric == "max":
         return torch.where(mask, min_d2, neg).amax(dim=-1)
     d = torch.sqrt(min_d2)
-    return torch.where(mask, d, neg).amax(dim=-1) - masked_mean(d, mask)
+    w = mask.to(d.dtype)
+    mean = (d * w).sum(dim=-1, dtype=torch.float64).to(d.dtype) / w.sum(dim=-1).clamp_min(1.0)
+    return torch.where(mask, d, neg).amax(dim=-1) - mean
 
 
 def masked_mean_nn_sqdist(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> torch.Tensor:
@@ -146,15 +151,21 @@ def masked_quantile_threshold(values: torch.Tensor, mask: torch.Tensor, q: float
     return torch.take_along_dim(vs, (k - 1).long()[..., None], dim=-1)[..., 0]
 
 
-def trimmed_masked_mean(values: torch.Tensor, mask: torch.Tensor, trim_fraction: float) -> torch.Tensor:
+def trimmed_masked_mean(values: torch.Tensor, mask: torch.Tensor, trim_fraction: float,
+                        dtype: torch.dtype | None = None) -> torch.Tensor:
     """Mean of the smallest ceil(q * n_valid) valid values along the last
     axis, the rank clipped as in `masked_quantile_threshold`
     (kss_icp_tpu/ops/nn.py:113-131): the cumulative sum of the same sort,
     read at that rank. The overlap tier's score: on partially overlapping
-    clouds the largest NN distances come from the non-overlap region."""
+    clouds the largest NN distances come from the non-overlap region.
+
+    `dtype` (default: the values') is the cumulative sum's: float64 rounds
+    the sum once to the values' type, whatever order a card's scan takes,
+    as the `field_trim` kernel's sum does. On the CPU, PyTorch's float32
+    cumsum already accumulates in float64, so both give the same bits."""
     vs, k = _sorted_rank(values, mask, trim_fraction, "trimmed_masked_mean")
-    picked = torch.take_along_dim(torch.cumsum(vs, dim=-1), (k - 1).long()[..., None], dim=-1)[..., 0]
-    return picked / k.to(values.dtype)
+    picked = torch.take_along_dim(torch.cumsum(vs, dim=-1, dtype=dtype), (k - 1).long()[..., None], dim=-1)[..., 0]
+    return picked.to(values.dtype) / k.to(values.dtype)
 
 
 def masked_nn_error(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor,
@@ -163,12 +174,12 @@ def masked_nn_error(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Te
     float32 differences: "ave" (the mean 1-NN distance), "max" (the largest
     squared 1-NN distance), "diff" (the largest 1-NN distance less the mean;
     both `sq_error`) and "trim" (the mean of the best trim_fraction quantile
-    of the 1-NN distances)."""
+    of the 1-NN distances, its sum in float64 as `sq_error`'s)."""
     if metric == "ave":
         return masked_mean_nn_distance(query, query_mask, ref, ref_mask)
     if metric == "trim":
         d = nn_distances(query, query_mask, ref, ref_mask)
-        return trimmed_masked_mean(d, query_mask.expand(d.shape), trim_fraction)
+        return trimmed_masked_mean(d, query_mask.expand(d.shape), trim_fraction, dtype=torch.float64)
     if metric in ("max", "diff"):
         return sq_error(nn_sqdistances(query, query_mask, ref, ref_mask), query_mask, metric)
     raise ValueError(f"unknown error metric {metric!r}")

@@ -9,7 +9,11 @@ with the one-block interface it had before clusters (kss_fps with steps,
 points a thread, threads and a workspace; the old plan is the one-block
 plan, points in registers up to 8192 and the workspace above); `field.cu` and `field_dot.cu`
 with the interface they had before theirs (kss_field_ave and kss_field_dot
-without the target mask's compaction and the plan). They are built with the
+without the target mask's compaction and the plan); `field_trim.cu` with the
+per-point interface it had before culling (kss_field_trim and kss_field_sq
+on a rotated (C, P, 3) source, writing a (C, P) buffer; with the
+`field_kernel.cuh` of its commit beside it: `git show
+7352256:kss_icp_torch/csrc/field_trim.cu` and `field_kernel.cuh`). They are built with the
 package's nvcc flags into a second ctypes library under
 `kss_icp_torch/_build/ab_old/`; the package's own sources are built as
 usual. For each kernel whose old source DIR holds, at each of the main
@@ -24,7 +28,16 @@ per shape. The fields run at the 8³ grid's padded clouds (512 x 2048 x
 largest, median and smallest remesh pair's pnumber (1534, 1070, 378), at
 the 16³ grid (4096 x 512 x 512), mostly valid, and at the bench config's
 512-point prefixes on the 8³ grid (512 x 512 x 512), all valid and with
-the smallest pair's 378; field_dot at "highest" and "default".
+the smallest pair's 378; field_dot at "highest" and "default". The old
+trim, max and diff fields are what the main path paid for them: the
+rotation, the per-point kernel and PyTorch's row reduction (sort, cumsum and
+gather; max; max and mean), against the new wrapper (field_order's sort and
+one launch); they run at the overlap rungs' 512 and 4096 x 2048 x 2048 with
+~70% scattered inliers and at the remesh suffixes 1534 / 1070 / 378 on the
+8³ grid. Each row also times the two kernels alone and carries the new
+kernel's share of (point, row) pairs scanned; the old per-point values must
+equal the new probe mode's, and the old values reduced in float64 the new
+fields.
 The card's name, power limit and maximum SM clock come first; one JSON
 object with every number is the last line, and is also written to
 torch_kernel_ab.json in --out (default _scratch/kernel_ab/, gitignored).
@@ -78,7 +91,10 @@ OLD_SIGNATURES = {
     "fps.cu": ("kss_fps", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),
     "field.cu": ("kss_field_ave", (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P)),
     "field_dot.cu": ("kss_field_dot", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
+    "field_trim.cu": ("kss_field_trim", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P)),
 }
+# Further entry points of an old source: the per-point field_trim.cu's squared mode.
+OLD_EXTRA = {"field_trim.cu": [("kss_field_sq", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P))]}
 # (L, Q, R, label): the ICP screen, the escalation screen, the refine lanes
 # (4, the two-tier 2 and the final 1), the metric at the largest and the
 # smallest remesh pair's padded shape, and the K4 regime.
@@ -103,6 +119,12 @@ FIELD_SHAPES = [(8, 2048, 2048, "8³ grid, all valid"), (8, 2048, 1534, "8³ gri
                 (16, 512, None, "16³ grid, mostly valid"), (8, 512, 512, "8³ grid, bench prefixes"),
                 (8, 512, 378, "8³ grid, bench prefixes, smallest remesh pair")]
 FIELD_VARIANTS = [("field_ave", None), ("field_dot", "highest"), ("field_dot", "default")]
+# (grid steps, P = T, valid rows of both clouds, label) of the trim, max and
+# diff fields: "inliers" is ~70% scattered in the first n - n // 20 rows.
+CULL_SHAPES = [(8, 2048, "inliers", "8³ overlap field, ~70% inliers"),
+               (16, 2048, "inliers", "16³ overlap field, ~70% inliers"),
+               (8, 2048, 1534, "8³ grid, largest remesh pair"), (8, 2048, 1070, "8³ grid, median remesh pair"),
+               (8, 2048, 378, "8³ grid, smallest remesh pair")]
 
 
 def cloud(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -126,9 +148,9 @@ def load_old(old_dir: Path) -> tuple:
     print(f"old library {path.name} ({', '.join(present)}) built in {seconds:.2f} s", flush=True)
     lib = ctypes.CDLL(str(path))
     for src in present:
-        name, argtypes = OLD_SIGNATURES[src]
-        getattr(lib, name).argtypes = list(argtypes)
-        getattr(lib, name).restype = ctypes.c_int
+        for name, argtypes in [OLD_SIGNATURES[src]] + OLD_EXTRA.get(src, []):
+            getattr(lib, name).argtypes = list(argtypes)
+            getattr(lib, name).restype = ctypes.c_int
     return lib, present
 
 
@@ -334,6 +356,97 @@ def sweep(dev, reps: int) -> dict:
     return result
 
 
+def old_row_stat(dist, smask, stat):
+    """PyTorch's row reduction of the per-point kernel's (C, P) values, as
+    the main path ran it before the fused kernel: the trimmed mean's float32
+    sort, cumulative sum and gather; the max; the max and the float32 mean."""
+    from kss_icp_torch.ops.nn import BIG, masked_mean, trimmed_masked_mean
+
+    mask = smask.expand(dist.shape)
+    if stat == "trim":
+        return trimmed_masked_mean(dist, mask, 0.7)
+    neg = torch.full_like(dist, -BIG)
+    if stat == "max":
+        return torch.where(mask, dist, neg).amax(dim=-1)
+    d = torch.sqrt(dist)
+    return torch.where(mask, d, neg).amax(dim=-1) - masked_mean(d, mask)
+
+
+def ab_cull(old, dev, rng, reps: int) -> list:
+    """The per-point field_trim.cu path against the fused kernel at
+    CULL_SHAPES, for trim, max and diff: bits, then device times in turns
+    (the whole call each), and each kernel alone."""
+    from kss_icp_torch.ops import coarse_cuda as cc
+    from kss_icp_torch.ops.nn import trimmed_masked_mean
+
+    rows = []
+    for steps, n, valid, label in CULL_SHAPES:
+        src, tgt = (torch.as_tensor(cloud(rng, n), device=dev) for _ in range(2))
+        r = torch.arange(n, device=dev)
+        if valid == "inliers":
+            smask, tmask = ((r < n - n // 20) & torch.as_tensor(rng.uniform(size=n) < 0.7, device=dev)
+                            for _ in range(2))
+        else:
+            smask = tmask = r < valid
+        rots = euler_xyz_matrix(rotation_grid(steps, 6.3, dev)).contiguous()
+        c_n = rots.shape[0]
+        rotated = cc.rotate_sources(rots, src)
+        weight = smask.to(torch.float32)
+        dist = torch.empty((c_n, n), dtype=torch.float32, device=dev)
+        order = cc.field_order(src, smask, tgt, tmask)
+        out = torch.empty((c_n,), dtype=torch.float32, device=dev)
+        for stat in ("trim", "max", "diff"):
+            entry = old.kss_field_trim if stat == "trim" else old.kss_field_sq
+            cap = cc.field_cull_plan(n, n, stat)
+
+            def old_kernel(entry=entry):
+                _check(entry(rotated.data_ptr(), weight.data_ptr(), tgt.data_ptr(), tmask.data_ptr(), c_n, n, n,
+                             field_plan(n), dist.data_ptr(), _stream()), "old kss_field_trim")
+
+            def run_old(stat=stat, entry=entry):
+                rot = cc.rotate_sources(rots, src)
+                w = smask.to(torch.float32).contiguous()
+                _check(entry(rot.data_ptr(), w.data_ptr(), tgt.data_ptr(), tmask.data_ptr(), c_n, n, n,
+                             field_plan(n), dist.data_ptr(), _stream()), "old kss_field_trim")
+                return old_row_stat(dist, smask, stat)
+
+            def run_new(stat=stat):
+                if stat == "trim":
+                    return cc.field_trim(src, smask, tgt, tmask, rots, 0.7)
+                return cc.field_sq(src, smask, tgt, tmask, rots, stat)
+
+            def new_kernel(stat=stat):
+                cc._cull_launch("kss_field_cull", stat, src, smask, tgt, tmask, order, rots, out)
+
+            old_kernel()
+            probe = (cc.field_trim_distances if stat == "trim" else cc.field_sq_distances)(src, smask, tgt, tmask,
+                                                                                           rots)
+            scanned = torch.zeros(2, dtype=torch.int64, device=dev)
+            fused = (cc.field_trim(src, smask, tgt, tmask, rots, 0.7, scanned=scanned) if stat == "trim"
+                     else cc.field_sq(src, smask, tgt, tmask, rots, stat, scanned=scanned))
+            torch.cuda.synchronize()
+            if stat == "trim":
+                want = trimmed_masked_mean(dist, smask.expand(dist.shape), 0.7, dtype=torch.float64)
+            else:
+                from kss_icp_torch.ops.nn import sq_error
+                want = sq_error(dist, smask, stat)
+            same = bool(torch.equal(dist, probe) and torch.equal(fused, want))
+            m = max(3, reps // 5)
+            row = dict(in_turns(run_old, run_new, m), shape=f"{c_n}x{n}x{n}", valid=valid, label=label, stat=stat,
+                       same_bits=same, reps=m, cap=cap)
+            row["old_kernel_ms"] = graph_ms(old_kernel, m)
+            row["new_kernel_ms"] = graph_ms(new_kernel, m)
+            row["order_ms"] = graph_ms(lambda: cc.field_order(src, smask, tgt, tmask), m)
+            row["scanned_share"] = int(scanned[0]) / (c_n * int(smask.sum()) * int(tmask.sum()))
+            rows.append(row)
+            print(f"field {stat} {row['shape']} ({label}): device old {row['old_ms']:.4f} ms (rotation, per-point "
+                  f"kernel, row reduction), new {row['new_ms']:.4f} ms (field_order and one launch; "
+                  f"{row['old_ms'] / row['new_ms']:.2f}x; turns {row['turns_ms']}); kernels alone old "
+                  f"{row['old_kernel_ms']:.4f} ms, new {row['new_kernel_ms']:.4f} ms (field_order {row['order_ms']:.4f} ms); "
+                  f"{row['scanned_share']:.4f} of the pairs scanned; same bits {same}", flush=True)
+    return rows
+
+
 def ab_nn1(old, dev, rng, reps: int) -> list:
     rows = []
     for lanes, q_n, r_n, label in NN1_SHAPES:
@@ -463,7 +576,8 @@ def ab_field(old, name, dev, rng, reps: int, loops: dict, clock_hz: float) -> li
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", type=Path, required=True,
-                    help="directory of older kernel sources: nn.cu, fps.cu, field.cu, field_dot.cu, any of them")
+                    help="directory of older kernel sources: nn.cu, fps.cu, field.cu, field_dot.cu, field_trim.cu "
+                         "(with its field_kernel.cuh), any of them")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--sass", action="store_true", help="write the new library's SASS to --out")
     ap.add_argument("--out", type=Path, default=REPO / "_scratch" / "kernel_ab", help="directory for the files")
@@ -490,7 +604,7 @@ def main() -> int:
         (out_dir / "torch_kernels.sass").write_text(sass.stdout + sass.stderr)
     loops = field_loop_instructions(sass.stdout) if args.sass else {}
     rng = np.random.default_rng(0)
-    result = {"card": card, "nn1": [], "fps": [], "field_ave": [], "field_dot": []}
+    result = {"card": card, "nn1": [], "fps": [], "field_ave": [], "field_dot": [], "field_trim": []}
     if "nn.cu" in present:
         result["nn1"] = ab_nn1(old, dev, rng, args.reps)
     if "fps.cu" in present:
@@ -498,10 +612,12 @@ def main() -> int:
     for src, name in (("field.cu", "field_ave"), ("field_dot.cu", "field_dot")):
         if src in present:
             result[name] = ab_field(old, name, dev, rng, args.reps, loops, float(clock.split()[0]) * 1e6)
+    if "field_trim.cu" in present:
+        result["field_trim"] = ab_cull(old, dev, rng, args.reps)
 
     if args.sweep:
         (out_dir / "torch_kernel_sweep.json").write_text(json.dumps(sweep(dev, args.reps), indent=1))
-    ok = all(r["same_bits"] for k in ("nn1", "fps", "field_ave", "field_dot") for r in result[k])
+    ok = all(r["same_bits"] for k in ("nn1", "fps", "field_ave", "field_dot", "field_trim") for r in result[k])
     result["ok"] = ok
     (out_dir / "torch_kernel_ab.json").write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)

@@ -2,7 +2,8 @@
 """Two checkouts of the port against each other, end to end, in turns, on
 one CUDA card.
 
-    python3 scripts/torch_tree_ab.py --old DIR [--new DIR] [--rounds N] [--passes N] [--largescan] [--out DIR]
+    python3 scripts/torch_tree_ab.py --old DIR [--new DIR] [--rounds N] [--passes N] [--largescan] [--boards]
+                                     [--out DIR]
 
 DIR is the root of another checkout of this repository (for example a
 commit unpacked with `git archive` into a gitignored directory such as
@@ -25,7 +26,12 @@ kernels there (at first use) and, after a warm-up pair:
     seed, repeats=3)` for the Room seeds 0-2 (the stage seconds of the
     fastest repeat; register_s holds the one `fps` launch of 2 x 135168-
     151552 points) and holds each seed's unit-scale RMSE to JAX's + 0.006
-    and its pose under 0.1 m (fixtures/torch_port_expected_largescan.json).
+    and its pose under 0.1 m (fixtures/torch_port_expected_largescan.json);
+  - with --boards, runs the shipped DEFAULT_CONFIG through `register_many`
+    on the five boards' 64 pairs as one batch (full_pad 8192, the overlap
+    tier's rungs included: "many boards"), --passes times without stage
+    syncs (pairs/s) and --passes times with them (stage seconds), every
+    pair's RMSE finite.
 The turns run old, new, new, old, --rounds times. The card's name and power
 limit come first, then one line per turn and, for each checkout, the means
 of the wrapper times and the medians of the passes' seconds and stage
@@ -83,7 +89,43 @@ def largescan_runs(tree: Path, device) -> dict:
     return runs
 
 
-def worker(tree: Path, passes: int, largescan: bool) -> dict:
+def boards_runs(dev, passes: int) -> dict:
+    """register_many over the five boards' 64 pairs at DEFAULT_CONFIG, one
+    batch, --passes times unsynced then --passes times synced at each stage
+    border."""
+    import torch
+
+    import kss_icp_torch as kt
+    from kss_icp_torch.challenge import BOARDS
+    from kss_icp_torch.config import DEFAULT_CONFIG
+
+    pairs = [(src, tgt) for _, corpus, _ in BOARDS for _, src, tgt, _ in corpus()]
+    kt.register_many(pairs[:2], DEFAULT_CONFIG, full_pad=8192, device=dev)
+    torch.cuda.synchronize()
+    runs = {"unsynced": [], "synced": []}
+    for sync in [False] * passes + [True] * passes:
+        stages = defaultdict(float)
+
+        @contextlib.contextmanager
+        def timer(name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            stages[name] += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        _, metrics = kt.register_many(pairs, DEFAULT_CONFIG, full_pad=8192, device=dev,
+                                      timer=timer if sync else None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs["synced" if sync else "unsynced"].append(
+            {"seconds": seconds, "pairs_per_s": len(pairs) / seconds, "stage_seconds": dict(stages),
+             "finite": bool(np.isfinite(np.asarray(metrics["rmse"])).all())})
+    return runs
+
+
+def worker(tree: Path, passes: int, largescan: bool, boards: bool) -> dict:
     """One turn: the wrappers' times and the esc-default passes of the
     `kss_icp_torch` in `tree`."""
     sys.path.insert(0, str(tree))
@@ -169,13 +211,14 @@ def worker(tree: Path, passes: int, largescan: bool) -> dict:
     return {"build_s": build_s, "nn1_ms": nn1_ms, "fps_ms": fps_ms, "field_ms": field_ms,
             "unsynced": [one_pass(False) for _ in range(passes)],
             "synced": [one_pass(True) for _ in range(passes)],
-            "largescan": largescan_runs(tree, dev) if largescan else {}}
+            "largescan": largescan_runs(tree, dev) if largescan else {},
+            "boards": boards_runs(dev, passes) if boards else {}}
 
 
-def run_turn(tree: Path, passes: int, largescan: bool) -> dict:
+def run_turn(tree: Path, passes: int, largescan: bool, boards: bool) -> dict:
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", str(tree),
-                           "--passes", str(passes)] + (["--largescan"] if largescan else []),
-                          capture_output=True, text=True, timeout=900)
+                           "--passes", str(passes)] + (["--largescan"] if largescan else [])
+                          + (["--boards"] if boards else []), capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"turn in {tree} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -213,7 +256,23 @@ def summary(turns: list) -> dict:
         "largescan": {seed: {k: mean(t["largescan"][seed][k] for t in turns) for k in ("register_s", "total_s")}
                       for seed in turns[0]["largescan"]},
         "largescan_outside": sorted({seed for t in turns for seed, r in t["largescan"].items() if not r["ok"]}),
+        "boards": boards_summary(turns),
     }
+
+
+def boards_summary(turns: list) -> dict:
+    """The boards passes' pairs/s quartiles (unsynced) and stage seconds
+    quartiles (synced), over a checkout's turns; {} without --boards."""
+    unsynced = [p for t in turns for p in t["boards"].get("unsynced", [])]
+    synced = [p for t in turns for p in t["boards"].get("synced", [])]
+    if not unsynced:
+        return {}
+    stages = sorted({k for p in synced for k in p["stage_seconds"]})
+    return {"pairs_per_s_quartiles": quartiles(p["pairs_per_s"] for p in unsynced),
+            "synced_seconds_quartiles": quartiles(p["seconds"] for p in synced),
+            "stage_seconds_quartiles": {k: quartiles(p["stage_seconds"].get(k, 0.0) for p in synced)
+                                        for k in stages},
+            "finite": all(p["finite"] for p in unsynced + synced)}
 
 
 def fmt(d: dict) -> str:
@@ -232,11 +291,12 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=1, help="rounds of old, new, new, old")
     ap.add_argument("--passes", type=int, default=2, help="esc-default passes a turn, synced and not")
     ap.add_argument("--largescan", action="store_true", help="also run_largescan at 200k points, seeds 0-2")
+    ap.add_argument("--boards", action="store_true", help="also register_many on the 64 board pairs, one batch")
     ap.add_argument("--out", type=Path, default=REPO / "_scratch" / "tree_ab", help="directory for the JSON")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker is not None:
-        print(json.dumps(worker(args.worker.resolve(), args.passes, args.largescan)), flush=True)
+        print(json.dumps(worker(args.worker.resolve(), args.passes, args.largescan, args.boards)), flush=True)
         return 0
     import torch
 
@@ -252,14 +312,16 @@ def main() -> int:
     turns = {"old": [], "new": []}
     for _ in range(args.rounds):
         for which in ("old", "new", "new", "old"):
-            t = run_turn(trees[which], args.passes, args.largescan)
+            t = run_turn(trees[which], args.passes, args.largescan, args.boards)
             turns[which].append(t)
             print(f"[{which}] build {t['build_s']:.2f} s; nn1 wrapper ms {fmt(t['nn1_ms'])}; fps wrapper ms "
                   f"{fmt(t['fps_ms'])}; field_ave wrapper ms {fmt(t['field_ms'])}; unsynced pass s "
                   + ", ".join(f"{p['seconds']:.4f}" for p in t["unsynced"])
                   + "; synced pass s " + ", ".join(f"{p['seconds']:.4f}" for p in t["synced"])
                   + "".join(f"; largescan seed {k} register_s {r['register_s']:.4f} total_s {r['total_s']:.4f}"
-                            for k, r in t["largescan"].items()), flush=True)
+                            for k, r in t["largescan"].items())
+                  + "".join(f"; boards {k} pass s " + ", ".join(f"{p['seconds']:.4f}" for p in v)
+                            for k, v in t["boards"].items()), flush=True)
     result = {"card": card, "trees": {k: str(v) for k, v in trees.items()}, "turns": turns,
               "summary": {k: summary(v) for k, v in turns.items()}}
     for which, s in result["summary"].items():
@@ -273,7 +335,13 @@ def main() -> int:
         print(f"[{which} quartiles] unsynced pass s {fmt_q(s['unsynced_seconds_quartiles'])}; synced pass s "
               f"{fmt_q(s['synced_seconds_quartiles'])}; stages " + ", ".join(
                   f"{k} {fmt_q(v)}" for k, v in s["stage_seconds_quartiles"].items()), flush=True)
-    result["ok"] = not any(s["outside"] or s["largescan_outside"] for s in result["summary"].values())
+        if s["boards"]:
+            b = s["boards"]
+            print(f"[{which} boards] many boards pairs/s {fmt_q(b['pairs_per_s_quartiles'])}; synced pass s "
+                  f"{fmt_q(b['synced_seconds_quartiles'])}; stages " + ", ".join(
+                      f"{k} {fmt_q(v)}" for k, v in b["stage_seconds_quartiles"].items()), flush=True)
+    result["ok"] = not any(s["outside"] or s["largescan_outside"] or (s["boards"] and not s["boards"]["finite"])
+                           for s in result["summary"].values())
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "torch_tree_ab.json").write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)

@@ -29,7 +29,7 @@ from kss_icp_torch.ops.coarse_cuda import field_ave, field_ave_plain, field_dot,
 from kss_icp_torch.ops.nn_cuda import nn1, nn1_plain, nn1_plan
 from kss_icp_torch.ops.resample import farthest_point_sampling
 from kss_icp_torch.ops.resample_cuda import fps
-from torch_helpers import cuda_device  # noqa: F401  (fixture)
+from torch_helpers import cuda_device, cull_probe_cases  # noqa: F401  (fixture)
 
 torch.set_num_threads(1)
 
@@ -464,25 +464,47 @@ def test_field_kernels_give_the_same_bits_under_every_plan(cuda_device, case):
                                rtol=2e-5, atol=0.0)
 
 
+# Target rows a block stages at once: the wrapper's plan (the whole target
+# at every FIELD_CARD_CASES shape) and 128 rows, walked in chunks.
+CULL_CAPS = (None, 128)
+
+
+def _cull(stat, args, cap, scanned=None):
+    """The field_trim kernel at `stat` on args (source, masks, target,
+    rotations): the public wrapper at the plan's share of the target, the
+    wrapper's launch with `cap` rows a chunk otherwise."""
+    from kss_icp_torch.ops import coarse_cuda as cc
+
+    counter = cc.field_trim if stat in ("trim", "distances") else cc.field_sq
+    if cap is None:
+        if stat == "trim":
+            return cc.field_trim(*args, 0.7, scanned=scanned)
+        probe = {"distances": cc.field_trim_distances, "sqdistances": cc.field_sq_distances}
+        if stat in probe:
+            return probe[stat](*args, scanned=scanned)
+        return cc.field_sq(*args, stat, scanned=scanned)
+    return cc._field_cull(counter.__name__, counter, stat, *args, scanned=scanned, cap=cap)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(FIELD_CARD_CASES))
 def test_field_trim_kernel_matches_plain_bit_for_bit(cuda_device, case):
-    """The per-point mode: every (rotation, point) distance equals the plain
-    version's bits (the min is exact), 0 at masked source points, under every
-    plan; the trimmed field equals the plain one's bits too."""
-    from kss_icp_torch.ops.coarse_cuda import (FIELD_SLOTS, field_trim, field_trim_distances,
-                                               field_trim_plain, rotate_sources)
+    """The probe mode: every (rotation, point) distance equals the plain
+    version's bits (the culled min is exact), 0 at masked source points,
+    with the target whole and in chunks; the fused trimmed field equals the
+    plain one's bits at both, and each launch is counted."""
+    from kss_icp_torch.ops.coarse_cuda import field_trim, field_trim_plain, rotate_sources
     from kss_icp_torch.ops.nn import nn_distances
 
     src, smask, tgt, tmask, rots = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
-    rotated, weight = rotate_sources(rots, src), smask.to(torch.float32)
-    want = nn_distances(rotated, smask, tgt, tmask)
+    want = nn_distances(rotate_sources(rots, src), smask, tgt, tmask)
+    fused = field_trim_plain(src, smask, tgt, tmask, rots, 0.7)
     before = field_trim.launches
-    for slots in FIELD_SLOTS:
-        assert torch.equal(field_trim_distances(rotated, weight, tgt, tmask, slots), want), slots
-    got = field_trim(src, smask, tgt, tmask, rots, 0.7)
-    assert field_trim.launches == before + len(FIELD_SLOTS) + 1
-    assert torch.equal(got, field_trim_plain(src, smask, tgt, tmask, rots, 0.7))
+    args = (src, smask, tgt, tmask, rots)
+    for cap in CULL_CAPS:
+        assert torch.equal(_cull("distances", args, cap), want), cap
+        assert torch.equal(_cull("trim", args, cap), fused), cap
+    assert field_trim.launches == before + 2 * len(CULL_CAPS)
 
 
 @pytest.mark.cuda
@@ -798,29 +820,28 @@ def test_precise_register_on_the_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(FIELD_CARD_CASES))
 def test_field_sq_kernel_matches_plain_bit_for_bit(cuda_device, case):
-    """The squared per-point mode: every (rotation, point) squared distance
+    """The squared probe mode: every (rotation, point) squared distance
     equals the plain version's bits (the raw min, 1e30-biased against a fully
-    masked target), 0 at masked source points, under every plan; the "max"
-    and "diff" fields equal the plain ones' bits."""
-    from kss_icp_torch.ops.coarse_cuda import FIELD_SLOTS, SQ_PLAIN, field_sq, field_sq_distances, rotate_sources
+    masked target), 0 at masked source points, with the target whole and in
+    chunks; the fused "max" and "diff" fields equal the plain ones' bits."""
+    from kss_icp_torch.ops.coarse_cuda import SQ_PLAIN, field_sq, rotate_sources
     from kss_icp_torch.ops.nn import nn_sqdistances
 
-    src, smask, tgt, tmask, rots = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
-    rotated, weight = rotate_sources(rots, src), smask.to(torch.float32)
-    want = nn_sqdistances(rotated, smask, tgt, tmask)
+    src, smask, tgt, tmask, rots = args = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
+    want = nn_sqdistances(rotate_sources(rots, src), smask, tgt, tmask)
     before = field_sq.launches
-    for slots in FIELD_SLOTS:
-        assert torch.equal(field_sq_distances(rotated, weight, tgt, tmask, slots), want), slots
-    for metric, plain in SQ_PLAIN.items():
-        assert torch.equal(field_sq(src, smask, tgt, tmask, rots, metric), plain(src, smask, tgt, tmask, rots)), metric
-    assert field_sq.launches == before + len(FIELD_SLOTS) + 2
+    for cap in CULL_CAPS:
+        assert torch.equal(_cull("sqdistances", args, cap), want), cap
+        for metric, plain in SQ_PLAIN.items():
+            assert torch.equal(_cull(metric, args, cap), plain(*args)), (metric, cap)
+    assert field_sq.launches == before + 3 * len(CULL_CAPS)
 
 
 @pytest.mark.cuda
 def test_field_sq_kernel_against_a_fully_masked_target(cuda_device):
     """The biased path: no valid target row, every valid point's value the
     plain version's 1e30 + d², bit for bit."""
-    from kss_icp_torch.ops.coarse_cuda import field_plan, field_sq_distances, rotate_sources
+    from kss_icp_torch.ops.coarse_cuda import field_sq_distances, rotate_sources
     from kss_icp_torch.ops.nn import nn_sqdistances
 
     rng = np.random.default_rng(11)
@@ -828,10 +849,100 @@ def test_field_sq_kernel_against_a_fully_masked_target(cuda_device):
     smask = torch.arange(700, device=cuda_device) < 650
     tmask = torch.zeros(600, dtype=torch.bool, device=cuda_device)
     rots = euler_xyz_matrix(coarse.rotation_grid(3, 6.3, cuda_device))
-    rotated = rotate_sources(rots, src)
-    got = field_sq_distances(rotated, smask.to(torch.float32), tgt, tmask, field_plan(700))
-    assert torch.equal(got, nn_sqdistances(rotated, smask, tgt, tmask))
+    got = field_sq_distances(src, smask, tgt, tmask, rots)
+    assert torch.equal(got, nn_sqdistances(rotate_sources(rots, src), smask, tgt, tmask))
     assert bool((got[:, smask] == 1e30).all()) and not got[:, ~smask].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(cull_probe_cases()))
+def test_field_cull_probes_on_the_card(cuda_device, case):
+    """The culling probes (tile faces and corners, duplicate rows, near-equal
+    distances, one valid row, a single tile, P not a multiple of 32): both
+    probe modes and the three fields equal the plain versions' bits, whole
+    and in chunks, and the counter of scanned pairs stays within the pairs
+    there are."""
+    from kss_icp_torch.ops.coarse_cuda import SQ_PLAIN, field_trim_plain, rotate_sources
+    from kss_icp_torch.ops.nn import nn_distances, nn_sqdistances
+
+    src, smask, tgt, tmask, rots = args = tuple(_t(x, cuda_device) for x in cull_probe_cases()[case])
+    rotated = rotate_sources(rots, src)
+    for cap in CULL_CAPS:
+        scanned = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+        got = _cull("sqdistances", args, cap, scanned)
+        assert torch.equal(got, nn_sqdistances(rotated, smask, tgt, tmask)), cap
+        pairs = rots.shape[0] * int(smask.sum()) * int(tmask.sum())
+        assert 0 < int(scanned[0]) <= pairs and int(scanned[1]) > 0
+        assert torch.equal(_cull("distances", args, cap), nn_distances(rotated, smask, tgt, tmask)), cap
+        assert torch.equal(_cull("trim", args, cap), field_trim_plain(*args, 0.7)), cap
+        for metric, plain in SQ_PLAIN.items():
+            assert torch.equal(_cull(metric, args, cap), plain(*args)), (metric, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["scattered", "T not a multiple of the tile", "few rotations, small P, long T",
+                                  "target fully masked"])
+def test_field_keys_kernel_matches_plain(cuda_device, case):
+    """field_order's keys from the keys kernel: the plain version's bits
+    (the same rounding of the cell), one counted launch."""
+    from kss_icp_torch.ops.coarse_cuda import field_keys, field_keys_plain
+
+    src, smask, tgt, tmask, _ = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
+    before = field_keys.launches
+    got = field_keys(src, smask, tgt, tmask)
+    assert field_keys.launches == before + 1
+    assert torch.equal(got, field_keys_plain(src, smask, tgt, tmask))
+
+
+@pytest.mark.cuda
+def test_field_trim_at_4096_rotations_allocates_no_per_point_buffer(cuda_device):
+    """The 16³ overlap field at full resolution, 4096 x 2048 x 2048: the fused
+    call's peak allocation stays far below the (C, P) buffer (33.5 MB) and
+    the (C, P, 3) rotated source (100 MB) the per-point path held; the field
+    equals the plain version's bits, and a block's share of pairs scanned is
+    below the whole."""
+    from kss_icp_torch.ops.coarse_cuda import field_trim, field_trim_plain
+
+    rng = np.random.default_rng(4096)
+    src, tgt = (_t(random_cloud(rng, 2048).astype(np.float32), cuda_device) for _ in range(2))
+    smask = (torch.arange(2048, device=cuda_device) < 2000) & _t(rng.uniform(size=2048) < 0.7, cuda_device)
+    tmask = (torch.arange(2048, device=cuda_device) < 2000) & _t(rng.uniform(size=2048) < 0.7, cuda_device)
+    rots = euler_xyz_matrix(coarse.rotation_grid(16, 6.3, cuda_device))
+    field_trim(src, smask, tgt, tmask, rots, 0.7)  # the library built, the constants cached
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    scanned = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    got = field_trim(src, smask, tgt, tmask, rots, 0.7, scanned=scanned)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert peak < 4 << 20, peak  # the sort's keys and indices, the (C,) output
+    assert torch.equal(got, field_trim_plain(src, smask, tgt, tmask, rots, 0.7))
+    assert 0 < int(scanned[0]) < 4096 * int(smask.sum()) * int(tmask.sum())
+
+
+@pytest.mark.cuda
+def test_field_sq_past_shared_memory_matches_plain_bit_for_bit(cuda_device):
+    """A source past FIELD_MAX_POINTS (the mins in a (C, P) device scratch)
+    against a target longer than a block's share (walked in chunks): the
+    squared probe values and the "max" and "diff" fields equal the plain
+    versions' bits, one counted launch each."""
+    from kss_icp_torch.ops.coarse_cuda import FIELD_MAX_POINTS, SQ_PLAIN, field_cull_plan, field_sq, rotate_sources
+    from kss_icp_torch.ops.nn import nn_sqdistances
+
+    p_n, t_n = FIELD_MAX_POINTS + 3000, 14000
+    rng = np.random.default_rng(37)
+    src, tgt = (_t(random_cloud(rng, n).astype(np.float32), cuda_device) for n in (p_n, t_n))
+    smask = _t(rng.uniform(size=p_n) < 0.8, cuda_device)
+    tmask = _t(rng.uniform(size=t_n) < 0.95, cuda_device)
+    rots = euler_xyz_matrix(coarse.rotation_grid(2, 6.3, cuda_device))
+    args = (src, smask, tgt, tmask, rots)
+    assert field_cull_plan(p_n, t_n, "max") < int(tmask.sum())  # two chunks
+    before = field_sq.launches
+    assert torch.equal(_cull("sqdistances", args, None), nn_sqdistances(rotate_sources(rots, src), smask, tgt, tmask))
+    for metric, plain in SQ_PLAIN.items():
+        assert torch.equal(_cull(metric, args, None), plain(*args)), metric
+    assert field_sq.launches == before + 3
 
 
 @pytest.mark.cuda
