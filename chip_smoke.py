@@ -44,17 +44,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
      the blocks (a cloud tiled 4x) at steps = S, < S and 0, and
      MAX_POINTS, each printing its plan and its empty steps (the plan's
      cluster and threads on one point a block), and a cloud past
-     MAX_POINTS and a cluster of 32 blocks, which must raise; field_ave, and field_dot at
-     "highest" and "default", on the base grid C=512, P=T=2048 and the
+     MAX_POINTS and a cluster of 32 blocks, which must raise; field_ave
+     (the culling kernel's "ave" statistic) bit for bit and field_dot (the
+     tensor-core kernel) at "highest" and "default" within rtol 2e-5,
+     on the base grid C=512, P=T=2048 and the
      escalation grid C=4096, P=T=512, mostly valid, and on the base grid
      with both clouds suffix-masked to the largest and smallest remesh
      pair's pnumber, 1534 and 378, where the field must also equal its
      valid prefix's bit for bit, and on the base grid at the bench
-     config's 512-point prefixes, C=512, P=T=512) and time both with CUDA
+     config's 512-point prefixes, C=512, P=T=512 (field_ave also at a mesh
+     rank's 1024 x 2048 x 2048) and time both with CUDA
      events, calls back to back (`ms`, as the ICP loop pays them), and
      each kernel also by
-     CUDA-graph replay (`device_ms`, the device's time of a call); each
-     with its bound on the valid rows and a PyTorch composition as a
+     CUDA-graph replay (`device_ms`, the device's time of a call, field_order
+     included for field_ave); field_ave with its share of pairs scanned and
+     its bound on the pairs scanned and the box tests (the brute-force one
+     as `bruteforce_bound_ms`), field_dot with its bound on the valid rows
+     (at "highest" the cheaper of the float32 and the tensor-core route),
+     its SASS's tensor-core instructions and the kernels one call launches
+     (torch.profiler); each with a PyTorch composition as a
      yardstick; field_trim (the overlap tier's trimmed field: one launch
      that rotates, culls target tiles exactly and reduces each row) bit for
      bit, its probe mode's per-point distances and the fused field, at
@@ -136,7 +144,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
           source (points of the input), largescan --seed 0 (gated as 4f),
           serve with three good requests and one bad (three ok, one not,
           exit 0 at EOF) and register --profile, whose torch.profiler trace
-          must name nn1_kernel, fps_kernel and field_partial_kernel and
+          must name nn1_kernel, fps_kernel and field_cull_kernel and
           gives the device busy share of one register pass, its process's
           first (printed beside the same trace of a warm pass in this
           process); each subprocess's wall seconds beside nvidia-smi's line;
@@ -389,8 +397,7 @@ def phase_kernels(torch, dev) -> dict:
     from kss_icp_torch.core.cloud import PointCloud
     from kss_icp_torch.core.transforms import euler_xyz_matrix
     from kss_icp_torch.models.coarse import rotation_grid
-    from kss_icp_torch.ops.coarse_cuda import (dot_operands, field_ave, field_ave_plain, field_dot,
-                                               field_dot_plain, rotate_sources)
+    from kss_icp_torch.ops.coarse_cuda import dot_operands, dot_plan, field_dot, field_dot_plain
     from kss_icp_torch.ops.nn_cuda import nn1, nn1_plain, nn1_plan, sm_count
     from kss_icp_torch.ops.resample import farthest_point_sampling
     from kss_icp_torch.ops.resample_cuda import fps
@@ -653,12 +660,14 @@ def phase_kernels(torch, dev) -> dict:
     def chunked(fn, c_n, step=64):
         return lambda: [fn(c0, min(c0 + step, c_n)) for c0 in range(0, c_n, step)]
 
-    # Operations per evaluation (rotation, valid source point, valid target
-    # row), as (float32, bf16): field_ave 3 sub + 3 mul + 2 add + 1 min;
-    # field_dot at "highest" 3 mul + 3 add (the bias included) + 1 min; at
+    # field_dot's operations per evaluation (rotation, valid source point,
+    # valid target row), as (float32, bf16): at "highest" the cheaper of the
+    # float32 route, 3 mul + 3 add (the bias included) + 1 min, and the
+    # tensor-core route, the six bf16 products of the 3 coordinates (36
+    # operations), the |t|² bias as one float32 add and one float32 min; at
     # "default" the K=4 bf16 product, 2 x 4 on a tensor core, and the float32
     # min. The kernels spend more (PERF.md).
-    per_eval = {None: (9.0, 0.0), "highest": (7.0, 0.0), "default": (1.0, 8.0)}
+    dot_routes = {"highest": ((7.0, 0.0), (2.0, 36.0)), "default": ((1.0, 8.0),)}
     # (grid steps, padded n, valid rows, label): the mostly valid cases; the
     # largest and smallest remesh pair's pnumber in register_pair's 2048 slots;
     # the bench config's 512-point prefixes, all valid from pnumber 512 on (23
@@ -670,57 +679,156 @@ def phase_kernels(torch, dev) -> dict:
                     (8, 2048, 378, "base grid, smallest remesh pair", 1), (8, 512, 512, "base grid, bench prefixes", 1),
                     (MESH_STEPS, 2048, 1534, f"mesh: one of {MESH_WORLD} ranks' rotations of the {MESH_STEPS}³ grid, "
                      "largest remesh pair", MESH_WORLD))
-    for name, kernel, plain, src_file, line, precisions in (
-            ("field_ave", field_ave, field_ave_plain, "field.cu", 201, (None,)),
-            ("field_dot", field_dot, field_dot_plain, "field_dot.cu", 218, ("highest", "default"))):
-        cases = []
-        for steps, n, valid, grid, parts in field_shapes:
-            if parts > 1 and name != "field_ave":  # the mesh shards field_ave's grid alone
-                continue
-            args = field_inputs(steps, n, valid, parts)
-            c_n = args[4].shape[0]
-            src, smask, tgt, tmask, rots = args
-            if name == "field_ave":
-                rotated, valid_tgt = rotate_sources(rots, src), tgt[tmask]
-                yard = chunked(lambda a, z: torch.cdist(rotated[a:z], valid_tgt[None]).amin(-1), c_n)
-                yard_label = "torch.cdist(rotated, valid_target).amin(-1), 64 rotations a call"
-            else:
-                rotated, _, _, ra = dot_operands(*args)
-                qa = torch.cat([rotated, torch.ones_like(rotated[..., :1])], dim=-1)
-                yard = chunked(lambda a, z: torch.matmul(qa[a:z], ra.T).amin(-1), c_n)
-                yard_label = "torch.matmul([Rq, 1], ra.T).amin(-1) in float32, 64 rotations a call"
-            for prec in precisions:
-                kw = {} if prec is None else {"precision": prec}
-                fk = kernel(*args, **kw)
-                fp = plain(*args, **kw)
-                torch.cuda.synchronize()
-                label = f"{name}{'' if prec is None else ' ' + prec} C={c_n} P=T={n}"
-                require(torch.allclose(fk, fp, rtol=2e-5, atol=0.0), f"{label}: differs beyond rtol 2e-5")
-                require(torch.equal(fk, kernel(*args, **kw)), f"{label}: repeated runs differ")
-                if valid is not None:  # masked rows skipped exactly: the padded clouds give their prefix's bits
-                    require(torch.equal(fk, kernel(src[:valid], smask[:valid], tgt[:valid], tmask[:valid], rots, **kw)),
-                            f"{label}: the padded clouds' field differs from their valid prefix's")
-                err = float((fk - fp).abs().max())
-                ms = time_ms(lambda: kernel(*args, **kw), 10)
-                device_ms = graph_ms(lambda: kernel(*args, **kw), 10)  # rotation, kernels and division
-                plain_ms = time_ms(lambda: plain(*args, **kw), 3)
-                yard_ms = time_ms(yard, 3)
-                evals = c_n * int(smask.sum()) * int(tmask.sum())
-                b = bound(per_eval[prec][0] * evals, field_bytes(c_n, n), per_eval[prec][1] * evals)
-                cases.append(dict({"shape": f"{c_n}x{n}x{n}", "label": grid, "precision": prec, "valid": valid,
-                                   "batch_pass": "mesh" if parts > 1 else None,
-                                   "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": err,
-                                   "yardstick_ms": yard_ms}, **b))
-                log(f"  {label} ({grid}): max|err| {err:.3g}; kernel {ms:.4f} ms a wrapper call back to back, "
-                    f"{device_ms:.4f} ms on the device (graph replay), plain {plain_ms:.4f} ms, yardstick "
-                    f"{yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; valid rows only)")
-        out[name] = dict(cases[0], cases=cases, yardstick=yard_label, source=f"kss_icp_torch/csrc/{src_file}",
-                         replaces=f"kss_icp_tpu/ops/coarse_pallas.py:{line}")
+    cases = []
+    for steps, n, valid, grid, parts in field_shapes:
+        cases.append(field_ave_case(torch, dev, field_inputs(steps, n, valid, parts), grid, valid, parts))
+    out["field_ave"] = dict(cases[0], cases=cases, yardstick="torch.cdist(rotated, valid_target).amin(-1), 64 "
+                            "rotations a call", source="kss_icp_torch/csrc/field_trim.cu",
+                            replaces="kss_icp_tpu/ops/coarse_pallas.py:201")
+    cases = []
+    for steps, n, valid, grid, parts in field_shapes:
+        if parts > 1:  # the mesh shards field_ave's grid alone
+            continue
+        args = field_inputs(steps, n, valid, parts)
+        src, smask, tgt, tmask, rots = args
+        c_n = rots.shape[0]
+        rotated, _, _, ra = dot_operands(*args)
+        qa = torch.cat([rotated, torch.ones_like(rotated[..., :1])], dim=-1)
+        yard = chunked(lambda a, z: torch.matmul(qa[a:z], ra.T).amin(-1), c_n)
+        for prec in ("highest", "default"):
+            fk = field_dot(*args, prec)
+            fp = field_dot_plain(*args, prec)
+            torch.cuda.synchronize()
+            label = f"field_dot {prec} C={c_n} P=T={n}"
+            require(torch.allclose(fk, fp, rtol=2e-5, atol=0.0), f"{label}: differs beyond rtol 2e-5")
+            require(torch.equal(fk, field_dot(*args, prec)), f"{label}: repeated runs differ")
+            if valid is not None:  # masked rows skipped exactly: the padded clouds give their prefix's bits
+                require(torch.equal(fk, field_dot(src[:valid], smask[:valid], tgt[:valid], tmask[:valid], rots, prec)),
+                        f"{label}: the padded clouds' field differs from their valid prefix's")
+            err = float((fk - fp).abs().max())
+            plan = dot_plan(c_n, n, n, prec, sm_count(dev.index))
+            ms = time_ms(lambda: field_dot(*args, prec), 10)
+            device_ms = graph_ms(lambda: field_dot(*args, prec), 10)  # the one launch and its allocations
+            plain_ms = time_ms(lambda: field_dot_plain(*args, prec), 3)
+            yard_ms = time_ms(yard, 3)
+            evals = c_n * int(smask.sum()) * int(tmask.sum())
+            b = min((bound(f32 * evals, field_bytes(c_n, n), bf16 * evals) for f32, bf16 in dot_routes[prec]),
+                    key=lambda x: x["bound_ms"])
+            cases.append(dict({"shape": f"{c_n}x{n}x{n}", "label": grid, "precision": prec, "valid": valid,
+                               "batch_pass": None, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                               "max_abs_err": err, "yardstick_ms": yard_ms, "plan": plan._asdict()}, **b))
+            log(f"  {label} ({grid}): max|err| {err:.3g}; {ms:.4f} ms a wrapper call back to back, {device_ms:.4f} "
+                f"ms on the device (graph replay); plain {plain_ms:.4f} ms, yardstick {yard_ms:.4f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}; valid rows only); plan {tuple(plan)}")
+    out["field_dot"] = dict(cases[0], cases=cases, yardstick="torch.matmul([Rq, 1], ra.T).amin(-1) in float32, 64 "
+                            "rotations a call", source="kss_icp_torch/csrc/field_dot.cu",
+                            replaces="kss_icp_tpu/ops/coarse_pallas.py:218",
+                            tensor_instructions=dot_sass(), launched_kernels=dot_launches(torch, dev, field_inputs))
     out["field_trim"] = phase_field_trim(torch, dev, rng)
     out["field_trim"]["squared"] = phase_field_sq(torch, dev, rng)
     out["field_keys"] = phase_field_keys(torch, dev, rng)
     phase_plain_knobs(torch, dev)
     return out
+
+
+def field_ave_case(torch, dev, args, label, valid, parts) -> dict:
+    """One shape of field_ave (the culling kernel's "ave" statistic, after
+    field_order's sort) against its plain version bit for bit, repeated runs
+    and, for suffix masks, the valid prefix's bits; its share of (point,
+    row) pairs scanned (the kernel's counter), the wrapper's times (back to
+    back, and by graph replay on the device: field_order and the launch),
+    the plain version's and the yardstick's, `bound_ms` on the pairs
+    scanned and the box tests made and `bruteforce_bound_ms` on every pair."""
+    from kss_icp_torch.ops import coarse_cuda as cc
+    from kss_icp_torch.timing import graph_ms, time_ms
+
+    src, smask, tgt, tmask, rots = args
+    c_n, n = rots.shape[0], src.shape[0]
+    counter = torch.zeros(2, dtype=torch.int64, device=dev)
+    fk, fp = cc.field_ave(*args, scanned=counter), cc.field_ave_plain(*args)
+    torch.cuda.synchronize()
+    name = f"field_ave C={c_n} P=T={n}"
+    require(torch.equal(fk, fp), f"{name} ({label}): differs from the plain version's bits at "
+                                 f"{int((fk != fp).sum())} of {c_n}")
+    require(torch.equal(fk, cc.field_ave(*args)), f"{name}: repeated runs differ")
+    if valid is not None:
+        require(torch.equal(fk, cc.field_ave(src[:valid], smask[:valid], tgt[:valid], tmask[:valid], rots)),
+                f"{name}: the padded clouds' field differs from their valid prefix's")
+    ns, m = int(smask.sum()), int(tmask.sum())
+    pairs = c_n * ns * m
+    scanned, tests = (int(x) for x in counter.tolist())
+    share = scanned / pairs
+    require(0 < share <= 1, f"{name}: {scanned} pairs scanned of {pairs}")
+    ms = time_ms(lambda: cc.field_ave(*args), 10)
+    device_ms = graph_ms(lambda: cc.field_ave(*args), 10)  # field_order's sort and the launch
+    plain_ms = time_ms(lambda: cc.field_ave_plain(*args), 3)
+    rotated, valid_tgt = cc.rotate_sources(rots, src), tgt[tmask]
+    yard_ms = time_ms(lambda: [torch.cdist(rotated[a:a + 64], valid_tgt[None]).amin(-1) for a in range(0, c_n, 64)],
+                      3)
+    nbytes = 4 * (n * 3 * 2 + c_n * 9 + c_n) + 2 * n + 8 * 2 * n
+    b = bound(9.0 * scanned + BOX_TEST_OPS * tests, nbytes)
+    brute = bound(9.0 * pairs, nbytes)["bound_ms"]
+    log(f"  {name} ({label}): the plain version's bits; {share:.4f} of {pairs} pairs scanned, {tests} box tests; "
+        f"{ms:.4f} ms a wrapper call back to back, {device_ms:.4f} ms on the device (graph replay; field_order "
+        f"included), plain {plain_ms:.4f} ms, cdist+min {yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}; the pairs scanned and the box tests), {brute:.4f} ms on every pair")
+    return dict({"shape": f"{c_n}x{n}x{n}", "label": label, "precision": None, "valid": valid,
+                 "batch_pass": "mesh" if parts > 1 else None, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                 "max_abs_err": 0.0, "yardstick_ms": yard_ms, "pairs": pairs, "scanned_pairs": scanned,
+                 "scanned_share": share, "box_tests": tests, "bruteforce_bound_ms": brute}, **b)
+
+
+def dot_sass() -> dict:
+    """{field_dot kernel instantiation: its HMMA instructions} from the built
+    library's SASS (cuobjdump beside nvcc); both must run on the tensor cores."""
+    from kss_icp_torch import _build
+
+    path, _, _ = _build.build()
+    sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(path)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}
+    for func in sass.split("Function : ")[1:]:
+        name = func.split()[0]
+        if "field_dot_kernel" in name:
+            counts["default" if "ILi1EE" in name else "highest"] = len(re.findall(r"\bHMMA\.", func))
+    log(f"  field_dot SASS, HMMA instructions: {counts}")
+    require(len(counts) == 2 and all(counts.values()), f"field_dot does not run on the tensor cores: {counts}")
+    return counts
+
+
+def dot_launches(torch, dev, field_inputs) -> dict:
+    """{precision: the kernel nodes of a CUDA graph captured around one
+    field_dot call}, by the graph's DOT dump (cudaGraphDebugDotPrint, which
+    names each node's type and a kernel node's function): the kernel alone,
+    no rotation or operand pass, at both precisions."""
+    import tempfile
+    import warnings
+
+    from kss_icp_torch.ops.coarse_cuda import field_dot
+
+    args = field_inputs(8, 2048, 1534)
+    found = {}
+    for prec in ("highest", "default"):
+        field_dot(*args, prec)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph(keep_graph=True)  # the captured graph stays for the dump
+        g.enable_debug_mode()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            field_dot(*args, prec)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # debug_dump warns that it runs
+            path = Path(tmp, "graph.dot")
+            g.debug_dump(str(path))
+            require(path.exists(), f"field_dot {prec}: the captured graph gave no DOT dump")
+            dot = path.read_text()
+        nodes = re.findall(r'label="\{(\w+)\s*\n\| \{ID \| [^|]*\| ([^<}\\]*)', dot)
+        found[prec] = [name.strip() for kind, name in nodes if kind == "KERNEL"]
+        log(f"  field_dot {prec}: the captured graph's nodes {[kind for kind, _ in nodes]}, kernels {found[prec]}")
+        require(len(found[prec]) == 1 and "field_dot_kernel" in found[prec][0],
+                f"field_dot {prec}: the captured call's kernels are {found[prec]}, not field_dot_kernel alone")
+        g.reset()
+    return found
 
 
 def cull_case(torch, dev, name, stat, args, plain, probe_plain, label) -> dict:
@@ -1318,8 +1426,9 @@ def phase_default_config(torch, dev, kernels: dict, e2e: dict) -> None:
                                        "rungs_adopted": adopted, "stage_seconds": dict(timer.seconds),
                                        "stage_iterations": dict(timer.iterations), "rows": rows}
     kernels["field_trim"]["launches"] = launches["field_trim"]
-    require(launches["field_keys"] == launches["field_trim"],
-            f"shipped boards: {launches['field_keys']} field_keys launches for {launches['field_trim']} fields")
+    require(launches["field_keys"] == launches["field_trim"] + launches["field_ave"],
+            f"shipped boards: {launches['field_keys']} field_keys launches for {launches['field_trim']} trimmed "
+            f"and {launches['field_ave']} ave fields")
     kernels["field_keys"]["launches"] = launches["field_keys"]
 
 
@@ -1916,7 +2025,7 @@ def phase_cli(torch, dev, e2e: dict, card: str) -> None:
         warm_prof.export_chrome_trace(str(Path(tmp) / "warm.json"))
         busy = {"cli": device_busy(trace), "warm": device_busy(Path(tmp) / "warm.json")}
         names_in_trace = busy["cli"].get("kernel_names", set())
-        missing = [k for k in ("nn1_kernel", "fps_kernel", "field_partial_kernel")
+        missing = [k for k in ("nn1_kernel", "fps_kernel", "field_cull_kernel")
                    if not any(k in n for n in names_in_trace)]
         require(not missing, f"cli register --profile: the trace holds no {missing} (kernels: {sorted(names_in_trace)})")
         for label, b in busy.items():
@@ -3276,6 +3385,7 @@ def phase_bf16_ranking(torch, dev) -> None:
 
     same0 = {"highest": 0, "vpu": 0}
     same6 = {"highest": 0, "vpu": 0}
+    gaps = []
     pairs = load_pairs()
     for name, src, tgt in pairs:
         pn = torch.tensor([cfg.resample_count(len(src), len(tgt))], device=dev)
@@ -3288,8 +3398,10 @@ def phase_bf16_ranking(torch, dev) -> None:
                                   ("vpu", "vpu", "highest")):
             c = coarse_align(aligned, sm[0], tp[0], tm[0], steps=cfg.rotation_steps, radius=cfg.kernel_radius,
                              max_candidates=cfg.max_candidates, method=method, precision=prec)
-            fields[key] = (tuple(c.candidate_angles[0].tolist()), {tuple(a) for a in c.candidate_angles[:6].tolist()})
-        line = []
+            fields[key] = (tuple(c.candidate_angles[0].tolist()), {tuple(a) for a in c.candidate_angles[:6].tolist()},
+                           c.field)
+        gaps.append(float(((fields["default"][2] - fields["highest"][2]).abs() / fields["highest"][2].abs()).max()))
+        line = [f"bf16 field within {gaps[-1]:.3g} of 'highest' (relative)"]
         for ref in ("highest", "vpu"):
             s0 = fields["default"][0] == fields[ref][0]
             s6 = fields["default"][1] == fields[ref][1]
@@ -3298,8 +3410,10 @@ def phase_bf16_ranking(torch, dev) -> None:
             line.append(f"vs {ref}: candidate 0 {'same' if s0 else 'DIFFERS'}, top-6 set {'same' if s6 else 'differs'}")
         log(f"  [bf16 field] {name}: " + "; ".join(line))
     n = len(pairs)
-    log(f"  [bf16 field] the bf16 8³ field keeps candidate 0 of 'highest' on {same0['highest']}/{n} pairs and of "
-        f"field_ave on {same0['vpu']}/{n}; the top-6 set on {same6['highest']}/{n} and {same6['vpu']}/{n}")
+    log(f"  [bf16 field] the bf16 8³ field (field_dot's tensor-core kernel, one bf16 pass) keeps candidate 0 of "
+        f"'highest' (its six bf16 products) on {same0['highest']}/{n} pairs and of field_ave on {same0['vpu']}/{n}; "
+        f"the top-6 set on {same6['highest']}/{n} and {same6['vpu']}/{n}; the field within {max(gaps):.3g} of "
+        f"'highest' at the worst pair (median {float(np.median(gaps)):.3g})")
 
 
 def main() -> int:

@@ -39,8 +39,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "kss_nn1": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "kss_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-    "kss_field_ave": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "kss_field_dot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "kss_field_dot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "kss_field_cull": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
     "kss_field_keys": (_P, _P, _P, _P, _I, _I, _P, _P),
 }

@@ -1,12 +1,18 @@
-// field_trim and field_sq: the overlap tier's trimmed rotation field ("trim") and the
-// "max" and "diff" fields, one launch a field, each rotation's statistic reduced in the
-// kernel.
+// field_ave, field_trim and field_sq: the coarse search's "ave" rotation field, the overlap
+// tier's trimmed field ("trim") and the "max" and "diff" fields, one launch a field, each
+// rotation's statistic reduced in the kernel.
 //
-// Not a TPU kernel: JAX scores these metrics with XLA (kss_icp_tpu/models/coarse.py:113-131
-// through ops/nn.py:183-198), since its Pallas field does only "ave". Plain PyTorch versions:
-// kss_icp_torch/ops/coarse_cuda.py::field_trim_plain, field_max_plain, field_diff_plain
-// (ops/nn.py::nn_distances / nn_sqdistances of the rotated source, then trimmed_masked_mean or
-// sq_error, their sums in float64).
+// "ave" replaces the Pallas TPU kernel kss_icp_tpu/ops/coarse_pallas.py:201 (K1,
+// rotation_scores_pallas with method="vpu", body _field_kernel_vpu at :77). The others replace no
+// TPU kernel: JAX scores those metrics with XLA (kss_icp_tpu/models/coarse.py:113-131 through
+// ops/nn.py:183-198), since its Pallas field does only "ave". Plain PyTorch versions:
+// kss_icp_torch/ops/coarse_cuda.py::field_ave_plain, field_trim_plain, field_max_plain,
+// field_diff_plain (ops/nn.py::masked_mean_nn_distance, nn_distances / nn_sqdistances of the
+// rotated source, then trimmed_masked_mean or sq_error, their sums in float64). A deliberate
+// divergence from JAX: "ave" sums in float64 and rounds once, where the TPU kernel adds float32
+// partial sums a query tile at a time (within 2 float32 ulps of the field on the rows tried,
+// tests/test_torch_field_cull.py), so the kernel's sum in its own order keeps the plain
+// version's bits.
 //
 // For each rotation c and valid source point p, v(c, p) = min over the valid target rows t of
 // ((dx*dx + dy*dy) + dz*dz), (dx, dy, dz) = t - R_c s_p, every product and sum rounded on its
@@ -17,6 +23,8 @@
 //         ceil(q * n_valid - 1e-3) of ops/nn.py::_trim_count; 1e30 with no valid point;
 //   max   the largest v; -1e30 with no valid point;
 //   diff  sqrt(max v) - float32(sum of sqrt(v), in float64) / max(n_valid, 1);
+//   ave   float32(sum of sqrt(max(v, 0)), in float64) / float32(max(n_valid, 1)); 0 with no valid
+//         point, as the plain version's masked mean gives;
 //   the probe modes write v or sqrt(v) to a (C, P) buffer in the caller's point order, 0 at a
 //   masked point (the tests' and the smoke run's check of the min; the main path never runs
 //   them).
@@ -54,8 +62,8 @@
 //     tile repeats its first row, which leaves the min unchanged. A target with no valid row
 //     takes the biased path over every row, unculled.
 //   - the row epilogue in the block: the block's P mins stay in shared memory (P < 8192 for
-//     "trim", as _sorted_rank requires). Past FIELD_MAX_POINTS source points ("max", "diff"
-//     and the probe modes) they go to a (C, P) scratch in device memory that the wrapper
+//     "trim", as _sorted_rank requires). Past FIELD_MAX_POINTS source points ("ave", "max",
+//     "diff" and the probe modes) they go to a (C, P) scratch in device memory that the wrapper
 //     allocates, so every P stays accepted and shared memory holds the target. "trim" finds
 //     the k-th smallest sqrt(v) by a radix select on its bits (non-negative floats order as
 //     their bits): four 8-bit histogram passes with shared-memory atomics, which count and so
@@ -63,7 +71,7 @@
 //     taken in float64 in a fixed order (each thread its strided points, then a shuffle tree,
 //     then the warps in order), so repeated runs give the same bits; a float64 sum in any order
 //     rounds to the same float32 as the plain version's float64 cumulative sum on every row
-//     tried. "max" and "diff" reduce the max and the float64 sum the same way.
+//     tried. "ave", "max" and "diff" reduce the max and the float64 sum the same way.
 //   - an optional counter adds up the (point, row) pairs each warp scanned and the box tests
 //     its lanes with a valid point made, the centroid's search for the nearest tile included
 //     (the smoke run's share of pairs scanned and the bound on the work this design needs):
@@ -84,7 +92,7 @@ constexpr int kRunRows = kTileRows * kRunTiles;
 constexpr float kBig = 1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Stat { kTrim = 0, kMax = 1, kDiff = 2, kProbeDist = 3, kProbeSq = 4 };
+enum Stat { kTrim = 0, kMax = 1, kDiff = 2, kProbeDist = 3, kProbeSq = 4, kAve = 5 };
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 
@@ -394,10 +402,15 @@ field_cull_kernel(const float* __restrict__ source, const unsigned char* __restr
       out[static_cast<size_t>(c) * P + order[i]] = x;
     }
   } else if (ns == 0) {
-    if (tid == 0) out[c] = stat == kTrim ? kBig : -kBig;
+    if (tid == 0) out[c] = stat == kTrim ? kBig : stat == kAve ? 0.f : -kBig;
   } else if (stat == kTrim) {
     const float f = trim_stat(vals, ns, q, hist, red_d, &sel_prefix, &sel_rank, &sel_below);
     if (tid == 0) out[c] = f;
+  } else if (stat == kAve) {
+    double sum = 0.0;
+    for (int i = tid; i < ns; i += kThreads) sum += static_cast<double>(sqrtf(fmaxf(vals[i], 0.f)));
+    sum = block_sum(sum, red_d);
+    if (tid == 0) out[c] = __fdiv_rn(__double2float_rn(sum), static_cast<float>(ns));
   } else {
     float mx = -inf();
     double sum = 0.0;
@@ -490,7 +503,7 @@ __global__ void __launch_bounds__(1024) field_keys_kernel(const float* __restric
 // source (P, 3), target (T, 3), rotations (C, 3, 3) float32; smask (P,), tmask (T,) uint8; order
 // (P + T,) int64: the indices of a stable sort of kss_field_keys' keys (source rows first, each
 // cloud's valid rows first); stat 0 trim (q its fraction), 1 max, 2 diff, 3 / 4 the probe
-// modes' distances / squared distances; cap: target rows a block stages at once, a multiple of
+// modes' distances / squared distances, 5 ave; cap: target rows a block stages at once, a multiple of
 // 128. out (C,) float32, or (C, P) in the probe modes; scratch: null (the mins in shared
 // memory) or (C, P) float32 for the mins (any stat but trim); scanned: null or an optional
 // (2,) counter of the (point, row) pairs scanned and the box tests made.
@@ -499,7 +512,7 @@ extern "C" int kss_field_cull(const float* source, const unsigned char* smask, c
                               int T, int stat, float q, int cap, float* out, float* scratch,
                               unsigned long long* scanned, cudaStream_t stream) {
   if (C <= 0) return 0;
-  if (C > 65535 || P <= 0 || T <= 0 || stat < kTrim || stat > kProbeSq || cap <= 0 || cap % kRunRows != 0 ||
+  if (C > 65535 || P <= 0 || T <= 0 || stat < kTrim || stat > kAve || cap <= 0 || cap % kRunRows != 0 ||
       (stat == kTrim && scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = smem_bytes(cap, scratch != nullptr ? 0 : P);

@@ -1,58 +1,49 @@
-"""Wrappers of the rotation-field CUDA kernels: the "ave", "trim", "max" and "diff" fields.
+"""Wrappers of the rotation-field CUDA kernels: the "ave", "dot", "trim", "max" and "diff" fields.
 
-`field_ave` (csrc/field.cu) ports kss_icp_tpu/ops/coarse_pallas.py::
-rotation_scores_pallas with method="vpu" (K1), exact float32 differences;
-`field_dot` (csrc/field_dot.cu) ports method="dot" (K1-dot), the augmented
-dot product [R q, 1] . [-2 t, |t|^2] with |q|^2 added back, at a precision
-("default" is one bf16 pass). Both are one kernel (csrc/field_kernel.cuh)
-launched with a plan from `field_plan`. `field_trim` and `field_sq`
-(csrc/field_trim.cu, one kernel) score the overlap tier's "trim" field and
-the "max" and "diff" fields, which JAX computes with XLA
-(kss_icp_tpu/models/coarse.py:113-131), not a TPU kernel: the kernel
-rotates the source, culls target tiles by their boxes exactly and reduces
-each rotation's row itself, after `field_order`'s sort; its probe mode
+`field_ave`, `field_trim` and `field_sq` are one kernel (csrc/field_trim.cu,
+`kss_field_cull`), one launch a field after `field_order`'s sort: it rotates
+the source, culls target tiles by their boxes exactly and reduces each
+rotation's row itself. Its "ave" statistic ports kss_icp_tpu/ops/
+coarse_pallas.py::rotation_scores_pallas with method="vpu" (K1); "trim",
+"max" and "diff" score the fields JAX computes with XLA
+(kss_icp_tpu/models/coarse.py:113-131), not a TPU kernel. Its probe mode
 (`field_trim_distances`, `field_sq_distances`) writes the per-point values
-for the tests. On CPU tensors each wrapper runs its plain version
-(`field_ave_plain`, `field_dot_plain`, `field_trim_plain`, `field_max_plain`,
-`field_diff_plain`); on CUDA tensors it launches its kernel or raises.
+for the tests. `field_dot` (csrc/field_dot.cu) ports method="dot" (K1-dot),
+the augmented dot product [R q, 1] . [-2 t, |t|^2] with |q|^2 added back, on
+the tensor cores at a precision ("default" is one bf16 pass, "high" and
+"highest" six), on a grid and a staged share of the target from
+`dot_plan`. On CPU tensors each
+wrapper runs its plain version (`field_ave_plain`, `field_dot_plain`,
+`field_trim_plain`, `field_max_plain`, `field_diff_plain`); on CUDA tensors
+it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
-from collections import Counter
+from collections import Counter, namedtuple
 
 import torch
 
 from kss_icp_torch.core.transforms import rotate_points
 from kss_icp_torch.ops.nn import (BIG, _BLOCK_ELEMS, QUANTILE_MAX_WIDTH, masked_mean, masked_mean_nn_distance,
                                   masked_nn_error, nn_distances, nn_sqdistances)
+from kss_icp_torch.ops.nn_cuda import SMS
 
-FIELD_GROUP = 256  # kGroup of csrc/field_kernel.cuh: one partial sum per 256 source points
-FIELD_Q = 4  # kQ of csrc/field_kernel.cuh: rotations a block
-FIELD_SLOTS = (4, 2, 1)  # groups of 256 points a block scans at once
-# precision -> does the dot round its operands to bf16? coarse_pallas.py:37-41:
-# the TPU's dot takes one bf16 pass or full float32, and "high" is promoted
-# to full float32.
+# precision -> does the dot round its operands to bf16 once? coarse_pallas.py:37-41:
+# the TPU's dot takes one bf16 pass or HIGHEST (six), and "high" is promoted
+# to HIGHEST.
 BF16_OPERANDS = {"default": True, "high": False, "highest": False}
 
 
-def field_plan(p_n: int) -> int:
-    """The launch plan of `field_ave` and `field_dot` for P source points:
-    the groups of 256 points a block scans at once (256 threads each), as
-    many as the source has, up to 4. A block holds FIELD_Q rotations, so the
-    grid is ceil(C / 4) blocks: 4 slots on the 8³ grid's padded clouds, 2 at
-    512-point prefixes."""
-    groups = -(-p_n // FIELD_GROUP)
-    return next(s for s in FIELD_SLOTS if s <= groups)
-
-
 def rotate_sources(rotations: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
-    """(C, P, 3) rotated copies R_c · source of a (P, 3) source."""
+    """(C, P, 3) rotated copies R_c · source of a (P, 3) source: the plain
+    versions' and the yardsticks' rotation (the kernels rotate in place)."""
     return rotate_points(rotations, source.unsqueeze(0)).contiguous()
 
 
 def field_ave_plain(source, source_mask, target, target_mask, rotations) -> torch.Tensor:
-    """The plain PyTorch version of `field_ave`, with the same arguments."""
+    """The plain PyTorch version of `field_ave`, with the same arguments:
+    the mean's sum in float64, as the kernel's sum."""
     rotated = rotate_sources(rotations, source)
     return masked_mean_nn_distance(rotated, source_mask, target, target_mask)
 
@@ -85,55 +76,31 @@ def _use_plain(name, source, source_mask, target, target_mask, rotations) -> boo
     return False
 
 
-def _scratch(c_n: int, p_n: int, device) -> tuple:
-    """The kernels' outputs: partials (C, ceil(P / 256)) and sums (C,)."""
-    groups = -(-p_n // FIELD_GROUP)
-    return (torch.empty((c_n, groups), dtype=torch.float32, device=device),
-            torch.empty((c_n,), dtype=torch.float32, device=device))
-
-
-def field_ave_sums(rotated, weight, target, target_mask, slots: int) -> torch.Tensor:
-    """One launch of the `field_ave` kernel with `slots` group slots (see
-    `field_plan`): the (C,) sums over valid points of the distance to the
-    nearest valid target row. rotated (C, P, 3), weight (P,) float32 0/1,
-    target (T, 3), target_mask (T,) bool, all contiguous on one card. The
-    sums' bits do not depend on `slots`. Counts the launch in
-    `field_ave.launches`."""
-    from kss_icp_torch import _build
-
-    c_n, p_n = rotated.shape[:2]
-    partial, sums = _scratch(c_n, p_n, rotated.device)
-    lib = _build.library()
-    with torch.cuda.device(rotated.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.kss_field_ave(rotated.data_ptr(), weight.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
-                                 c_n, p_n, target.shape[0], slots, partial.data_ptr(), sums.data_ptr(), stream)
-    _build.check(code, "field_ave")
-    field_ave.launches += 1
-    return sums
-
-
 def field_ave(
     source: torch.Tensor,
     source_mask: torch.Tensor,
     target: torch.Tensor,
     target_mask: torch.Tensor,
     rotations: torch.Tensor,
+    *,
+    scanned: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Mean 1-NN distance of R_c · source to the target, for every rotation.
 
     source (P, 3), target (T, 3) float32 with bool masks; rotations
     (C, 3, 3). Returns (C,) float32: for each c, the mean over valid source
-    points of the distance to the nearest valid target point."""
+    points of the distance to the nearest valid target point (0 with no
+    valid source point), its sum in float64. On the card, one launch of the
+    culling kernel at its "ave" statistic after `field_order`'s sort, the
+    plain version's bits; `scanned` as `_cull_launch` takes it."""
     if _use_plain("field_ave", source, source_mask, target, target_mask, rotations):
         return field_ave_plain(source, source_mask, target, target_mask, rotations)
-    rotated = rotate_sources(rotations, source)
-    weight = source_mask.to(torch.float32).contiguous()
-    sums = field_ave_sums(rotated, weight, target, target_mask, field_plan(source.shape[0]))
-    return sums / weight.sum().clamp_min(1.0)
+    return _field_cull("field_ave", field_ave, "ave", source, source_mask, target, target_mask, rotations,
+                       scanned=scanned)
 
 
 field_ave.launches = 0
+field_ave.launch_grids = Counter()  # rotations C -> launches, counted beside `launches`
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -148,9 +115,10 @@ def _dot_precision(precision: str) -> bool:
 
 
 def dot_operands(source, source_mask, target, target_mask, rotations):
-    """The K1-dot operands (coarse_pallas.py:147-166): the rotated source
-    (C, P, 3); q2 = (x² + y²) + z² of the unrotated source (P,); the source
-    weight (P,); ra = [-2 t m, |t|² or 1e30 where masked] (T, 4)."""
+    """The K1-dot operands of the plain version (coarse_pallas.py:147-166):
+    the rotated source (C, P, 3); q2 = (x² + y²) + z² of the unrotated
+    source (P,); the source weight (P,); ra = [-2 t m, |t|² or 1e30 where
+    masked] (T, 4). The kernel forms them itself."""
     rotated = rotate_sources(rotations, source)
     sx, sy, sz = source.unbind(-1)
     q2 = (sx * sx + sy * sy) + sz * sz
@@ -163,8 +131,9 @@ def dot_operands(source, source_mask, target, target_mask, rotations):
 
 def field_dot_plain(source, source_mask, target, target_mask, rotations, precision="highest") -> torch.Tensor:
     """The plain PyTorch version of `field_dot`, with the same arguments: the
-    kernel's elementwise order rel = ((qx·ax + qy·ay) + qz·az) + aw, not a
-    matrix product, so every rel agrees with the kernel bit for bit."""
+    elementwise float32 expansion rel = ((qx·ax + qy·ay) + qz·az) + aw, on
+    bf16-rounded operands at "default", then the mean's sum in float64. The
+    kernel's tensor-core sums agree with it to rtol 2e-5, not bit for bit."""
     bf16 = _dot_precision(precision)
     rotated, q2, weight, ra = dot_operands(source, source_mask, target, target_mask, rotations)
     if bf16:
@@ -178,27 +147,43 @@ def field_dot_plain(source, source_mask, target, target_mask, rotations, precisi
         rel = ((q[..., 0] * ax + q[..., 1] * ay) + q[..., 2] * az) + aw
         mins.append(rel.amin(dim=-1))
     m = torch.cat(mins, dim=0)
-    return masked_mean(torch.sqrt((m + q2).clamp_min(0.0)), source_mask)
+    return masked_mean(torch.sqrt((m + q2).clamp_min(0.0)), source_mask, torch.float64)
 
 
-def field_dot_sums(rotated, q2, weight, ra, target_mask, bf16: bool, slots: int) -> torch.Tensor:
-    """One launch of the `field_dot` kernel with `slots` group slots on the
-    operands of `dot_operands` (contiguous, on one card) and the target
-    mask: the (C,) sums. The sums' bits do not depend on `slots`. Counts the
-    launch in `field_dot.launches`."""
-    from kss_icp_torch import _build
+DOT_POINTS = 64  # kPoints of csrc/field_dot.cu: source points an item (a warp's four m16 tiles)
+DOT_TILE = 64  # kTileRows: the staged target rows are padded to a multiple of it
+DOT_MAX_POINTS = DOT_POINTS * 4096  # kMaxGroups groups of 64 source points
+# Shared memory of the field_dot kernel on an H100: an SM's 228 KB, 1 KB of it reserved a block;
+# the kernel's static share (the groups list, the warps' counts).
+DOT_SM_SMEM = 233472
+DOT_STATIC_SMEM = 2 * 4096 + 64
+DotPlan = namedtuple("DotPlan", "blocks cap")
 
-    c_n, p_n = rotated.shape[:2]
-    partial, sums = _scratch(c_n, p_n, rotated.device)
-    lib = _build.library()
-    with torch.cuda.device(rotated.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.kss_field_dot(rotated.data_ptr(), q2.data_ptr(), weight.data_ptr(), ra.data_ptr(),
-                                 target_mask.data_ptr(), c_n, p_n, ra.shape[0], int(bf16), slots, partial.data_ptr(),
-                                 sums.data_ptr(), stream)
-    _build.check(code, "field_dot")
-    field_dot.launches += 1
-    return sums
+
+def dot_stage_bytes(rows: int, words: int) -> int:
+    """csrc/field_dot.cu's staged target: `rows` rows, 4 coordinates of
+    `words` 4-byte words each."""
+    return rows * 4 * words * 4
+
+
+def dot_plan(c_n: int, p_n: int, t_n: int, precision: str, sms: int = SMS) -> DotPlan:
+    """The launch plan of `field_dot` for C rotations, P source and T target
+    points at `precision` on a card of `sms` SMs (an operand value takes 3
+    words at "high" / "highest", 1 at "default"): the persistent grid
+    (two blocks an SM where two hold the staged target, else one; no more
+    than C) and the target rows a block stages at once (the whole target,
+    padded to 64 rows, where it fits one block's shared memory, else the
+    most that fit: the kernel then walks it in chunks). Raises for a source
+    past DOT_MAX_POINTS."""
+    if p_n > DOT_MAX_POINTS:
+        raise ValueError(f"field_dot takes at most {DOT_MAX_POINTS} source points, got {p_n}")
+    words = 1 if _dot_precision(precision) else 3
+    whole = -(-t_n // DOT_TILE) * DOT_TILE
+    room = DOT_SM_SMEM // 2 - 1024 - DOT_STATIC_SMEM  # a block's share with two an SM
+    per_sm = 2 if dot_stage_bytes(whole, words) <= room else 1
+    room = DOT_SM_SMEM - 1024 - DOT_STATIC_SMEM if per_sm == 1 else room
+    fit = room // dot_stage_bytes(DOT_TILE, words) * DOT_TILE
+    return DotPlan(max(1, min(c_n, per_sm * sms)), min(whole, fit))
 
 
 def field_dot(
@@ -209,20 +194,56 @@ def field_dot(
     rotations: torch.Tensor,
     precision: str = "highest",
 ) -> torch.Tensor:
-    """The "ave" field of `field_ave` through the augmented dot product.
+    """The "ave" field through the augmented dot product (coarse_pallas.py
+    method="dot"): for every rotation, the mean over valid source points of
+    sqrt(max(min_t [R s, 1]·[-2t, |t|²] + |s|², 0)), masked target rows at
+    1e30. Same arguments as `field_ave`, plus the dot precision. The
+    expansion form cancels for near-coincident points; the clamp at 0 is
+    part of the contract, so the field differs from `field_ave` by more
+    than rounding.
 
-    Same arguments and result as `field_ave`, plus `precision`: "highest"
-    and "high" compute every product in float32; "default" rounds the
-    rotated source and the augmented target to bfloat16 first, the TPU's one
-    bf16 pass (products exact, float32 sums). The expansion form cancels
-    for near-coincident points; the clamp at 0 is part of the contract, so
-    the field differs from `field_ave` by more than rounding."""
-    bf16 = _dot_precision(precision)
+    On the card one launch of csrc/field_dot.cu, which rotates the source
+    and forms both operands itself and takes the product on the tensor
+    cores (mma.sync): bf16 operands once at "default", three bf16 parts of
+    each and six products at "high" / "highest", float32 accumulators (the
+    head hh and the rest apart, added once rounded to nearest). Its sums are
+    not the plain version's elementwise float32 expansion bit for bit (a
+    deliberate divergence): the field agrees with `field_dot_plain` to rtol
+    2e-5, repeated runs give the same bits, and a suffix-masked cloud its
+    valid prefix's bits. Counts the launch in `field_dot.launches`."""
+    _dot_precision(precision)
     if _use_plain("field_dot", source, source_mask, target, target_mask, rotations):
         return field_dot_plain(source, source_mask, target, target_mask, rotations, precision)
-    rotated, q2, weight, ra = dot_operands(source, source_mask, target, target_mask, rotations)
-    sums = field_dot_sums(rotated, q2, weight, ra, target_mask, bf16, field_plan(source.shape[0]))
-    return sums / weight.sum().clamp_min(1.0)
+    return _field_dot(source, source_mask, target, target_mask, rotations, precision)
+
+
+def _field_dot(source, source_mask, target, target_mask, rotations, precision, cap=None) -> torch.Tensor:
+    """One launch of csrc/field_dot.cu on inputs `_use_plain` accepted, on
+    `dot_plan`'s grid; `cap`: the target rows a block stages at once, a
+    multiple of DOT_TILE, by default `dot_plan`'s (the tests force chunks
+    with it). Counts the
+    launch in `field_dot.launches`."""
+    from kss_icp_torch import _build
+    from kss_icp_torch.ops.nn_cuda import sm_count
+
+    bf16 = _dot_precision(precision)
+    c_n, p_n, t_n = rotations.shape[0], source.shape[0], target.shape[0]
+    plan = dot_plan(c_n, p_n, t_n, precision, sm_count(source.device.index))
+    cap = cap or plan.cap
+    source, source_mask, rotations = source.contiguous(), source_mask.contiguous(), rotations.contiguous()
+    dev = source.device
+    out = torch.empty((c_n,), dtype=torch.float32, device=dev)
+    partial = torch.empty((c_n, -(-p_n // DOT_POINTS), 4), dtype=torch.float64, device=dev)
+    mins = None if t_n <= cap else torch.empty((c_n, p_n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.library().kss_field_dot(
+            source.data_ptr(), source_mask.data_ptr(), target.data_ptr(), target_mask.data_ptr(),
+            rotations.data_ptr(), c_n, p_n, t_n, int(bf16), plan.blocks, cap,
+            out.data_ptr(), partial.data_ptr(), None if mins is None else mins.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "field_dot")
+    field_dot.launches += 1
+    return out
 
 
 field_dot.launches = 0
@@ -251,12 +272,12 @@ FIELD_TILE = 16  # kTileRows of csrc/field_trim.cu: target rows a box
 FIELD_RUN = 128  # kRunRows: rows a run of 8 tiles' box; a block's share of the target is a multiple of it
 # Shared memory a block of the field_trim kernel may take on an H100 (227 KB, less its static share).
 FIELD_SMEM = 232448 - 2048
-# Source points whose mins a block holds in shared memory; past it ("max", "diff", the probe
+# Source points whose mins a block holds in shared memory; past it ("ave", "max", "diff", the probe
 # modes) they go to a (C, P) scratch in device memory.
 FIELD_MAX_POINTS = 32768
 MORTON_BITS = 9  # bits an axis of field_keys' codes
 # The kernel's statistics: the fields, and the probe modes' (C, P) distances and squared distances.
-CULL_STATS = {"trim": 0, "max": 1, "diff": 2, "distances": 3, "sqdistances": 4}
+CULL_STATS = {"trim": 0, "max": 1, "diff": 2, "distances": 3, "sqdistances": 4, "ave": 5}
 _CONSTANTS: dict = {}
 
 

@@ -57,18 +57,23 @@ def nearest_neighbor(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Ten
     return d2, arg.to(torch.int32)
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of values over the valid entries of the last axis (0 if none)."""
+def masked_mean(values: torch.Tensor, mask: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Mean of values over the valid entries of the last axis (0 if none).
+    `dtype` (default: the values') is the sum's: float64 rounds the sum once
+    to the values' type, whatever order a card's reduction takes."""
     w = mask.to(values.dtype)
-    return (values * w).sum(dim=-1) / w.sum(dim=-1).clamp_min(1.0)
+    return (values * w).sum(dim=-1, dtype=dtype).to(values.dtype) / w.sum(dim=-1).clamp_min(1.0)
 
 
 def masked_mean_nn_distance(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> torch.Tensor:
     """Mean 1-NN distance over valid query points — the "ave" rotation-field
-    error (initRegistrationKSS.hpp:430-450) and the field kernel's contract:
-    sqrt(max(min, 0)) of the raw biased min, weighted by the query mask."""
+    error (initRegistrationKSS.hpp:430-450) and the `field_ave` kernel's
+    contract: sqrt(max(min, 0)) of the raw biased min, weighted by the query
+    mask, the sum taken in float64 and rounded once to float32, as the
+    kernel's sum (and `sq_error`'s) is. JAX sums in float32; the field moves
+    by at most a few float32 ulps from that."""
     m, _ = _min_rel(query, ref, ref_mask)
-    return masked_mean(torch.sqrt(m.clamp_min(0.0)), query_mask)
+    return masked_mean(torch.sqrt(m.clamp_min(0.0)), query_mask, torch.float64)
 
 
 def nn_distances(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> torch.Tensor:
@@ -104,9 +109,7 @@ def sq_error(min_d2: torch.Tensor, query_mask: torch.Tensor, metric: str) -> tor
     if metric == "max":
         return torch.where(mask, min_d2, neg).amax(dim=-1)
     d = torch.sqrt(min_d2)
-    w = mask.to(d.dtype)
-    mean = (d * w).sum(dim=-1, dtype=torch.float64).to(d.dtype) / w.sum(dim=-1).clamp_min(1.0)
-    return torch.where(mask, d, neg).amax(dim=-1) - mean
+    return torch.where(mask, d, neg).amax(dim=-1) - masked_mean(d, mask, torch.float64)
 
 
 def masked_mean_nn_sqdist(query: torch.Tensor, query_mask: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor) -> torch.Tensor:

@@ -8,12 +8,16 @@ had before its launch plan (kss_nn1 without the plan arguments); `fps.cu`
 with the one-block interface it had before clusters (kss_fps with steps,
 points a thread, threads and a workspace; the old plan is the one-block
 plan, points in registers up to 8192 and the workspace above); `field.cu` and `field_dot.cu`
-with the interface they had before theirs (kss_field_ave and kss_field_dot
-without the target mask's compaction and the plan); `field_trim.cu` with the
+with their `field_kernel.cuh`, the field template they had before the tensor-core
+field_dot and the culling kernel's "ave" statistic (kss_field_ave and kss_field_dot
+on a rotated (C, P, 3) source, the target mask and the group-slots plan: `git show
+b803993:kss_icp_torch/csrc/field.cu`, `field_dot.cu` and `field_kernel.cuh`);
+`field_trim.cu` with the
 per-point interface it had before culling (kss_field_trim and kss_field_sq
 on a rotated (C, P, 3) source, writing a (C, P) buffer; with the
 `field_kernel.cuh` of its commit beside it: `git show
-7352256:kss_icp_torch/csrc/field_trim.cu` and `field_kernel.cuh`). They are built with the
+7352256:kss_icp_torch/csrc/field_trim.cu` and `field_kernel.cuh`, in a directory of
+their own). They are built with the
 package's nvcc flags into a second ctypes library under
 `kss_icp_torch/_build/ab_old/`; the package's own sources are built as
 usual. For each kernel whose old source DIR holds, at each of the main
@@ -23,12 +27,20 @@ new, old: each turn is the mean device time of --reps launches replayed
 from one CUDA graph (the kernel's own time; a launch of the small shapes
 takes less than the host's cost of a call). It also times the new wrapper
 called back to back, which is what the main path pays, and prints one line
-per shape. The fields run at the 8³ grid's padded clouds (512 x 2048 x
-2048) with all rows valid and with both clouds suffix-masked to the
-largest, median and smallest remesh pair's pnumber (1534, 1070, 378), at
-the 16³ grid (4096 x 512 x 512), mostly valid, and at the bench config's
-512-point prefixes on the 8³ grid (512 x 512 x 512), all valid and with
-the smallest pair's 378; field_dot at "highest" and "default". The old
+per shape. The fields run at chip_smoke.py phase 3's shapes: the 8³ grid's
+padded clouds (512 x 2048 x 2048) mostly valid, all valid and with both
+clouds suffix-masked to the largest, median and smallest remesh pair's
+pnumber (1534, 1070, 378), the 16³ grid (4096 x 512 x 512), mostly valid,
+the bench config's 512-point prefixes on the 8³ grid (512 x 512 x 512),
+all valid and with the smallest pair's 378, and (field_ave) a mesh rank's
+quarter of the 16³ grid at 1534 rows (1024 x 2048 x 2048); field_dot at
+"highest" and "default". An old field is what the main path paid for it:
+the rotation pass (and field_dot's operand pass), the old kernel and the
+division, against the new wrapper (field_order's sort and one launch of
+the culling kernel for field_ave; one launch for field_dot); each kernel is
+also timed alone. The new field_ave must equal its plain version's bits
+and the old one's within rtol 2e-5 (float32 partial sums against a
+float64 mean); field_dot old and new within rtol 2e-5. The old
 trim, max and diff fields are what the main path paid for them: the
 rotation, the per-point kernel and PyTorch's row reduction (sort, cumsum and
 gather; max; max and mean), against the new wrapper (field_order's sort and
@@ -42,16 +54,13 @@ The card's name, power limit and maximum SM clock come first; one JSON
 object with every number is the last line, and is also written to
 torch_kernel_ab.json in --out (default _scratch/kernel_ab/, gitignored).
 --sass also writes the new library's SASS (cuobjdump) there as
-torch_kernels.sass, and sets beside each field shape the new kernel's issue
-floor: its inner loop's instructions an evaluation, from the SASS, times
-the evaluations on valid rows, over the card's 4 x SMs schedulers at the
-maximum SM clock. --sweep also times every launch plan the new C entry
+torch_kernels.sass and prints each field_dot instantiation's tensor-core
+instructions (HMMA). --sweep also times every launch plan the new C entry
 points take at those shapes (nn1: each cluster size; fps: each cluster
 size whose slices fit a block, with the slice in registers and in shared
-memory where both hold it, each beside its empty step, the same cluster
-and threads with one point a block; the fields: each group-slots count),
-beside the plan the wrappers pick, and writes them there as
-torch_kernel_sweep.json. Each fps row also carries the new plan's empty
+memory where both hold it, each beside its empty step, the same cluster and
+threads with one point a block), beside the plan the wrappers pick, and
+writes them there as torch_kernel_sweep.json. Each fps row also carries the new plan's empty
 step.
 
 Imports nothing of JAX and nothing of kss_icp_tpu.
@@ -76,8 +85,8 @@ sys.path.insert(0, str(REPO))
 from kss_icp_torch import _build  # noqa: E402
 from kss_icp_torch.core.transforms import euler_xyz_matrix  # noqa: E402
 from kss_icp_torch.models.coarse import rotation_grid  # noqa: E402
-from kss_icp_torch.ops.coarse_cuda import (FIELD_GROUP, FIELD_SLOTS, dot_operands, field_ave, field_dot,  # noqa: E402
-                                           field_plan)
+from kss_icp_torch.ops import coarse_cuda as cc  # noqa: E402
+from kss_icp_torch.ops.coarse_cuda import dot_operands, dot_plan, field_dot  # noqa: E402
 from kss_icp_torch.ops.nn_cuda import nn1, nn1_plan, sm_count  # noqa: E402
 from kss_icp_torch.ops.resample import fps_centroid  # noqa: E402
 from kss_icp_torch.ops.resample_cuda import (CLUSTERS, MAX_THREADS, REGISTER_POINTS, SHARED_K,  # noqa: E402
@@ -89,8 +98,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 OLD_SIGNATURES = {
     "nn.cu": ("kss_nn1", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
     "fps.cu": ("kss_fps", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),
-    "field.cu": ("kss_field_ave", (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P)),
-    "field_dot.cu": ("kss_field_dot", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
+    "field.cu": ("kss_field_ave", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
+    "field_dot.cu": ("kss_field_dot", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
     "field_trim.cu": ("kss_field_trim", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P)),
 }
 # Further entry points of an old source: the per-point field_trim.cu's squared mode.
@@ -112,13 +121,18 @@ FPS_SHAPES = [(1, 3072, 2048, 1534, "remesh source"), (1, 8192, 2048, 1534, "rem
               (128, 8192, 2048, 2000, "many boards: the boards' 128 clouds"),
               (2, 151552, 2048, 2000, "large scan: two survivor clouds"),
               (1, 40960, 8000, 8000, "WLOP start")]
-# (grid steps, padded P = T, valid rows of both clouds, label); None: the
-# smoke run's masks, n - n // 40 source and n - n // 20 target rows.
-FIELD_SHAPES = [(8, 2048, 2048, "8³ grid, all valid"), (8, 2048, 1534, "8³ grid, largest remesh pair"),
-                (8, 2048, 1070, "8³ grid, median remesh pair"), (8, 2048, 378, "8³ grid, smallest remesh pair"),
-                (16, 512, None, "16³ grid, mostly valid"), (8, 512, 512, "8³ grid, bench prefixes"),
-                (8, 512, 378, "8³ grid, bench prefixes, smallest remesh pair")]
+# (grid steps, padded P = T, valid rows of both clouds, label, parts: the
+# first 1/parts of the rotations); None: the smoke run's masks, n - n // 40
+# source and n - n // 20 target rows.
+FIELD_SHAPES = [(8, 2048, None, "8³ grid, mostly valid", 1), (8, 2048, 2048, "8³ grid, all valid", 1),
+                (8, 2048, 1534, "8³ grid, largest remesh pair", 1), (8, 2048, 1070, "8³ grid, median remesh pair", 1),
+                (8, 2048, 378, "8³ grid, smallest remesh pair", 1), (16, 512, None, "16³ grid, mostly valid", 1),
+                (8, 512, 512, "8³ grid, bench prefixes", 1),
+                (8, 512, 378, "8³ grid, bench prefixes, smallest remesh pair", 1),
+                (16, 2048, 1534, "a mesh rank's quarter of the 16³ grid, largest remesh pair", 4)]
 FIELD_VARIANTS = [("field_ave", None), ("field_dot", "highest"), ("field_dot", "default")]
+OLD_GROUP = 256  # the old field template's points a partial sum
+OLD_SLOTS = (4, 2, 1)  # its group slots a block
 # (grid steps, P = T, valid rows of both clouds, label) of the trim, max and
 # diff fields: "inliers" is ~70% scattered in the first n - n // 20 rows.
 CULL_SHAPES = [(8, 2048, "inliers", "8³ overlap field, ~70% inliers"),
@@ -228,49 +242,67 @@ def fps_floor_ms(dev, batch: int, s: int, steps: int, plan: FPSPlan, reps: int) 
     return graph_ms(lambda: new_fps(lib, pts, mask, centroid, s, steps, floor, out), reps)
 
 
-def field_inputs(rng, dev, steps: int, n: int, valid):
+def field_inputs(rng, dev, steps: int, n: int, valid, parts: int = 1):
     """(source, source mask, target, target mask, rotations) of one field shape."""
     src, tgt = (torch.as_tensor(cloud(rng, n), device=dev) for _ in range(2))
     rows = torch.arange(n, device=dev)
     smask, tmask = (rows < n - n // 40, rows < n - n // 20) if valid is None else (rows < valid, rows < valid)
-    return src, smask, tgt, tmask, euler_xyz_matrix(rotation_grid(steps, 6.3, dev))
+    rots = euler_xyz_matrix(rotation_grid(steps, 6.3, dev))
+    return src, smask, tgt, tmask, rots[:rots.shape[0] // parts].contiguous()
 
 
-def field_calls(old, name, precision, args, slots=None):
-    """(old call, new call, outputs, operands): both C entry points on the
-    wrapper's operands and preallocated outputs; the new one with `slots`
-    group slots (default: the wrapper's plan). The caller keeps the
-    operands alive while it runs the calls."""
+def old_slots(p_n: int) -> int:
+    """The old field template's plan: as many group slots as the source has
+    groups of 256 points, up to 4."""
+    return next(s for s in OLD_SLOTS if s <= -(-p_n // OLD_GROUP))
+
+
+def old_field_calls(old, name, precision, args):
+    """(the old call, the old kernel alone, its sums' buffer): the main path's
+    call before, the rotation pass (and field_dot's operand pass), PR 15's
+    C entry point and the division; and that entry point alone on
+    operands computed once."""
     src, smask, tgt, tmask, rots = args
-    operands = rotated, q2, weight, ra = dot_operands(*args)
-    c_n, p_n, t_n = rotated.shape[0], src.shape[0], tgt.shape[0]
-    groups = -(-p_n // FIELD_GROUP)
-    outs = [(torch.empty((c_n, groups), dtype=torch.float32, device=src.device),
-             torch.empty((c_n,), dtype=torch.float32, device=src.device)) for _ in range(2)]
-    slots = slots or field_plan(p_n)
-    new = _build.library()
-    bf16 = int(precision == "default")
+    c_n, p_n, t_n = rots.shape[0], src.shape[0], tgt.shape[0]
+    partial = torch.empty((c_n, -(-p_n // OLD_GROUP)), dtype=torch.float32, device=src.device)
+    sums = torch.empty((c_n,), dtype=torch.float32, device=src.device)
+    slots, bf16 = old_slots(p_n), int(precision == "default")
 
-    def ptrs(k):
-        return outs[k][0].data_ptr(), outs[k][1].data_ptr(), _stream()
+    def launch(rotated, q2, weight, ra):
+        if name == "field_ave":
+            _check(old.kss_field_ave(rotated.data_ptr(), weight.data_ptr(), tgt.data_ptr(), tmask.data_ptr(), c_n,
+                                     p_n, t_n, slots, partial.data_ptr(), sums.data_ptr(), _stream()),
+                   "old kss_field_ave")
+        else:
+            _check(old.kss_field_dot(rotated.data_ptr(), q2.data_ptr(), weight.data_ptr(), ra.data_ptr(),
+                                     tmask.data_ptr(), c_n, p_n, t_n, bf16, slots, partial.data_ptr(),
+                                     sums.data_ptr(), _stream()), "old kss_field_dot")
 
-    if name == "field_ave":
-        head = (rotated.data_ptr(), weight.data_ptr(), tgt.data_ptr(), tmask.data_ptr(), c_n, p_n, t_n)
+    def operands():
+        if name == "field_ave":
+            return cc.rotate_sources(rots, src), None, smask.to(torch.float32).contiguous(), None
+        return dot_operands(*args)
 
-        def run_old():
-            _check(old.kss_field_ave(*head, *ptrs(0)), "old kss_field_ave")
+    def run_old():
+        ops = operands()
+        launch(*ops)
+        return sums / ops[2].sum().clamp_min(1.0)
 
-        def run_new():
-            _check(new.kss_field_ave(*head, slots, *ptrs(1)), "kss_field_ave")
-    else:
-        head = (rotated.data_ptr(), q2.data_ptr(), weight.data_ptr(), ra.data_ptr())
+    fixed = operands()
+    return run_old, lambda: launch(*fixed), sums
 
-        def run_old():
-            _check(old.kss_field_dot(*head, c_n, p_n, t_n, bf16, *ptrs(0)), "old kss_field_dot")
 
-        def run_new():
-            _check(new.kss_field_dot(*head, tmask.data_ptr(), c_n, p_n, t_n, bf16, slots, *ptrs(1)), "kss_field_dot")
-    return run_old, run_new, [o[1] for o in outs], operands
+def new_field_calls(name, precision, args):
+    """(the new wrapper, the new kernel alone): field_ave's is one launch of
+    the culling kernel on field_order's order computed once; field_dot's
+    wrapper is its one launch."""
+    if name == "field_dot":
+        return (lambda: field_dot(*args, precision)), (lambda: field_dot(*args, precision))
+    src, smask, tgt, tmask, rots = args
+    order = cc.field_order(src, smask, tgt, tmask)
+    out = torch.empty((rots.shape[0],), dtype=torch.float32, device=src.device)
+    return (lambda: cc.field_ave(*args)), (lambda: cc._cull_launch("kss_field_cull", "ave", src, smask, tgt, tmask,
+                                                                    order, rots, out))
 
 
 def in_turns(old, new, reps: int) -> dict:
@@ -338,21 +370,6 @@ def sweep(dev, reps: int) -> dict:
                         for r in rows), flush=True)
         if not all(r["same_bits"] for r in rows):
             raise RuntimeError(f"fps sweep {b_n}x{p_n}: a plan's picks differ from another's")
-    result["fields"] = []
-    for steps, n, valid, label in FIELD_SHAPES:
-        args = field_inputs(rng, dev, steps, n, valid)
-        c_n = args[4].shape[0]
-        for name, precision in FIELD_VARIANTS[:2]:
-            rows = []
-            for slots in [s for s in FIELD_SLOTS if s <= -(-n // FIELD_GROUP)]:
-                _, run, _, operands = field_calls(None, name, precision, args, slots)
-                rows.append({"slots": slots, "ms": graph_ms(run, max(3, reps // 5))})
-                del operands
-            chosen = field_plan(n)
-            result["fields"].append({"kernel": name, "precision": precision, "shape": f"{c_n}x{n}x{n}",
-                                     "valid": valid, "label": label, "chosen": chosen, "plans": rows})
-            print(f"sweep {name} {c_n}x{n}x{n} ({label}): chosen slots {chosen}; " +
-                  "; ".join(f"slots {r['slots']} {r['ms']:.4f} ms" for r in rows), flush=True)
     return result
 
 
@@ -401,13 +418,13 @@ def ab_cull(old, dev, rng, reps: int) -> list:
 
             def old_kernel(entry=entry):
                 _check(entry(rotated.data_ptr(), weight.data_ptr(), tgt.data_ptr(), tmask.data_ptr(), c_n, n, n,
-                             field_plan(n), dist.data_ptr(), _stream()), "old kss_field_trim")
+                             old_slots(n), dist.data_ptr(), _stream()), "old kss_field_trim")
 
             def run_old(stat=stat, entry=entry):
                 rot = cc.rotate_sources(rots, src)
                 w = smask.to(torch.float32).contiguous()
                 _check(entry(rot.data_ptr(), w.data_ptr(), tgt.data_ptr(), tmask.data_ptr(), c_n, n, n,
-                             field_plan(n), dist.data_ptr(), _stream()), "old kss_field_trim")
+                             old_slots(n), dist.data_ptr(), _stream()), "old kss_field_trim")
                 return old_row_stat(dist, smask, stat)
 
             def run_new(stat=stat):
@@ -507,77 +524,55 @@ def ab_fps(old, dev, rng, reps: int) -> list:
     return rows
 
 
-def field_loop_instructions(sass: str) -> dict:
-    """{mode: SASS instructions an evaluation} of each field kernel's
-    inner loop (mode 0 field_ave, 1 field_dot, 2 field_dot in bf16): of the
-    loops (a backward branch) that read staged rows (LDS.128) and multiply,
-    with at least 4 FMNMX, one an evaluation, the one with the fewest
-    instructions per FMNMX: the scan of valid rows."""
-    result = {}
-    for func in sass.split("Function : ")[1:]:
-        name = re.match(r"\S*field_partial_kernelILi(\d)EE", func)
-        if not name:
-            continue
-        ins = [(int(a, 16), t) for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
-        at = {a: i for i, (a, _) in enumerate(ins)}
-        rates = []
-        for i, (a, t) in enumerate(ins):
-            back = re.search(r"BRA (0x[0-9a-f]+)", t)
-            if back and int(back.group(1), 16) < a and int(back.group(1), 16) in at:
-                body = [x for _, x in ins[at[int(back.group(1), 16)]:i + 1]]
-                mins = sum("FMNMX" in x for x in body)
-                if mins >= 4 and any("LDS.128" in x for x in body) and any("FMUL" in x for x in body):
-                    rates.append(len(body) / mins)
-        if rates:
-            result[int(name.group(1))] = min(rates)
-    return result
+def dot_tensor_instructions(sass: str) -> dict:
+    """{field_dot instantiation ("highest" or "default"): its HMMA
+    instructions} from the SASS."""
+    return {("default" if "ILi1EE" in func.split()[0] else "highest"): len(re.findall(r"\bHMMA\.", func))
+            for func in sass.split("Function : ")[1:] if "field_dot_kernel" in func.split()[0]}
 
 
-def ab_field(old, name, dev, rng, reps: int, loops: dict, clock_hz: float) -> list:
-    """Old and new field kernels at FIELD_SHAPES: bits, then device times in
-    turns, beside the new kernel's issue floor where `loops` has its inner
-    loop: the evaluations on valid rows times its instructions an evaluation,
-    over 32 lanes and the card's 4 schedulers an SM at `clock_hz`."""
+def ab_field(old, name, dev, rng, reps: int) -> list:
+    """Old and new fields at FIELD_SHAPES: the fields, then device times in
+    turns (the whole call each, as the main path pays it) and each kernel
+    alone."""
     rows = []
-    wrapper = field_ave if name == "field_ave" else field_dot
-    for steps, n, valid, label in FIELD_SHAPES:
-        args = field_inputs(rng, dev, steps, n, valid)
+    for steps, n, valid, label, parts in FIELD_SHAPES:
+        args = field_inputs(rng, dev, steps, n, valid, parts)
         c_n = args[4].shape[0]
-        for precision in [p for k, p in FIELD_VARIANTS if k == name]:
-            kw = {} if precision is None else {"precision": precision}
-            run_old, run_new, sums, operands = field_calls(old, name, precision, args)
-            weight = operands[2]
-            run_old()
-            run_new()
-            wrapped = wrapper(*args, **kw)
+        for precision in [p for k, p in FIELD_VARIANTS if k == name and (parts == 1 or k == "field_ave")]:
+            run_old, old_kernel, sums = old_field_calls(old, name, precision, args)
+            run_new, new_kernel = new_field_calls(name, precision, args)
+            f_old, f_new = run_old(), run_new()
             torch.cuda.synchronize()
-            same = bool(torch.equal(sums[0], sums[1]) and torch.equal(wrapped, sums[1] / weight.sum().clamp_min(1.0)))
+            plain = cc.field_ave_plain(*args) if name == "field_ave" else cc.field_dot_plain(*args, precision)
+            same = bool(torch.allclose(f_old, f_new, rtol=2e-5, atol=0.0) and torch.equal(f_new, run_new())
+                        and (torch.equal(f_new, plain) if name == "field_ave" else
+                             torch.allclose(f_new, plain, rtol=2e-5, atol=0.0)))
             m = max(3, reps // 2)
             row = dict(in_turns(run_old, run_new, m), shape=f"{c_n}x{n}x{n}", valid=valid, label=label,
                        precision=precision, same_bits=same, reps=m,
-                       slots=field_plan(n))
-            row["wrapper_ms"] = time_ms(lambda: wrapper(*args, **kw), m)
-            row["wrapper_device_ms"] = graph_ms(lambda: wrapper(*args, **kw), m)
-            ipe = loops.get({"field_ave": 0, "highest": 1, "default": 2}[precision or name])
-            floor = ""
-            if ipe is not None:
-                evals = c_n * int(args[1].sum()) * int(args[3].sum())
-                row["instructions_an_evaluation"] = ipe
-                row["issue_floor_ms"] = evals * ipe / 32 / (sm_count(dev.index) * 4 * clock_hz) * 1e3
-                floor = f"; issue floor {row['issue_floor_ms']:.4f} ms ({ipe:.4f} instructions an evaluation)"
+                       max_rel_old_new=float(((f_old - f_new).abs() / f_old.abs().clamp_min(1e-30)).max()))
+            row["old_kernel_ms"] = graph_ms(old_kernel, m)
+            row["new_kernel_ms"] = graph_ms(new_kernel, m)
+            row["wrapper_ms"] = time_ms(run_new, m)
+            if name == "field_dot":
+                row["plan"] = dot_plan(c_n, n, n, precision, sm_count(dev.index))._asdict()
             rows.append(row)
             print(f"{name}{'' if precision is None else ' ' + precision} {row['shape']} ({label}): device old "
-                  f"{row['old_ms']:.4f} ms, new {row['new_ms']:.4f} ms ({row['old_ms'] / row['new_ms']:.2f}x); "
-                  f"new wrapper {row['wrapper_ms']:.4f} ms back to back, {row['wrapper_device_ms']:.4f} ms on the "
-                  f"device; same bits {same}, slots {row['slots']}{floor}", flush=True)
+                  f"{row['old_ms']:.4f} ms (the rotation pass, the old kernel, the division), new {row['new_ms']:.4f} "
+                  f"ms ({row['old_ms'] / row['new_ms']:.2f}x; turns {row['turns_ms']}); kernels alone old "
+                  f"{row['old_kernel_ms']:.4f} ms, new {row['new_kernel_ms']:.4f} ms; new wrapper "
+                  f"{row['wrapper_ms']:.4f} ms back to back; old and new within rtol 2e-5, the new one "
+                  f"{'the plain bits' if name == 'field_ave' else 'within rtol 2e-5 of plain'}: {same} (old/new "
+                  f"{row['max_rel_old_new']:.3g} relative)", flush=True)
     return rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", type=Path, required=True,
-                    help="directory of older kernel sources: nn.cu, fps.cu, field.cu, field_dot.cu, field_trim.cu "
-                         "(with its field_kernel.cuh), any of them")
+                    help="directory of older kernel sources: nn.cu, fps.cu, field.cu and field_dot.cu (with their "
+                         "field_kernel.cuh), field_trim.cu (with its own), any of them")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--sass", action="store_true", help="write the new library's SASS to --out")
     ap.add_argument("--out", type=Path, default=REPO / "_scratch" / "kernel_ab", help="directory for the files")
@@ -602,7 +597,7 @@ def main() -> int:
         sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(path)],
                               capture_output=True, text=True, timeout=300)
         (out_dir / "torch_kernels.sass").write_text(sass.stdout + sass.stderr)
-    loops = field_loop_instructions(sass.stdout) if args.sass else {}
+        print(f"field_dot's tensor-core instructions: {dot_tensor_instructions(sass.stdout)}", flush=True)
     rng = np.random.default_rng(0)
     result = {"card": card, "nn1": [], "fps": [], "field_ave": [], "field_dot": [], "field_trim": []}
     if "nn.cu" in present:
@@ -611,7 +606,7 @@ def main() -> int:
         result["fps"] = ab_fps(old, dev, rng, args.reps)
     for src, name in (("field.cu", "field_ave"), ("field_dot.cu", "field_dot")):
         if src in present:
-            result[name] = ab_field(old, name, dev, rng, args.reps, loops, float(clock.split()[0]) * 1e6)
+            result[name] = ab_field(old, name, dev, rng, args.reps)
     if "field_trim.cu" in present:
         result["field_trim"] = ab_cull(old, dev, rng, args.reps)
 

@@ -10,18 +10,20 @@ commit unpacked with `git archive` into a gitignored directory such as
 _scratch/); --new defaults to this checkout. Each turn is a process of its
 own that imports `kss_icp_torch` from one checkout, builds that checkout's
 kernels there (at first use) and, after a warm-up pair:
-  - times its `nn1`, `fps` and `field_ave` wrappers called back to back
-    (CUDA events, the host's cost of each call included), called as the main
-    path calls them, `nn1(query, ref, mask)` at the screen, refine, metric
-    and K4 shapes, `fps(points, mask, S)` at B=2, 8192 -> 2048, and
-    `field_ave` on the 8³ grid at register_pair's padded clouds (512 x 2048
-    x 2048, both suffix-masked to the median remesh pair's 1070 rows);
+  - times its `nn1`, `fps`, `field_ave` and `field_dot` wrappers called
+    back to back (CUDA events, the host's cost of each call included),
+    called as the main path calls them, `nn1(query, ref, mask)` at the
+    screen, refine, metric and K4 shapes, `fps(points, mask, S)` at B=2,
+    8192 -> 2048, and the fields on the 8³ grid at register_pair's padded
+    clouds (512 x 2048 x 2048, both suffix-masked to the median remesh
+    pair's 1070 rows; `field_dot` at "highest" and "default");
   - drives the esc-default pass (DEFAULT_CONFIG with overlap_escalate=False)
-    over the 25 remesh pairs through register_pair -> apply_similarity ->
-    registration_measure, --passes times without stage syncs (pairs/s) and
-    --passes times with a sync at each stage border (stage seconds), and
-    holds every pair's RMSE to the JAX CPU value + 0.006
-    (fixtures/torch_port_expected_escalation.json);
+    and the esc-dot pass (the same at coarse_method="dot") over the 25
+    remesh pairs through register_pair -> apply_similarity ->
+    registration_measure, each --passes times without stage syncs (pairs/s)
+    and --passes times with a sync at each stage border (stage seconds, the
+    coarse stage among them), and holds every pair's RMSE to the JAX CPU
+    value + 0.006 (fixtures/torch_port_expected_escalation.json);
   - with --largescan, runs `run_largescan(200000, 80000, DEFAULT_CONFIG,
     seed, repeats=3)` for the Room seeds 0-2 (the stage seconds of the
     fastest repeat; register_s holds the one `fps` launch of 2 x 135168-
@@ -38,7 +40,7 @@ of the wrapper times and the medians of the passes' seconds and stage
 seconds with their interquartile range;
 one JSON object with every number is the last line, and is also written to
 torch_tree_ab.json in --out (default _scratch/tree_ab/, gitignored). Exits
-1 if a pair of either checkout is outside its band.
+1 if a pair of either checkout, in either pass, is outside its band.
 
 Imports nothing of JAX and nothing of kss_icp_tpu.
 """
@@ -136,7 +138,7 @@ def worker(tree: Path, passes: int, largescan: bool, boards: bool) -> dict:
     from kss_icp_torch.config import DEFAULT_CONFIG
     from kss_icp_torch.core.transforms import euler_xyz_matrix
     from kss_icp_torch.models.coarse import rotation_grid
-    from kss_icp_torch.ops.coarse_cuda import field_ave
+    from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot
     from kss_icp_torch.ops.nn_cuda import nn1
     from kss_icp_torch.ops.resample_cuda import fps
 
@@ -168,7 +170,10 @@ def worker(tree: Path, passes: int, largescan: bool, boards: bool) -> dict:
     fargs = (torch.as_tensor(cloud(rng, n), device=dev), torch.arange(n, device=dev) < valid,
              torch.as_tensor(cloud(rng, n), device=dev), torch.arange(n, device=dev) < valid,
              euler_xyz_matrix(rotation_grid(steps, 6.3, dev)))
-    field_ms = {f"{steps ** 3}x{n}x{n}, {valid} valid": timing.time_ms(lambda: field_ave(*fargs), 20)}
+    shape = f"{steps ** 3}x{n}x{n}, {valid} valid"
+    field_ms = {f"field_ave {shape}": timing.time_ms(lambda: field_ave(*fargs), 20)}
+    for prec in ("highest", "default"):
+        field_ms[f"field_dot {prec} {shape}"] = timing.time_ms(lambda: field_dot(*fargs, prec), 20)
 
     meta = json.loads((tree / "fixtures" / "remesh_transfer.json").read_text())
     with np.load(tree / "fixtures" / "remesh_transfer.npz") as z:
@@ -180,7 +185,7 @@ def worker(tree: Path, passes: int, largescan: bool, boards: bool) -> dict:
     kt.register_pair(pairs[0][1], pairs[0][2], dataclasses.replace(cfg, escalate_threshold=0.0), device=dev)
     torch.cuda.synchronize()
 
-    def one_pass(sync: bool) -> dict:
+    def one_pass(sync: bool, cfg=cfg) -> dict:
         stages = defaultdict(float)
 
         @contextlib.contextmanager
@@ -208,9 +213,12 @@ def worker(tree: Path, passes: int, largescan: bool, boards: bool) -> dict:
         return {"seconds": total, "pairs_per_s": len(pairs) / total, "outside": outside,
                 "launches": {"nn1": nn1.launches, "fps": fps.launches}, "stage_seconds": dict(stages)}
 
+    dot = dataclasses.replace(cfg, coarse_method="dot")
     return {"build_s": build_s, "nn1_ms": nn1_ms, "fps_ms": fps_ms, "field_ms": field_ms,
             "unsynced": [one_pass(False) for _ in range(passes)],
             "synced": [one_pass(True) for _ in range(passes)],
+            "dot": {"unsynced": [one_pass(False, dot) for _ in range(passes)],
+                    "synced": [one_pass(True, dot) for _ in range(passes)]},
             "largescan": largescan_runs(tree, dev) if largescan else {},
             "boards": boards_runs(dev, passes) if boards else {}}
 
@@ -257,7 +265,21 @@ def summary(turns: list) -> dict:
                       for seed in turns[0]["largescan"]},
         "largescan_outside": sorted({seed for t in turns for seed, r in t["largescan"].items() if not r["ok"]}),
         "boards": boards_summary(turns),
+        "dot": dot_summary(turns),
     }
+
+
+def dot_summary(turns: list) -> dict:
+    """The esc-dot passes' pairs/s quartiles (unsynced), stage seconds
+    quartiles (synced) and pairs outside the band, over a checkout's turns."""
+    unsynced = [p for t in turns for p in t["dot"]["unsynced"]]
+    synced = [p for t in turns for p in t["dot"]["synced"]]
+    stages = sorted({k for p in synced for k in p["stage_seconds"]})
+    return {"pairs_per_s_quartiles": quartiles(p["pairs_per_s"] for p in unsynced),
+            "synced_seconds_quartiles": quartiles(p["seconds"] for p in synced),
+            "stage_seconds_quartiles": {k: quartiles(p["stage_seconds"].get(k, 0.0) for p in synced)
+                                        for k in stages},
+            "outside": sorted({n for p in unsynced + synced for n in p["outside"]})}
 
 
 def boards_summary(turns: list) -> dict:
@@ -289,7 +311,7 @@ def main() -> int:
     ap.add_argument("--old", type=Path, help="root of the other checkout")
     ap.add_argument("--new", type=Path, default=REPO, help="root of the checkout under test (default: this one)")
     ap.add_argument("--rounds", type=int, default=1, help="rounds of old, new, new, old")
-    ap.add_argument("--passes", type=int, default=2, help="esc-default passes a turn, synced and not")
+    ap.add_argument("--passes", type=int, default=2, help="esc-default and esc-dot passes a turn, synced and not")
     ap.add_argument("--largescan", action="store_true", help="also run_largescan at 200k points, seeds 0-2")
     ap.add_argument("--boards", action="store_true", help="also register_many on the 64 board pairs, one batch")
     ap.add_argument("--out", type=Path, default=REPO / "_scratch" / "tree_ab", help="directory for the JSON")
@@ -315,9 +337,10 @@ def main() -> int:
             t = run_turn(trees[which], args.passes, args.largescan, args.boards)
             turns[which].append(t)
             print(f"[{which}] build {t['build_s']:.2f} s; nn1 wrapper ms {fmt(t['nn1_ms'])}; fps wrapper ms "
-                  f"{fmt(t['fps_ms'])}; field_ave wrapper ms {fmt(t['field_ms'])}; unsynced pass s "
+                  f"{fmt(t['fps_ms'])}; field wrapper ms {fmt(t['field_ms'])}; unsynced pass s "
                   + ", ".join(f"{p['seconds']:.4f}" for p in t["unsynced"])
                   + "; synced pass s " + ", ".join(f"{p['seconds']:.4f}" for p in t["synced"])
+                  + "; esc-dot unsynced pass s " + ", ".join(f"{p['seconds']:.4f}" for p in t["dot"]["unsynced"])
                   + "".join(f"; largescan seed {k} register_s {r['register_s']:.4f} total_s {r['total_s']:.4f}"
                             for k, r in t["largescan"].items())
                   + "".join(f"; boards {k} pass s " + ", ".join(f"{p['seconds']:.4f}" for p in v)
@@ -325,23 +348,28 @@ def main() -> int:
     result = {"card": card, "trees": {k: str(v) for k, v in trees.items()}, "turns": turns,
               "summary": {k: summary(v) for k, v in turns.items()}}
     for which, s in result["summary"].items():
-        print(f"[{which} mean] nn1 wrapper ms {fmt(s['nn1_ms'])}; fps wrapper ms {fmt(s['fps_ms'])}; field_ave "
+        print(f"[{which} mean] nn1 wrapper ms {fmt(s['nn1_ms'])}; fps wrapper ms {fmt(s['fps_ms'])}; field "
               f"wrapper ms {fmt(s['field_ms'])}; unsynced pass {s['unsynced_seconds']:.4f} s ({s['pairs_per_s']:.3f} "
               f"pairs/s); synced pass {s['synced_seconds']:.4f} s, stages {fmt(s['stage_seconds'])}; launches "
               f"{s['launches']}; pairs outside the band {s['outside']}"
               + "".join(f"; largescan seed {k} register_s {r['register_s']:.4f} total_s {r['total_s']:.4f}"
                         for k, r in s["largescan"].items())
               + f"; large scans outside the band {s['largescan_outside']}", flush=True)
-        print(f"[{which} quartiles] unsynced pass s {fmt_q(s['unsynced_seconds_quartiles'])}; synced pass s "
-              f"{fmt_q(s['synced_seconds_quartiles'])}; stages " + ", ".join(
+        print(f"[{which} quartiles] esc-default unsynced pass s {fmt_q(s['unsynced_seconds_quartiles'])}; synced "
+              f"pass s {fmt_q(s['synced_seconds_quartiles'])}; stages " + ", ".join(
                   f"{k} {fmt_q(v)}" for k, v in s["stage_seconds_quartiles"].items()), flush=True)
+        d = s["dot"]
+        print(f"[{which} esc-dot] pairs/s {fmt_q(d['pairs_per_s_quartiles'])}; synced pass s "
+              f"{fmt_q(d['synced_seconds_quartiles'])}; stages " + ", ".join(
+                  f"{k} {fmt_q(v)}" for k, v in d["stage_seconds_quartiles"].items())
+              + f"; pairs outside the band {d['outside']}", flush=True)
         if s["boards"]:
             b = s["boards"]
             print(f"[{which} boards] many boards pairs/s {fmt_q(b['pairs_per_s_quartiles'])}; synced pass s "
                   f"{fmt_q(b['synced_seconds_quartiles'])}; stages " + ", ".join(
                       f"{k} {fmt_q(v)}" for k, v in b["stage_seconds_quartiles"].items()), flush=True)
-    result["ok"] = not any(s["outside"] or s["largescan_outside"] or (s["boards"] and not s["boards"]["finite"])
-                           for s in result["summary"].values())
+    result["ok"] = not any(s["outside"] or s["dot"]["outside"] or s["largescan_outside"]
+                           or (s["boards"] and not s["boards"]["finite"]) for s in result["summary"].values())
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "torch_tree_ab.json").write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)

@@ -341,7 +341,7 @@ def test_field_kernel_matches_plain_and_jax(cuda_device):
     before = field_ave.launches
     got = field_ave(*args)
     assert field_ave.launches == before + 1
-    torch.testing.assert_close(got, field_ave_plain(*args), rtol=2e-5, atol=0.0)
+    assert torch.equal(got, field_ave_plain(*args))  # the culling kernel's "ave": the plain version's bits
     np.testing.assert_allclose(got.cpu().numpy(), JAX_FIELD, rtol=2e-5)
     assert torch.equal(got, field_ave(*args))  # no atomics: repeated runs agree bit for bit
 
@@ -420,16 +420,20 @@ def _field_card_case(device, steps, p, t, s_valid, t_valid):
 @pytest.mark.parametrize("name, precision", FIELD_VARIANTS)
 @pytest.mark.parametrize("case", list(FIELD_CARD_CASES))
 def test_field_kernels_match_plain_on_padded_clouds(cuda_device, case, name, precision):
-    """Masked rows skipped, exactly: the kernel within rtol 2e-5 of the plain
-    version, the same bits on a second run and, for suffix masks, the bits of
-    the field of the valid prefix alone."""
+    """Masked rows skipped, exactly: field_ave the plain version's bits,
+    field_dot within rtol 2e-5 of it (its tensor-core sums), the same bits
+    on a second run and, for suffix masks, the bits of the field of the
+    valid prefix alone."""
     kernel, plain, kw = _field_kernel(name, precision)
     steps, p, t, s_valid, t_valid = FIELD_CARD_CASES[case]
     args = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
     before = kernel.launches
     got = kernel(*args, **kw)
     assert kernel.launches == before + 1
-    torch.testing.assert_close(got, plain(*args, **kw), rtol=2e-5, atol=0.0)
+    if name == "field_ave":
+        assert torch.equal(got, plain(*args, **kw))
+    else:
+        torch.testing.assert_close(got, plain(*args, **kw), rtol=2e-5, atol=0.0)
     assert torch.equal(got, kernel(*args, **kw))
     assert kernel.launches == before + 2
     if s_valid == 0:
@@ -441,27 +445,40 @@ def test_field_kernels_match_plain_on_padded_clouds(cuda_device, case, name, pre
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["scattered", "target fully masked", "few rotations, small P, long T"])
-def test_field_kernels_give_the_same_bits_under_every_plan(cuda_device, case):
-    """Every group-slots count the C entry points take: the sums keep their
-    bits (the min is exact, the sum's tree fixed), and each launch is
-    counted."""
-    from kss_icp_torch.ops.coarse_cuda import FIELD_SLOTS, dot_operands, field_ave_sums, field_dot_sums
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("case", list(FIELD_CARD_CASES))
+def test_field_dot_matches_plain_whole_and_in_chunks(cuda_device, case, precision):
+    """csrc/field_dot.cu with the target staged whole and in chunks of 128
+    rows (the running mins in a device scratch): within rtol 2e-5 of the
+    plain version, the same bits on a second run, the chunked launch the
+    whole one's bits (the min is exact), every launch counted."""
+    from kss_icp_torch.ops import coarse_cuda as cc
 
-    src, smask, tgt, tmask, rots = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
-    rotated, q2, weight, ra = dot_operands(src, smask, tgt, tmask, rots)
-    runs = {"ave": [], "dot": [], "dot bf16": []}
-    before = field_ave.launches, field_dot.launches
-    for slots in FIELD_SLOTS:
-        runs["ave"].append(field_ave_sums(rotated, weight, tgt, tmask, slots))
-        runs["dot"].append(field_dot_sums(rotated, q2, weight, ra, tmask, False, slots))
-        runs["dot bf16"].append(field_dot_sums(rotated, q2, weight, ra, tmask, True, slots))
-    plans = len(FIELD_SLOTS)
-    assert (field_ave.launches, field_dot.launches) == (before[0] + plans, before[1] + 2 * plans)
-    for key, sums in runs.items():
-        assert all(torch.equal(sums[0], s) for s in sums[1:]), key
-    torch.testing.assert_close(runs["ave"][0] / weight.sum(), field_ave_plain(src, smask, tgt, tmask, rots),
-                               rtol=2e-5, atol=0.0)
+    args = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
+    want = field_dot_plain(*args, precision=precision)
+    before = field_dot.launches
+    whole = field_dot(*args, precision)
+    chunked = cc._field_dot(*args, precision, cap=128)
+    assert field_dot.launches == before + 2
+    torch.testing.assert_close(whole, want, rtol=2e-5, atol=0.0)
+    assert torch.equal(whole, field_dot(*args, precision))
+    assert torch.equal(chunked, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, 128])
+@pytest.mark.parametrize("case", list(FIELD_CARD_CASES))
+def test_field_ave_kernel_matches_plain_bit_for_bit(cuda_device, case, cap):
+    """The culling kernel's "ave" statistic: the plain version's float64
+    mean bit for bit, with the target whole and in chunks of 128 rows, 0
+    for a fully masked source; each launch counted in field_ave's counts."""
+    from kss_icp_torch.ops import coarse_cuda as cc
+
+    args = _field_card_case(cuda_device, *FIELD_CARD_CASES[case])
+    before, grids = field_ave.launches, field_ave.launch_grids[args[4].shape[0]]
+    got = field_ave(*args) if cap is None else cc._field_cull("field_ave", field_ave, "ave", *args, cap=cap)
+    assert field_ave.launches == before + 1 and field_ave.launch_grids[args[4].shape[0]] == grids + 1
+    assert torch.equal(got, field_ave_plain(*args))
 
 
 # Target rows a block stages at once: the wrapper's plan (the whole target

@@ -1,10 +1,12 @@
 """The field_trim kernel's preparation and culling rule on the CPU
 (kss_icp_torch/csrc/field_trim.cu, ops/coarse_cuda.py): the wrapper's
 Morton order and launch plan, the rank k, the float64 sums of the plain
-versions, and a plain PyTorch model of the kernel's scan (tiles of 16 rows,
-runs of 8 tiles, the nearest tile first, a box skipped when its rounded-down
-bound is above every valid lane's min so far) held to the brute-force min
-bit for bit. The kernel itself runs in tests/test_torch_card.py."""
+versions ("ave", "trim", "diff"), and a plain PyTorch model of the kernel's
+scan (tiles of 16 rows, runs of 8 tiles, the nearest tile first, a box
+skipped when its rounded-down bound is above every valid lane's min so far)
+held to the brute-force min bit for bit, and with the "ave" epilogue to
+`field_ave`'s plain version. The kernel itself runs in
+tests/test_torch_card.py."""
 
 from fractions import Fraction
 
@@ -191,6 +193,33 @@ def test_float64_diff_mean_moves_the_diff_field_by_at_most_two_ulps():
     assert bool(((old - new).abs() <= 2 * torch.as_tensor(np.spacing(np.abs(new.numpy())))).all())
 
 
+def test_float64_ave_mean_moves_the_ave_field_by_at_most_two_ulps():
+    """The "ave" field's mean in float64 (`masked_mean_nn_distance`, the
+    culling kernel's "ave" statistic) against the float32 masked_mean it
+    took before, the JAX package's rule: the field moves on some rows, each
+    time by at most two float32 ulps of its value."""
+    from kss_icp_torch.ops.nn import masked_mean
+
+    rng = np.random.default_rng(8)
+    d = torch.sqrt(torch.as_tensor(rng.gamma(2.0, 0.001, size=(2048, 2048)).astype(np.float32)))
+    mask = torch.as_tensor(rng.uniform(size=(2048, 2048)) < 0.7)
+    old, new = masked_mean(d, mask), masked_mean(d, mask, torch.float64)
+    assert bool((old != new).any())
+    assert bool(((old - new).abs() <= 2 * torch.as_tensor(np.spacing(np.abs(new.numpy())))).all())
+
+
+def _kernel_ave(mins: np.ndarray, threads: int = 512) -> np.float32:
+    """The kernel's "ave" epilogue in numpy: float64 sums of sqrt(max(v, 0))
+    thread by thread (strided), then across threads, rounded once to
+    float32 and divided by float32(max(n, 1)); 0 with no valid point."""
+    n = len(mins)
+    if n == 0:
+        return np.float32(0.0)
+    d = np.sqrt(np.maximum(mins, np.float32(0)))
+    total = sum(sum(float(v) for v in d[t::threads]) for t in range(threads))
+    return np.float32(np.float32(total) / np.float32(n))
+
+
 # --- the culling rule ---
 
 def _round_down32(x: Fraction) -> np.float32:
@@ -311,6 +340,36 @@ def test_cull_model_equals_the_brute_force_min_bit_for_bit(case):
     got, _ = cull_model(*args)
     src, smask, tgt, tmask, rots = args
     assert torch.equal(got, nn_sqdistances(cc.rotate_sources(rots, src), smask, tgt, tmask))
+
+
+def _ave_cases():
+    """The probe cases, and a fully masked source and a fully masked target
+    (the kernel's biased path) of the last one."""
+    cases = dict(cull_probe_cases())
+    src, smask, tgt, tmask, rots = cases["P not a multiple of 32"]
+    cases["source fully masked"] = (src, np.zeros_like(smask), tgt, tmask, rots)
+    cases["target fully masked"] = (src, smask, tgt, np.zeros_like(tmask), rots)
+    return cases
+
+
+@pytest.mark.parametrize("case", list(_ave_cases()))
+def test_ave_epilogue_on_the_cull_model_gives_the_plain_fields_bits(case):
+    """The "ave" statistic: the culled mins of the model, reduced as the
+    kernel reduces them (its valid points in Morton order, the float64 sum
+    in the kernel's thread order), equal `field_ave`'s plain version bit for
+    bit; a fully masked source scores 0, and a fully masked target takes the
+    biased path over every row (each min + 1e30), as the plain version."""
+    args = _t(*_ave_cases()[case])
+    mins, _ = cull_model(*args)
+    src, smask, tgt, tmask, rots = args
+    order = cc.field_order(src, smask, tgt, tmask)[:int(smask.sum())]
+    got = np.array([_kernel_ave(row[order].numpy()) for row in mins])
+    want = cc.field_ave_plain(*args).numpy()
+    np.testing.assert_array_equal(got, want)
+    if not smask.any():
+        assert not want.any()
+    if not tmask.any():
+        assert (want > 1e14).all()
 
 
 @pytest.mark.parametrize("t_valid", [300, 0])

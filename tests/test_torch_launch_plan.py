@@ -1,18 +1,20 @@
-"""The launch plans of the `nn1`, `fps` and field kernels (ops/nn_cuda.py::
-nn1_plan, ops/resample_cuda.py::fps_plan, ops/coarse_cuda.py::field_plan), at
-the shapes the main path gives them.
+"""The launch plans of the `nn1`, `fps` and `field_dot` kernels
+(ops/nn_cuda.py::nn1_plan, ops/resample_cuda.py::fps_plan,
+ops/coarse_cuda.py::dot_plan), at the shapes the main path gives them.
 
 The kernels run only on the card; their plans are plain Python, so the
 partition of work they imply is checked here: every reference row falls in
 exactly one cluster slice, the cluster size is one the card takes, every
 query has a thread, and R is split until every SM has two blocks or the
-cluster is at its cap; every (rotation, source point) pair of a field is
-finished by exactly one block; every point of an `fps` cloud lies in
+cluster is at its cap; every (rotation, source point) pair of a field_dot
+launch is finished by exactly one warp, and the staged target fits the
+block's shared memory; every point of an `fps` cloud lies in
 exactly one block's contiguous slice, within what a block holds."""
 
 import pytest
 
-from kss_icp_torch.ops.coarse_cuda import FIELD_GROUP, FIELD_Q, FIELD_SLOTS, field_plan
+from kss_icp_torch.ops.coarse_cuda import (DOT_MAX_POINTS, DOT_POINTS, DOT_SM_SMEM, DOT_STATIC_SMEM, DOT_TILE,
+                                           dot_plan, dot_stage_bytes)
 from kss_icp_torch.ops.nn_cuda import MAX_CLUSTER, MIN_SLICE, SMS, TILE_QUERIES, nn1_plan
 from kss_icp_torch.ops.resample_cuda import (CLUSTER_MIN_POINTS, CLUSTER_POINTS, CLUSTER_THREADS, CLUSTERS,
                                              MAX_POINTS, MAX_THREADS, MIN_CLUSTER, REGISTER_POINTS, REGISTER_SLICE,
@@ -168,52 +170,73 @@ def test_fps_empty_step_plan_keeps_the_shape(batch, p_n):
     assert floor.slice == 1 and floor.k * floor.threads >= 1 and floor.k in (1, SHARED_K)
 
 
-# (C, P, label, slots): the 8³ and 16³ grids at the main path's padded clouds,
-# the bench config's 512-point prefixes, and small shapes of the tests.
+# (C, P, label): the 8³ and 16³ grids at the main path's padded clouds, the
+# bench config's 512-point prefixes, and small shapes of the tests.
 FIELD_SHAPES = [
-    (512, 2048, "8³ grid, padded clouds", 4),
-    (4096, 512, "16³ grid, 512-point prefixes", 2),
-    (512, 512, "8³ grid, bench prefixes", 2),
-    (729, 2048, "9³ grid: C not a multiple of q", 4),
-    (27, 2048, "3³ grid", 4),
-    (27, 200, "small P", 1),
-    (64, 256, "one group", 1),
-    (8, 150, "tests' tiny field", 1),
-    (2, 10, "two rotations", 1),
-    (1, 1, "one of each", 1),
-    (65535, 1, "the most rotations", 1),
+    (512, 2048, "8³ grid, padded clouds"),
+    (4096, 512, "16³ grid, 512-point prefixes"),
+    (512, 512, "8³ grid, bench prefixes"),
+    (729, 2048, "9³ grid: C not a multiple of the grid"),
+    (27, 2048, "3³ grid"),
+    (27, 200, "small P"),
+    (64, 256, "one group"),
+    (8, 150, "tests' tiny field"),
+    (2, 10, "two rotations"),
+    (1, 1, "one of each"),
+    (65535, 1, "the most rotations"),
 ]
 
 
-def _field_cover(slots, c_n, p_n):
-    """The (rotation, point) pairs the kernels' blocks finish, as
-    csrc/field_kernel.cuh computes them: block b holds rotations b * 4 +
-    [0, 4) and walks the points in steps of `slots` groups of 256, a thread
-    a point."""
-    groups = -(-p_n // FIELD_GROUP)
+def _dot_cover(plan, c_n, p_n, groups):
+    """The (rotation, point) pairs the field_dot kernel's warps finish, as
+    csrc/field_dot.cu walks them: block b holds rotations b, b + blocks, ...;
+    its items, (local rotation, index into `groups`, the 64-point groups
+    with a valid point), go to its 8 warps in turn; an item is 4 m16 tiles,
+    rows g and g + 8 of each of 8 quads."""
     finished = []
-    for b in range(-(-c_n // FIELD_Q)):
-        rotations = [c for c in range(b * FIELD_Q, (b + 1) * FIELD_Q) if c < c_n]
-        for g0 in range(0, groups, slots):
-            finished += [(c, p) for c in rotations for p in range(g0 * FIELD_GROUP, (g0 + slots) * FIELD_GROUP)
-                         if p < p_n]
+    for b in range(plan.blocks):
+        rotations = list(range(b, c_n, plan.blocks))
+        items = len(rotations) * len(groups)
+        for warp in range(8):
+            for item in range(warp, items, 8):
+                c, grp = rotations[item // len(groups)], groups[item % len(groups)]
+                finished += [(c, p) for tile in range(4) for g in range(8) for h in range(2)
+                             if (p := grp * DOT_POINTS + tile * 16 + g + 8 * h) < p_n]
     return finished
 
 
-@pytest.mark.parametrize("c_n, p_n, label, expected", FIELD_SHAPES, ids=[s[2] for s in FIELD_SHAPES])
-def test_field_plan_partitions_the_work(c_n, p_n, label, expected):
-    slots = field_plan(p_n)
-    assert slots == expected
-    assert sorted(_field_cover(slots, c_n, p_n)) == [(c, p) for c in range(c_n) for p in range(p_n)]  # each once
-    # What kss_field_ave and kss_field_dot accept (csrc/field_kernel.cuh::
-    # launch_field), else they return cudaErrorInvalidValue.
-    assert slots in FIELD_SLOTS and c_n <= 65535
-    assert slots == 1 or slots * FIELD_GROUP < p_n + FIELD_GROUP  # no group slot left idle
+@pytest.mark.parametrize("c_n, p_n, label", FIELD_SHAPES, ids=[s[2] for s in FIELD_SHAPES])
+def test_field_dot_plan_covers_every_rotation_and_point_once(c_n, p_n, label):
+    """Every (rotation, source point) pair finished exactly once at either
+    precision; skipping a group of masked points drops exactly its pairs;
+    the grid is persistent (no more than two blocks an SM, none idle) and
+    the staged whole target fits the plan's blocks an SM."""
+    groups = list(range(-(-p_n // DOT_POINTS)))
+    want = [(c, p) for c in range(c_n) for p in range(p_n)]
+    for precision, words in (("highest", 3), ("default", 1)):
+        plan = dot_plan(c_n, p_n, 2048, precision, 132)
+        assert plan.blocks == min(c_n, 264) and plan.cap == 2048
+        assert 2 * (dot_stage_bytes(plan.cap, words) + DOT_STATIC_SMEM + 1024) <= DOT_SM_SMEM
+        assert sorted(_dot_cover(plan, c_n, p_n, groups)) == want  # each once
+    if len(groups) > 1:
+        plan = dot_plan(c_n, p_n, 2048, "highest")
+        assert sorted(_dot_cover(plan, c_n, p_n, groups[1:])) == [(c, p) for c, p in want if p >= DOT_POINTS]
 
 
-@pytest.mark.parametrize("p_n, slots", [(1, 1), (256, 1), (257, 2), (512, 2), (768, 2), (1024, 4), (2048, 4),
-                                        (8192, 4)])
-def test_field_plan_slots_follow_the_source(p_n, slots):
-    """As many group slots as the source has groups of 256 points, up to 4:
-    256 to 1024 threads a block."""
-    assert field_plan(p_n) == slots
+@pytest.mark.parametrize("t_n, precision, per_sm, cap", [(4173, "highest", 1, 4224), (100_000, "highest", 1, 4608),
+                                                         (100_000, "default", 1, 13952), (4173, "default", 2, 4224),
+                                                         (64, "highest", 2, 64)])
+def test_field_dot_plan_stages_the_whole_target_where_it_fits(t_n, precision, per_sm, cap):
+    """Two blocks an SM where two hold the padded target, else one; the rows
+    a block stages at once the whole padded target where one block holds
+    it, else the most that fit, a multiple of 64 (the kernel walks chunks)."""
+    words = 1 if precision == "default" else 3
+    plan = dot_plan(4096, 2048, t_n, precision, 132)
+    assert plan.blocks == per_sm * 132 and plan.cap == cap and plan.cap % DOT_TILE == 0
+    assert per_sm * (dot_stage_bytes(plan.cap, words) + DOT_STATIC_SMEM + 1024) <= DOT_SM_SMEM
+    if plan.cap < t_n:
+        assert dot_stage_bytes(plan.cap + DOT_TILE, words) + DOT_STATIC_SMEM + 1024 > DOT_SM_SMEM
+    with pytest.raises(ValueError, match="source points"):
+        dot_plan(8, DOT_MAX_POINTS + 1, 100, precision)
+    with pytest.raises(ValueError, match="precision"):
+        dot_plan(8, 100, 100, "tf32")
