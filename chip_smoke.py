@@ -260,6 +260,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
           fails the run; phase 3 holds nn1, fps and field_ave at a rank's
           shapes, with launches from 4l, and every nn1 shape the 4 ranks
           launch must be one phase 3 held;
+       m. the reference oracle (kss_icp_torch/oracle.py: numpy + scipy in
+          float64 on the host, sharing no code with the port's pipeline):
+          register_pair_oracle and pcr_qm on the remesh 25 and the category
+          board (57 pairs) in a spawned process pool, a worker a core and one
+          BLAS thread each (the workers never touch the card), each pair's
+          candidate count and multi-start flag equal to
+          fixtures/torch_port_expected_oracle.json (JAX's oracle on the CPU)
+          and mse, rmse and mae within 1e-6 of it; the port's full-resolution
+          RMSE at DEFAULT_CONFIG (4d's passes) at most the oracle's + 0.006
+          on every pair (tests/test_parity_vs_oracle.py's band), both
+          printed; the native rotation scan (native/oracle_hot.cpp, float32
+          points) within rtol 1e-5 of the numpy field on remesh pair 0, with
+          both scans' seconds; the oracle's seconds a pair and a stage
+          (median and largest) beside the host CPU's model;
   5. a measurement that gates nothing: on each remesh pair's 8³ field, does
      field_dot at "default" (one bf16 pass) keep candidate 0 and the top-6
      set of "highest" and of field_ave?
@@ -1087,10 +1101,11 @@ def largescan_inputs(torch, dev):
 
 
 def load_pairs():
-    meta = json.loads((FIXTURES / "remesh_transfer.json").read_text())
-    with np.load(FIXTURES / "remesh_transfer.npz") as z:
-        return [(r["name"], np.asarray(z[r["name"] + "_src"], np.float32),
-                 np.asarray(z[r["name"] + "_tgt"], np.float32)) for r in meta]
+    """The remesh 25, [(name, source, target)], from the committed fixtures
+    (kss_icp_torch.stress.remesh_corpus)."""
+    from kss_icp_torch.stress import remesh_corpus
+
+    return [(name, src, tgt) for name, src, tgt, _ in remesh_corpus()]
 
 
 class StageTimer:
@@ -3371,6 +3386,123 @@ def phase_mesh(torch, dev, kernels, e2e: dict, card: str, cards_only: bool = Fal
                                                  [f"cuda:{i}" for i in range(world)], True, ctx)
 
 
+# Phase 4m: the reference oracle (kss_icp_torch/oracle.py, numpy + scipy on the host) against JAX's record
+# (scripts/torch_port_expected.py --oracle) and the port on the card against the oracle.
+ORACLE_TOL = 1e-6  # |mse|, |rmse|, |mae| against the record
+NATIVE_RTOL = 1e-5  # the native rotation scan (float32 points) against the numpy oracle's float64 field
+
+
+def oracle_pair(item) -> dict:
+    """One (name, source, target) through the oracle, in a worker process of
+    phase 4m: never touches the card."""
+    from kss_icp_torch.oracle import pcr_qm, register_pair_oracle
+
+    name, src, tgt = item
+    res = register_pair_oracle(src, tgt)
+    return dict(pcr_qm(res.aligned, tgt), name=name, used_multistart=res.used_multistart,
+                num_candidates=res.num_candidates, chosen_candidate=res.chosen_candidate, seconds=res.seconds,
+                stage_seconds=res.stage_seconds)
+
+
+def oracle_port_rows(e2e: dict) -> dict:
+    """The port's full-resolution RMSE at DEFAULT_CONFIG on the remesh 25 and
+    the category board, {name: rmse}, from phase 4d's shipped passes."""
+    p = e2e["passes"]
+    require("shipped" in p and "shipped boards" in p, "4m: phase 4d's shipped passes are missing")
+    rmse = {r["name"]: r["rmse"] for r in p["shipped"]["rows"]}
+    rmse.update({r["name"]: r["rmse"] for r in p["shipped boards"]["rows"] if r["name"].startswith("category:")})
+    return rmse
+
+
+def native_scan_check(src: np.ndarray, tgt: np.ndarray) -> dict:
+    """The native rotation scan against the numpy oracle's field on one pair's
+    resampled clouds, as register_pair_oracle makes them."""
+    from kss_icp_torch import oracle
+    from kss_icp_torch.native import oracle_hot
+
+    t0 = time.perf_counter()
+    oracle_hot.library()
+    build_s = time.perf_counter() - t0
+    p_number = min(min(len(src), len(tgt)) // 2, 2000)
+    cloud_t = oracle.aivs_simplify(np.asarray(tgt, np.float64), p_number)
+    cloud_s = oracle.aivs_simplify(np.asarray(src, np.float64), p_number)
+    t0 = time.perf_counter()
+    ir = oracle.OracleInitRegistration(cloud_s, cloud_t)
+    numpy_s = time.perf_counter() - t0
+    tree = oracle_hot.NativeKDTree(ir.point_target)
+    t0 = time.perf_counter()
+    field = oracle_hot.rotation_scan(ir.point_source, tree, ir.step)
+    native_s = time.perf_counter() - t0
+    rel = float(np.max(np.abs(field - ir.value) / np.abs(ir.value)))
+    return {"p_number": p_number, "build_s": build_s, "numpy_s": numpy_s, "native_s": native_s, "max_rel": rel,
+            "ok": bool(np.allclose(field, ir.value, rtol=NATIVE_RTOL, atol=0.0))}
+
+
+def phase_oracle(e2e: dict, card: str) -> None:
+    """4m: the oracle on the remesh 25 and the category board in a process
+    pool on the host, against fixtures/torch_port_expected_oracle.json; the
+    port's RMSE on the card within the oracle's + RMSE_BAND on every pair; the
+    native rotation scan against the numpy field on remesh pair 0."""
+    from kss_icp_torch.challenge import category_corpus
+    from kss_icp_torch.native import cpu_model, map_spawned
+
+    t_phase = time.perf_counter()
+    record = json.loads((FIXTURES / "torch_port_expected_oracle.json").read_text())
+    expected = {p["name"]: p for p in record["pairs"]}
+    expected.update({f"category:{p['name']}": p for p in record["boards"]["category"]["pairs"]})
+    remesh = load_pairs()
+    category = [(f"category:{name}", src, tgt) for name, src, tgt, _ in category_corpus()]
+    pairs = remesh + category
+    require(sorted(n for n, _, _ in pairs) == sorted(expected), "4m: the oracle record's pairs are not the corpus's")
+    import scipy
+
+    log(f"  [oracle] host CPU {cpu_model()}, {os.cpu_count()} cores; numpy {np.__version__}, scipy {scipy.__version__}; "
+        f"the record's platform: {record['platform']}")
+    workers = len(os.sched_getaffinity(0))
+    t0 = time.perf_counter()
+    rows = map_spawned(oracle_pair, pairs, workers)
+    wall = time.perf_counter() - t0
+    log(f"  [oracle] {len(rows)} pairs through register_pair_oracle in {wall:.3f} s on {workers} worker processes "
+        f"({card})")
+    port = oracle_port_rows(e2e)
+    record_bad, band_bad = [], []
+    for r in rows:
+        exp = expected[r["name"]]
+        gaps = {k: abs(r[k] - exp[k]) for k in ("mse", "rmse", "mae")}
+        same = (r["num_candidates"] == exp["num_candidates"] and r["used_multistart"] == exp["used_multistart"]
+                and max(gaps.values()) <= ORACLE_TOL)
+        within = port[r["name"]] <= r["rmse"] + RMSE_BAND
+        log(f"  [oracle] {r['name']}: oracle rmse {r['rmse']:.6f} (record {exp['rmse']:.6f}, max gap "
+            f"{max(gaps.values()):.3g}) candidates {r['num_candidates']} (record {exp['num_candidates']}) multistart "
+            f"{int(r['used_multistart'])} (record {int(exp['used_multistart'])}) chosen {r['chosen_candidate']} "
+            f"(record {exp['chosen_candidate']}); port rmse {port[r['name']]:.6f} "
+            f"({port[r['name']] - r['rmse']:+.6f}); {r['seconds']:.3f} s"
+            f"{'' if same else ' RECORD DIFFERS'}{'' if within else ' OUTSIDE THE BAND'}")
+        if not same:
+            record_bad.append(r["name"])
+        if not within:
+            band_bad.append(f"{r['name']} (port {port[r['name']]:.6f}, oracle {r['rmse']:.6f})")
+    require(not record_bad, f"4m: the oracle differs from JAX's record on {record_bad}")
+    require(not band_bad, f"4m: the port's RMSE (phase 4d) is above the oracle's + {RMSE_BAND} on {band_bad}")
+    seconds = [r["seconds"] for r in rows]
+    log(f"  [oracle] seconds a pair: median {float(np.median(seconds)):.3f}, largest {max(seconds):.3f} "
+        f"({max(rows, key=lambda r: r['seconds'])['name']}), sum {sum(seconds):.3f}; by stage (median / largest): " +
+        ", ".join(f"{k} {float(np.median([r['stage_seconds'][k] for r in rows])):.3f} / "
+                  f"{max(r['stage_seconds'][k] for r in rows):.3f}" for k in rows[0]["stage_seconds"]) +
+        f" ({workers} workers on {cpu_model()}; {card})")
+    margins = [port[r["name"]] - r["rmse"] for r in rows]
+    log(f"  [oracle] port RMSE (phase 4d) minus the oracle's: median {float(np.median(margins)):+.6f}, largest "
+        f"{max(margins):+.6f}, {sum(m < 0 for m in margins)}/{len(rows)} pairs below the oracle")
+    name, src, tgt = remesh[0]
+    nat = native_scan_check(src, tgt)
+    log(f"  [oracle] native rotation scan on {name} (pnumber {nat['p_number']}): within {nat['max_rel']:.3g} of the "
+        f"numpy field (relative); native {nat['native_s']:.4f} s, numpy {nat['numpy_s']:.4f} s (the scan with its "
+        f"pre-shape), g++ build {nat['build_s']:.2f} s ({cpu_model()}; {card})")
+    require(nat["ok"], f"4m: the native field is outside rtol {NATIVE_RTOL} of the numpy oracle's: {nat['max_rel']}")
+    e2e["passes"]["oracle"] = {"wall_s": wall, "workers": workers, "seconds": seconds, "native": nat,
+                               "phase_s": time.perf_counter() - t_phase, "cpu": cpu_model()}
+
+
 def phase_bf16_ranking(torch, dev) -> None:
     """Does the bf16 dot field keep the 8³ ranking? Gates nothing."""
     from kss_icp_torch.config import DEFAULT_CONFIG as cfg
@@ -3421,7 +3553,7 @@ def main() -> int:
 
     args = sys.argv[1:]
     require(args in ([], ["--mesh-cards"]), f"usage: python3 chip_smoke.py [--mesh-cards]; got {args}")
-    mesh_cards = bool(args)
+    mesh_cards = args == ["--mesh-cards"]
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     import kss_icp_torch  # noqa: F401  (fails where the repository is absent)
@@ -3553,6 +3685,15 @@ def main() -> int:
         f"{p['two-stage many boards']['pairs_per_s']:.3f} synced (shipped "
         f"{p['two-stage many boards']['shipped_pairs_per_s']:.3f}); vcm " + ", ".join(f"{r['ms']:.1f}" for r in p["vcm"]["runs"]) +
         f" ms; lloyd {p['voronoi']['ms']:.1f} ms; mesh angles {p['mesh angles']['ms']:.1f} ms ({card})")
+
+    log("== 4m. the reference oracle: kss_icp_torch.oracle on the host, the port on the card against it")
+    phase_oracle(e2e, card)
+    lap("4m")
+    o = p["oracle"]
+    log(f"oracle: the remesh 25 and the category board in {o['wall_s']:.3f} s on {o['workers']} host processes "
+        f"(median {float(np.median(o['seconds'])):.3f} s a pair, largest {max(o['seconds']):.3f}); native scan "
+        f"{o['native']['native_s']:.4f} s beside numpy's {o['native']['numpy_s']:.4f} s; phase {o['phase_s']:.1f} s "
+        f"({o['cpu']}; {card})")
 
     log("== 5. bf16 dot field against the float32 fields (gates nothing)")
     phase_bf16_ranking(torch, dev)

@@ -14,6 +14,10 @@ output, so a broken toolchain shows. A file the parser refuses (a missing
 file, a format it does not read: n < 0) still goes to the Python readers of
 io/formats.py, as in JAX, and `load_points_native.refused` counts those
 files (with `load_points_batch`'s).
+
+The host helpers beside it serve the oracle's native twin (oracle_hot.py) and
+the oracle's process pools: `build` with other flags, `cpu_model`, and
+`map_spawned`.
 """
 
 from __future__ import annotations
@@ -25,13 +29,15 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "fastio.cpp"
 BUILD = Path(__file__).resolve().parents[1] / "_build"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+# The environment variables that cap numpy's BLAS threads in a worker process.
+BLAS_THREADS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 
 _DOUBLE_P = ctypes.POINTER(ctypes.c_double)
 
@@ -40,18 +46,58 @@ class NativeBuildError(RuntimeError):
     pass
 
 
-def build(src: Path = SRC, out: Path = BUILD) -> Path:
-    """Compile `src` with g++ into a shared library under `out`, unless the
-    library of its hash is there already; raise NativeBuildError with g++'s
-    output if the build fails."""
-    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode() + src.read_bytes()).hexdigest()[:16]
-    lib = out / f"libkss_fastio_{digest}.so"
+def cpu_model() -> str:
+    """The host CPU's model name, vendor, family and model number from
+    /proc/cpuinfo ("unknown" and "?" for what it does not say)."""
+    info = {}
+    try:
+        text = Path("/proc/cpuinfo").read_text()
+    except OSError:
+        text = ""
+    for line in text.splitlines():
+        key, _, value = line.partition(":")
+        info.setdefault(key.strip(), value.strip())
+    return (f"{info.get('model name', 'unknown')} ({info.get('vendor_id', '?')} family {info.get('cpu family', '?')} "
+            f"model {info.get('model', '?')})")
+
+
+def map_spawned(fn: Callable, items: Sequence, workers: Optional[int] = None) -> list:
+    """[fn(item) for item in items] in a process pool started by `spawn` (safe
+    after CUDA is initialised), `workers` processes (default: the cores this
+    process may run on), each with one BLAS thread; the parent's environment
+    is restored after."""
+    import concurrent.futures
+    import multiprocessing
+
+    workers = workers or len(os.sched_getaffinity(0))
+    saved = {k: os.environ.get(k) for k in BLAS_THREADS}
+    os.environ.update({k: "1" for k in BLAS_THREADS})
+    try:
+        with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+            return list(pool.map(fn, items))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def build(src: Path = SRC, out: Path = BUILD, flags: Sequence[str] = GXX_FLAGS) -> Path:
+    """Compile `src` with g++ and `flags` into a shared library under `out`,
+    named after the source's stem and a hash of the source and flags (and of
+    the CPU model where the flags include -march=native, so that a checkout
+    copied to another host builds its own), unless that library is there
+    already; raise NativeBuildError with g++'s output if the build fails."""
+    key = " ".join(flags) + (cpu_model() if "-march=native" in flags else "")
+    digest = hashlib.sha256(key.encode() + src.read_bytes()).hexdigest()[:16]
+    lib = out / f"libkss_{src.stem}_{digest}.so"
     if lib.exists():
         return lib
     out.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out) as tmp:
         so = Path(tmp) / lib.name
-        cmd = ["g++", *GXX_FLAGS, str(src), "-o", str(so)]
+        cmd = ["g++", *flags, str(src), "-o", str(so)]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         except (OSError, subprocess.TimeoutExpired) as e:

@@ -103,6 +103,13 @@ Three records, each a JSON file under fixtures/:
   first-step labels that are not float64's; and the sha256 of the PNGs
   that JAX's `view` writes with `--spin 0.3` on remesh pair 0 (target and
   source) and on Room seed 0's 200k target, each written with save_xyz.
+* `--oracle`: the CPU oracle of the reference, `kss_icp_tpu.oracle.
+  register_pair_oracle` (numpy and scipy in float64), on the remesh 25 and
+  the 32-pair category board, each pair measured with `pcr_qm` at full
+  resolution, written to fixtures/torch_port_expected_oracle.json with the
+  platform (numpy, scipy, the CPU model). The pairs run in a process pool of
+  `--workers` processes (default: the CPU count), one BLAS thread each;
+  about 50 s on 6 workers of an 8-core CPU.
 
 Per pair: the chosen candidate, ICP fitness, ICP iteration count, the
 hit-cap flag, the similarity transform and the full-resolution RMSE; with
@@ -121,7 +128,8 @@ fitness was above overlap_threshold when the rung began. chip_smoke.py and tests
 port to these records.
 
     JAX_PLATFORMS=cpu python scripts/torch_port_expected.py [--escalation | --overlap | --batch | --largescan
-        | --precise | --variants | --tools | --two-stage | --analysis] [--limit N] [--shard I/N] [--out PATH]
+        | --precise | --variants | --tools | --two-stage | --analysis | --oracle [--workers N]] [--limit N]
+        [--shard I/N] [--out PATH]
     python scripts/torch_port_expected.py [--overlap | --batch | --precise | --variants | --two-stage]
         --merge SHARD.json ... [--out PATH]
 
@@ -134,6 +142,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
 import resource
 import sys
@@ -167,6 +176,50 @@ TWO_STAGE = dict(refine_max_iterations=8, refine_polish_iterations=1000)
 ANALYSIS = dict(vcm_family=0, vcm_points=4096, samples_per_point=32, offset_radius=0.1, convolve_radius=0.1,
                 threshold=0.16, vcm_key=0, lloyd_sites=1024, lloyd_resolution=512, lloyd_iterations=10,
                 lloyd_seed=0, bbox=[0.0, 0.0, 1.0, 1.0], view_spin=0.3)
+
+# --oracle: the per-pair fields recorded from OracleRegistrationResult and pcr_qm.
+ORACLE_FIELDS = ("judge_fitness", "used_multistart", "num_candidates", "chosen_candidate")
+
+
+def oracle_pair(item) -> dict:
+    """One --oracle pair, in a worker process: register_pair_oracle and
+    pcr_qm on the full-resolution clouds."""
+    from kss_icp_tpu.oracle import pcr_qm, register_pair_oracle
+
+    index, name, src, tgt = item
+    res = register_pair_oracle(src, tgt)
+    rec = {"name": name, "index": index, "n_source": int(src.shape[0]), "n_target": int(tgt.shape[0])}
+    rec.update(pcr_qm(res.aligned, tgt))
+    rec.update({k: getattr(res, k) for k in ORACLE_FIELDS})
+    rec.update(fitness=res.fitness, seconds=res.seconds)
+    return rec
+
+
+def record_oracle(remesh, category, workers: int) -> dict:
+    """The --oracle record: every remesh and category pair through JAX's
+    oracle in a spawned process pool, one BLAS thread a process."""
+    import platform as host
+
+    import scipy
+
+    from kss_icp_torch.native import cpu_model, map_spawned  # jax-free
+
+    items = [(i, name, src, tgt) for i, (name, src, tgt, _) in enumerate(remesh)]
+    items += [(i, name, src, tgt) for i, (name, src, tgt, _) in enumerate(category)]
+    rows = map_spawned(oracle_pair, items, workers)
+    for r in rows:
+        print(f"{r['name']}: rmse={r['rmse']:.6f} cand={r['num_candidates']} chosen={r['chosen_candidate']} "
+              f"multistart={r['used_multistart']} {r['seconds']:.2f} s", file=sys.stderr, flush=True)
+    return {
+        "platform": f"numpy {np.__version__}, scipy {scipy.__version__}, python {host.python_version()} on "
+                    f"{cpu_model()} ({workers} worker processes, one BLAS thread each)",
+        "note": "kss_icp_tpu.oracle.register_pair_oracle at its defaults (accurate=8, max_iterations=1000) on "
+                "the float32 clouds, then pcr_qm(aligned, target) at full resolution; seconds are each pair's "
+                "wall time inside the pool",
+        "pairs": rows[: len(remesh)],
+        "boards": {"category": {"pairs": rows[len(remesh):]}},
+    }
+
 
 ESCALATION_NOTE = (
     "JAX on the CPU scores the rotation field on its XLA path whatever coarse_method says "
@@ -800,7 +853,10 @@ def main() -> int:
                       help="record the two-stage converge through register_pair and register_many: remesh 25")
     mode.add_argument("--analysis", action="store_true",
                       help="record vcm_edges at 4096 points, lloyd_relax at 1024 sites, and view's PNG digests")
+    mode.add_argument("--oracle", action="store_true",
+                      help="record kss_icp_tpu.oracle on the remesh 25 and the category board (process pool)")
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--workers", type=int, default=None, help="--oracle: worker processes (default: the CPU count)")
     ap.add_argument("--limit", type=int, default=0,
                     help="only the first N pairs of each corpus (0 = all)")
     ap.add_argument("--shard", default="0/1",
@@ -818,6 +874,7 @@ def main() -> int:
                                        "torch_port_expected_tools.json" if args.tools else
                                        "torch_port_expected_two_stage.json" if args.two_stage else
                                        "torch_port_expected_analysis.json" if args.analysis else
+                                       "torch_port_expected_oracle.json" if args.oracle else
                                        "torch_port_expected.json")
     if args.merge:
         return merge(args.merge, out_path)
@@ -964,6 +1021,12 @@ def main() -> int:
 
     remesh = remesh_corpus()
     platform = "jax " + jax.__version__ + " on cpu"
+    if args.oracle:
+        out = record_oracle(limit(list(remesh)), limit(category_corpus()), args.workers or os.cpu_count())
+        out["seconds"] = time.perf_counter() - t_start
+        out_path.write_text(dump_record(out))
+        print(f"wrote {out_path} in {out['seconds']:.0f} s", file=sys.stderr)
+        return 0
     if args.batch:
         boards = challenge_corpus(include_hard=True)
         remesh_items, board_items = batch_items(remesh, boards, shard, shards, args.limit)

@@ -46,6 +46,8 @@ def test_imports_with_jax_blocked():
             "import kss_icp_torch.ops.vcm, kss_icp_torch.ops.voronoi2d, kss_icp_torch.measure_mesh\n"
             "import kss_icp_torch.parallel.mesh, kss_icp_torch.parallel.point_shard\n"
             "import kss_icp_torch.parallel.rotation_shard, kss_icp_torch.parallel\n"
+            "import kss_icp_torch.oracle, kss_icp_torch.stress, kss_icp_torch.utils.profiling\n"
+            "import kss_icp_torch.native.oracle_hot, kss_icp_torch.utils\n"
             "sys.path.insert(0, 'tests')\n"
             "import torch_parallel_worker\n"
             "assert kss_icp_torch.register_many and kss_icp_torch.parallel.register_many\n"
@@ -67,7 +69,8 @@ def test_no_source_file_imports_jax():
     names = {str(f.relative_to(REPO)) for f in files}
     for new in ("viz/__init__.py", "viz/render.py", "viz/trackball.py", "viz/interactive.py", "utils/fileproc.py",
                 "native/__init__.py", "ops/vcm.py", "ops/voronoi2d.py", "measure_mesh.py", "parallel/mesh.py",
-                "parallel/point_shard.py", "parallel/rotation_shard.py"):
+                "parallel/point_shard.py", "parallel/rotation_shard.py", "oracle.py", "stress.py",
+                "utils/profiling.py", "native/oracle_hot.py"):
         assert f"kss_icp_torch/{new}" in names, new
     bad = []
     for f in files:
@@ -79,6 +82,29 @@ def test_no_source_file_imports_jax():
                 names = [node.module]
             bad += [f"{f.name}: {n}" for n in names if n.split(".")[0] in ("jax", "jaxlib", "kss_icp_tpu")]
     assert not bad
+
+
+def test_utils_exports_match_jax():
+    import kss_icp_torch.utils
+    import kss_icp_tpu.utils
+
+    assert kss_icp_torch.utils.__all__ == kss_icp_tpu.utils.__all__
+    assert all(callable(getattr(kss_icp_torch.utils, name)) for name in kss_icp_torch.utils.__all__)
+
+
+def test_oracle_imports_no_port_kernel_module():
+    """The oracle shares no code with what it checks: it imports no module
+    of the port at all (so none of its ops, models, parallel or csrc; the
+    package's top level would pull them in), no torch and no jax."""
+    tree = ast.parse((REPO / "kss_icp_torch" / "oracle.py").read_text())
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            imported += [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+    assert "scipy.spatial" in imported
+    assert not [n for n in imported if n.split(".")[0] in ("torch", "kss_icp_torch", "jax", "kss_icp_tpu")]
 
 
 def test_config_fields_and_defaults_match_jax():
