@@ -21,6 +21,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from kss_icp_torch.utils.profiling import span
+
 
 def padded_selection(flagged: np.ndarray, pad_multiple: int, cap: Optional[int] = None) -> np.ndarray:
     """Pad an index list by repeating its first entry up to a multiple of
@@ -158,7 +160,9 @@ def overlap_rerun(
     for c0 in range(0, sel.size, step):
         csel = sel[c0:c0 + step]
         res2, *scores = resolve(csel)
-        fit_std, tf_new, tf_old = (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for x in scores)
+        with span("sync.ladder"):
+            fit_std, tf_new, tf_old = (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+                                       for x in scores)
         for j, gi in enumerate(csel):
             if gi in adopted or not tf_new[j] < margin * tf_old[j]:
                 continue

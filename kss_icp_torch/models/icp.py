@@ -6,7 +6,11 @@ by KSS_ICP.hpp:155-162). JAX runs one `lax.while_loop` per lane under
 active, and a finished lane keeps its state. Here that is a Python loop over
 iterations with all lanes batched, `torch.where` freezing the finished lanes,
 and one host sync per iteration for the "any lane active" test. Per-lane
-`iterations` and `converged` equal the reference's.
+`iterations` and `converged` equal the reference's. Each call is a "kss.icp"
+span and each pass of the loop a "kss.icp.step" span; inside it, the stop
+test's read is a "kss.sync.icp_stop" span and the Kabsch step's SVD, which
+waits on the device too, a "kss.sync.kabsch_svd" span
+(utils/profiling.py::span).
 
 Correspondences come from the `nn1` kernel (one launch per iteration for all
 lanes). Each lane may have its own target cloud (`lane_ref`), so the lanes of
@@ -32,6 +36,7 @@ import torch.distributed as dist
 from kss_icp_torch.core.transforms import matmul3, matvec3, rotate_points
 from kss_icp_torch.ops.nn import masked_quantile_threshold, trimmed_masked_mean
 from kss_icp_torch.ops.nn_cuda import lane_refs, nn1
+from kss_icp_torch.utils.profiling import span, spanned
 
 
 class ICPParams(NamedTuple):
@@ -92,7 +97,8 @@ def kabsch(source: torch.Tensor, target: torch.Tensor, weights: torch.Tensor, es
     s0 = source - cs[..., None, :]
     t0 = target - ct[..., None, :]
     h = all_sum((w[..., None] * s0[..., :, None] * t0[..., None, :]).sum(dim=-3), group) / wsum[..., None, None]
-    u, sv, vh = torch.linalg.svd(h)
+    with span("sync.kabsch_svd"):  # on CUDA, torch.linalg.svd waits on the device (twice a call)
+        u, sv, vh = torch.linalg.svd(h)
     v, ut = vh.transpose(-1, -2), u.transpose(-1, -2)
     det = torch.linalg.det(matmul3(v, ut))
     d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
@@ -142,19 +148,24 @@ def point_to_plane_step(source: torch.Tensor, target: torch.Tensor, target_norma
 
 
 def _any_active(active: torch.Tensor, group) -> bool:
-    """Whether any lane is still active: one host sync; with a group, on
-    any rank (the flag all-reduced with MAX)."""
+    """Whether any lane is still active: one host sync, the span
+    "sync.icp_stop"; with a group, on any rank (the flag all-reduced with
+    MAX)."""
     if group is None:
-        return bool(active.any())
+        flag = active.any()
+        with span("sync.icp_stop"):
+            return bool(flag)
     flag = active.any().to(torch.int32).reshape(1)
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
-    return bool(flag)
+    with span("sync.icp_stop"):
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        return bool(flag)
 
 
 def _where(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
     return torch.where(active.reshape(active.shape + (1,) * (new.dim() - 1)), new, old)
 
 
+@spanned("icp")
 def icp(
     source: torch.Tensor,
     source_mask: torch.Tensor,
@@ -233,54 +244,59 @@ def icp(
     def positions(r, t, s):
         return (s[:, None, None] * rotate_points(r, source) + t[:, None, :]).contiguous()
 
-    while True:
-        active = (iteration < params.max_iterations) & ~converged
-        if not _any_active(active, group):
-            break
-        icp.lockstep_iterations += 1
-        cur = positions(rot, trans, scale)
-        d2, idx = nn1(cur, tgt, tmask, lane_ref)
-        keep = smask & (d2 <= max_d2)
-        if trim_fraction:
-            keep = keep & (d2 <= masked_quantile_threshold(d2, smask, trim_fraction)[:, None])
-        w = keep.to(dtype)
-        corr = tgt[ref_row, idx.long()]
-        if plane:
-            dr, dt = point_to_plane_step(cur, corr, target_normals[ref_row, idx.long()], w, group)
-            ds = torch.ones_like(scale)
-        elif estimate_scale:
-            dr, dt, ds = kabsch(cur, corr, w, estimate_scale=True, group=group)
-        else:
-            (dr, dt), ds = kabsch(cur, corr, w, group=group), torch.ones_like(scale)
-        # new(x) = ds·dr·(s·R·x + t) + dt
-        new_r = matmul3(dr, rot)
-        new_t = ds[:, None] * matvec3(dr, trans) + dt
-        new_s = ds * scale
+    # Each pass is one "icp.step": the lanes' step, the state update, then
+    # the stop test that decides the next pass. The first pass needs none:
+    # every lane starts active.
+    active = (iteration < params.max_iterations) & ~converged
+    go = params.max_iterations > 0 and lanes > 0
+    while go:
+        with span("icp.step"):
+            icp.lockstep_iterations += 1
+            cur = positions(rot, trans, scale)
+            d2, idx = nn1(cur, tgt, tmask, lane_ref)
+            keep = smask & (d2 <= max_d2)
+            if trim_fraction:
+                keep = keep & (d2 <= masked_quantile_threshold(d2, smask, trim_fraction)[:, None])
+            w = keep.to(dtype)
+            corr = tgt[ref_row, idx.long()]
+            if plane:
+                dr, dt = point_to_plane_step(cur, corr, target_normals[ref_row, idx.long()], w, group)
+                ds = torch.ones_like(scale)
+            elif estimate_scale:
+                dr, dt, ds = kabsch(cur, corr, w, estimate_scale=True, group=group)
+            else:
+                (dr, dt), ds = kabsch(cur, corr, w, group=group), torch.ones_like(scale)
+            # new(x) = ds·dr·(s·R·x + t) + dt
+            new_r = matmul3(dr, rot)
+            new_t = ds[:, None] * matvec3(dr, trans) + dt
+            new_s = ds * scale
 
-        # Convergence MSE from the matched pairs in exact f32 (icp.py:293-301).
-        wsum = all_sum(w.sum(dim=-1), group).clamp_min(1.0)
-        diff = cur - corr
-        d2_exact = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
-        new_mse = all_sum((d2_exact * w).sum(dim=-1), group) / wsum
+            # Convergence MSE from the matched pairs in exact f32 (icp.py:293-301).
+            wsum = all_sum(w.sum(dim=-1), group).clamp_min(1.0)
+            diff = cur - corr
+            d2_exact = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+            new_mse = all_sum((d2_exact * w).sum(dim=-1), group) / wsum
 
-        trans_delta2 = dt[:, 0] * dt[:, 0] + dt[:, 1] * dt[:, 1] + dt[:, 2] * dt[:, 2]
-        cos_angle = (dr[:, 0, 0] + dr[:, 1, 1] + dr[:, 2, 2] - 1.0) / 2.0
-        transform_small = (trans_delta2 < params.transformation_epsilon) & (
-            (1.0 - cos_angle) < params.rotation_epsilon)
-        if estimate_scale:
-            transform_small = transform_small & ((ds - 1.0) ** 2 < params.transformation_epsilon)
-        mse_delta = (new_mse - corr_mse).abs()
-        if params.relative_mse:
-            mse_delta = mse_delta / new_mse.clamp_min(tiny)
-        mse_small = mse_delta < params.euclidean_fitness_epsilon
-        new_conv = (iteration > 0) & (transform_small | mse_small)
+            trans_delta2 = dt[:, 0] * dt[:, 0] + dt[:, 1] * dt[:, 1] + dt[:, 2] * dt[:, 2]
+            cos_angle = (dr[:, 0, 0] + dr[:, 1, 1] + dr[:, 2, 2] - 1.0) / 2.0
+            transform_small = (trans_delta2 < params.transformation_epsilon) & (
+                (1.0 - cos_angle) < params.rotation_epsilon)
+            if estimate_scale:
+                transform_small = transform_small & ((ds - 1.0) ** 2 < params.transformation_epsilon)
+            mse_delta = (new_mse - corr_mse).abs()
+            if params.relative_mse:
+                mse_delta = mse_delta / new_mse.clamp_min(tiny)
+            mse_small = mse_delta < params.euclidean_fitness_epsilon
+            new_conv = (iteration > 0) & (transform_small | mse_small)
 
-        rot = _where(active, new_r, rot)
-        trans = _where(active, new_t, trans)
-        scale = _where(active, new_s, scale)
-        corr_mse = _where(active, new_mse, corr_mse)
-        converged = _where(active, new_conv, converged)
-        iteration = _where(active, iteration + 1, iteration)
+            rot = _where(active, new_r, rot)
+            trans = _where(active, new_t, trans)
+            scale = _where(active, new_s, scale)
+            corr_mse = _where(active, new_mse, corr_mse)
+            converged = _where(active, new_conv, converged)
+            iteration = _where(active, iteration + 1, iteration)
+            active = (iteration < params.max_iterations) & ~converged
+            go = _any_active(active, group)
 
     d2, _ = nn1(positions(rot, trans, scale), tgt, tmask, lane_ref)
     if trim_fraction:

@@ -69,6 +69,7 @@ from kss_icp_torch.ops.normals import estimate_normals
 from kss_icp_torch.ops.resample import fps_points
 from kss_icp_torch.ops.resample_cuda import fps
 from kss_icp_torch.ops.spatial import estimate_box_scale
+from kss_icp_torch.utils.profiling import span, spanned
 
 BIG = 1e30
 
@@ -87,8 +88,18 @@ class RegistrationResult(NamedTuple):
 Timer = Callable[[str], contextlib.AbstractContextManager]
 
 
-def _stage(timer: Optional[Timer], name: str):
-    return timer(name) if timer is not None else contextlib.nullcontext()
+def _host(x: torch.Tensor, site: str) -> np.ndarray:
+    """x read to the host as numpy: a blocking read of a device value, inside
+    the span "sync.<site>"."""
+    with span(f"sync.{site}"):
+        return x.cpu().numpy()
+
+
+def _to_device(x, device, site: str) -> torch.Tensor:
+    """The host array or list `x` on `device`: a blocking copy from pageable
+    memory, inside the span "sync.<site>"."""
+    with span(f"sync.{site}"):
+        return torch.as_tensor(np.asarray(x), device=device)
 
 
 def _prefix(points, mask, n):
@@ -247,7 +258,7 @@ def register_batch(
     gate = cfg.multistart_fitness_gate
     sp, sm, tp, tm = source_points, source_mask, target_points.contiguous(), target_mask.contiguous()
 
-    with _stage(timer, "coarse"):
+    with span("coarse", timer):
         # 2. Kendall pre-shape normalization.
         sim0, _, _ = middle_align(sp, sm, tp, tm)
         src_aligned = apply_similarity(sim0, sp)
@@ -285,7 +296,7 @@ def register_batch(
         where it is on (computed only when some pair fails the gate)."""
         use_best = judge <= gate
         best = torch.argmin(fit, dim=1)
-        if cfg.pose_tiebreak_margin and not bool(use_best.all()):
+        if cfg.pose_tiebreak_margin and not _host(use_best.all(), "tiebreak"):
             aligned = (res.scale[..., None, None] * rotate_points(res.rotation, lanes)
                        + res.translation[..., None, :])
             best = _pose_tiebreak_select(fit, aligned, sm, tp, tm, cfg)
@@ -319,12 +330,12 @@ def register_batch(
         the uncapped `params`, and the capped solve's refine_hit_cap kept."""
         if not cfg.neighborhood_fracs:
             return out
-        with _stage(timer, "polish"):
+        with span("polish", timer):
             total, fitness = neighborhood_polish(out.transform, out.fitness, sp, sm, tp, tm, params, cfg)
         return out._replace(transform=total, fitness=fitness)
 
     if cfg.multistart_mode != "two_phase":  # "full", as any other value is in JAX
-        with _stage(timer, "refine"):
+        with span("refine", timer):
             k = rotated.shape[1]
             sel = torch.arange(k, device=device).expand(b, k)
             res = solve(rotated, refine_params)
@@ -335,7 +346,7 @@ def register_batch(
 
     # Two-phase: screen every candidate with a short solve on the source's
     # first screen_points rows (an FPS prefix is a uniform subsample).
-    with _stage(timer, "screen"):
+    with span("screen", timer):
         sp_n = min(cfg.screen_points, p)
         res1 = solve(rotated[:, :, :sp_n], params._replace(max_iterations=cfg.screen_iterations),
                      rows=cfg.screen_target_points)
@@ -348,7 +359,7 @@ def register_batch(
         lanes = _take(rotated, sel)
         sel_mask = _take(coarse.candidate_mask, sel)
 
-    with _stage(timer, "refine"):
+    with span("refine", timer):
         if not cfg.refine_tier_iterations:
             res = solve(lanes, refine_params, init)
             fit = torch.where(sel_mask, res.fitness, big)
@@ -376,6 +387,7 @@ def register_batch(
     return polish(out)
 
 
+@spanned("register_resampled")
 def register_resampled(
     source_points: torch.Tensor,
     source_mask: torch.Tensor,
@@ -528,19 +540,20 @@ def continue_capped(res: RegistrationResult, clouds: tuple, cfg: KSSICPConfig = 
     some pair continues; without the knob, `res` unchanged."""
     from kss_icp_torch import escalate as esc
 
-    hit = res.refine_hit_cap.cpu().numpy()
+    hit = _host(res.refine_hit_cap, "two_stage")
     if not two_stage(cfg) or not hit.any():
         return res
     device = clouds[0].device
 
     def polish(sel):
-        idx = torch.as_tensor(np.asarray(sel), device=device)
+        idx = _to_device(sel, device, "two_stage")
         tot, fit2, _ = polish_resampled(*(x[idx] for x in clouds), tree_map(lambda x: x[idx], res.transform), cfg)
-        return tot, fit2.cpu().numpy()
+        return tot, _host(fit2, "two_stage")
 
-    with _stage(timer, "two_stage"):
-        transform, fitness, _, _ = esc.polish_rerun(polish, hit, res.fitness.cpu().numpy(), 1, result=res.transform)
-    return res._replace(transform=transform, fitness=torch.as_tensor(fitness, device=device))
+    with span("two_stage", timer):
+        transform, fitness, _, _ = esc.polish_rerun(polish, hit, _host(res.fitness, "two_stage"), 1,
+                                                    result=res.transform)
+    return res._replace(transform=transform, fitness=_to_device(fitness, device, "two_stage"))
 
 
 def trimmed_fitness(
@@ -801,7 +814,7 @@ def escalation_ladder(
 
     def rows(sel, transform=None):
         """The clouds of the pairs `sel`, and their rows of `transform`."""
-        idx = torch.as_tensor(np.asarray(sel), device=device)
+        idx = _to_device(sel, device, "ladder")
         sub = tuple(x[idx] for x in clouds)
         return sub if transform is None else sub + (tree_map(lambda x: x[idx], transform),)
 
@@ -811,31 +824,31 @@ def escalation_ladder(
     def resolve(sel):
         r2 = register_batch(*rows(sel), ecfg)
         solved.append(r2)
-        return (r2.transform, r2.refine_hit_cap), r2.fitness.cpu().numpy()
+        return (r2.transform, r2.refine_hit_cap), _host(r2.fitness, "ladder")
 
     # The hit-cap fold: a pair still unconverged after the capped final
     # converge is re-solved whatever its fitness, unless the two-stage
     # converge has continued it (JAX batch.py:238-239).
-    fitness = res.fitness.cpu().numpy()
+    fitness = _host(res.fitness, "ladder")
     flags = fitness > threshold
     if not two_stage(cfg):
-        flags |= res.refine_hit_cap.cpu().numpy()
-    with _stage(timer if flags.any() else None, "escalate"):
+        flags |= _host(res.refine_hit_cap, "ladder")
+    with span("escalate", timer) if flags.any() else contextlib.nullcontext():
         (transform, hit_cap), fitness, wins, _ = esc.escalate_rerun(
             resolve, fitness, threshold, 1, result=(res.transform, res.refine_hit_cap), flags=flags)
-    res = won(res, wins)._replace(transform=transform, fitness=torch.as_tensor(fitness, device=device),
+    res = won(res, wins)._replace(transform=transform, fitness=_to_device(fitness, device, "ladder"),
                                   refine_hit_cap=hit_cap)
 
-    hit = hit_cap.cpu().numpy()
+    hit = _host(hit_cap, "ladder")
     if hit.any():
         # The escalation solve runs capped too: finish the kept rows uncapped.
         def finish(sel):
             tot, fit2, _ = polish_resampled(*rows(sel, res.transform), ecfg)
-            return tot, fit2.cpu().numpy()
+            return tot, _host(fit2, "ladder")
 
-        with _stage(timer, "finish"):
+        with span("finish", timer):
             transform, fitness, _, _ = esc.polish_rerun(finish, hit, fitness, 1, result=res.transform)
-        res = res._replace(transform=transform, fitness=torch.as_tensor(fitness, device=device),
+        res = res._replace(transform=transform, fitness=_to_device(fitness, device, "ladder"),
                            refine_hit_cap=torch.zeros_like(hit_cap))
 
     if not cfg.overlap_escalate or (pair and not fitness[0] > cfg.overlap_threshold):
@@ -853,7 +866,7 @@ def escalation_ladder(
         idx = np.nonzero(flags)[0]
         if idx.size:
             *sub, base = rows(idx, res.transform)
-            tf_old[idx] = trimmed_fitness(base, *sub, q).cpu().numpy()
+            tf_old[idx] = _host(trimmed_fitness(base, *sub, q), "ladder")
             flags[idx] = tf_old[idx] < cfg.overlap_gate_ratio * fitness[idx]
 
         def solve_rung(sel, ocfg=ocfg, solve=solve, tf_old=tf_old):
@@ -864,13 +877,14 @@ def escalation_ladder(
             solved.append(r)
             return r.transform, _plain_fitness(r.transform, *sub), r.fitness, tf_old[np.asarray(sel)]
 
-        with _stage(timer if flags.any() else None, stage):
+        with span(stage, timer) if flags.any() else contextlib.nullcontext():
             transform, fitness, wins, _ = esc.overlap_rerun(
                 solve_rung, fitness, reach, 1, cfg.overlap_adopt_margin, result=res.transform, flags=flags)
-        res = won(res, wins)._replace(transform=transform, fitness=torch.as_tensor(fitness, device=device))
+        res = won(res, wins)._replace(transform=transform, fitness=_to_device(fitness, device, "ladder"))
     return res
 
 
+@spanned("register_pair")
 def register_pair(
     source: Union[PointCloud, np.ndarray, torch.Tensor],
     target: Union[PointCloud, np.ndarray, torch.Tensor],
@@ -912,13 +926,14 @@ def register_pair(
     n_s, n_t = int(source.count), int(target.count)
     pnumber = cfg.resample_count(n_s, n_t)
     cfg = _resolve_aivs_boxes(cfg, max(n_s, n_t))
-    pn = torch.tensor([pnumber], device=device)
-    with _stage(timer, "resample"):
+    with span("sync.resample"):
+        pn = torch.tensor([pnumber], device=device)
+    with span("resample", timer):
         clouds = resample_batch(source.points[None], source.mask[None], pn, cfg, steps=pnumber)
         clouds += resample_batch(target.points[None], target.mask[None], pn, cfg, steps=pnumber)
     if cfg.overlap_mode:
         # The caller knows the scans overlap partially: the overlap solve alone.
-        with _stage(timer, "overlap"):
+        with span("overlap", timer):
             return _first(register_overlap_resampled(*clouds, cfg))
     res = register_batch(*clouds, cfg, timer)
     if two_stage(cfg):

@@ -20,6 +20,7 @@ import torch
 from kss_icp_torch.ops.normals import EIGH_BATCH
 from kss_icp_torch.ops.resample import BIG, voxel_downsample
 from kss_icp_torch.ops.spatial import segment_reduce, sq_norm_fma
+from kss_icp_torch.utils.profiling import span, spanned
 
 
 def _sqrt32(x: torch.Tensor) -> torch.Tensor:
@@ -35,6 +36,7 @@ def grid_simplify(points: torch.Tensor, mask: torch.Tensor,
     return voxel_downsample(points, mask, cell_size)
 
 
+@spanned("octree")
 def octree_simplify(points: torch.Tensor, mask: torch.Tensor,
                     target_points: int = 80000) -> Tuple[torch.Tensor, torch.Tensor]:
     """Voxel downsample of (P, 3) `points` at the cell diag / sqrt(target_points),
@@ -56,7 +58,9 @@ def octree_simplify(points: torch.Tensor, mask: torch.Tensor,
     extent = hi - lo
     sq = extent * extent
     diag = _sqrt32((sq[0] + sq[2]) + sq[1])
-    inv = 1.0 / _sqrt32(torch.tensor(float(target_points), dtype=dtype, device=points.device))
+    with span("sync.octree"):  # a scalar copied to the device: a blocking copy
+        root = torch.tensor(float(target_points), dtype=dtype, device=points.device)
+    inv = 1.0 / _sqrt32(root)
     cell = diag * inv
     return voxel_downsample(points, mask, cell)
 

@@ -36,8 +36,9 @@ from kss_icp_torch.core.transforms import Similarity, apply_similarity
 from kss_icp_torch.escalate import tree_map
 from kss_icp_torch.metrics import registration_measure_padded
 from kss_icp_torch.models import kss_icp as kss
-from kss_icp_torch.models.kss_icp import RegistrationResult, Timer, _stage
+from kss_icp_torch.models.kss_icp import RegistrationResult, Timer
 from kss_icp_torch.parallel.mesh import all_gather_rows, axis_rank
+from kss_icp_torch.utils.profiling import span, spanned
 
 
 def _over_pairs(mesh, b: int, run):
@@ -95,6 +96,7 @@ def overlap_batch(
                        lambda rows: solve(*tree_map(lambda x: x[rows], args), cfg))
 
 
+@spanned("register_many")
 def register_many(
     pairs,
     cfg: KSSICPConfig = DEFAULT_CONFIG,
@@ -149,7 +151,8 @@ def register_many(
                               device, timer)
 
     res, metrics = run(range(len(pairs))) if mesh is None else _over_pairs(mesh, len(pairs), run)
-    return res, {k: v.cpu().numpy() for k, v in metrics.items()}
+    with span("sync.result"):
+        return res, {k: v.cpu().numpy() for k, v in metrics.items()}
 
 
 def _register_many(pairs, cfg, full_pad, escalate, escalate_threshold, escalate_cfg, device, timer):
@@ -161,18 +164,20 @@ def _register_many(pairs, cfg, full_pad, escalate, escalate_threshold, escalate_
         for b, c in enumerate(clouds):
             c = np.asarray(c, np.float32)[:full_pad]
             pts[b, :len(c)], mask[b, :len(c)] = c, True
-        return torch.as_tensor(pts).to(device), torch.as_tensor(mask).to(device)
+        with span("sync.upload"):
+            return torch.as_tensor(pts).to(device), torch.as_tensor(mask).to(device)
 
     s_pts, s_msk = padded([s for s, _ in pairs])
     t_pts, t_msk = padded([t for _, t in pairs])
     counts = [cfg.resample_count(min(len(s), full_pad), min(len(t), full_pad)) for s, t in pairs]
-    with _stage(timer, "resample"):
-        (sp, sm), (tp, tm) = kss.resample_pairs(s_pts, s_msk, t_pts, t_msk, torch.tensor(counts, device=device),
-                                                cfg, steps=max(counts))
+    with span("resample", timer):
+        with span("sync.resample"):
+            pnumber = torch.tensor(counts, device=device)
+        (sp, sm), (tp, tm) = kss.resample_pairs(s_pts, s_msk, t_pts, t_msk, pnumber, cfg, steps=max(counts))
     res = kss.register_batch(sp, sm, tp, tm, cfg, timer)
     res = kss.continue_capped(res, (sp, sm, tp, tm), cfg, timer)
     if escalate:
         res = kss.escalation_ladder(res, (sp, sm, tp, tm), cfg, escalate_threshold, escalate_cfg, timer)
-    with _stage(timer, "metric"):
+    with span("metric", timer):
         metrics = registration_measure_padded(apply_similarity(res.transform, s_pts), s_msk, t_pts, t_msk)
     return res, metrics

@@ -5,6 +5,12 @@ The reference's observability is clock() deltas printed to stdout
 Main_KSS_List.cpp:151-153). Here: a context-manager timer emitting JSON
 lines, plus torch.profiler ranges that name a span in a profiler trace.
 
+`span` is the port's own instrumentation: the pipeline's stages, each ICP
+call, each lockstep iteration and each blocking host read of a device value
+open one as a "kss.<name>" range while a torch.profiler session records, on
+the clock of the profiler's device events, and enter the caller's `timer=`
+hook where one is given. With no session recording, a span costs one check.
+
 One difference from JAX: `trace_annotation` lets an exception in its body
 propagate. JAX's version catches everything because jax's profiler may be
 missing; torch.profiler.record_function is always present.
@@ -13,10 +19,16 @@ missing; torch.profiler.record_function is always present.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import sys
 import time
-from typing import Dict
+from typing import Callable, Dict, Optional
+
+import torch
+
+# Whether a torch.profiler (or autograd profiler) session is recording.
+_recording = torch._C._autograd._profiler_enabled
 
 
 class StageTimer:
@@ -53,3 +65,33 @@ def trace_annotation(name: str):
 
     with record_function(name):
         yield
+
+
+def span(name: str, timer: Optional[Callable[[str], contextlib.AbstractContextManager]] = None):
+    """A "kss.<name>" profiler range around the body while a profiler session
+    records (`trace_annotation`), and nothing otherwise; in both cases the
+    caller's `timer(name)` around the body where a timer is given."""
+    if _recording():
+        return _recorded(name, timer)
+    return timer(name) if timer is not None else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _recorded(name: str, timer):
+    with trace_annotation(f"kss.{name}"):
+        if timer is None:
+            yield
+        else:
+            with timer(name):
+                yield
+
+
+def spanned(name: str):
+    """Decorate a function so that each call runs inside span(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return run
+    return wrap
