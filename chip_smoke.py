@@ -77,7 +77,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
      memory in a device scratch, the target in chunks), its numbers under field_trim's row as
      `squared` with its launches from 4i; field_keys (the sort keys of
      field_trim's preparation) bit for bit at 2048 + 2048, 512 + 512 and
-     2048 + 4173 rows, with its launches from 4d (one a field_trim launch); plain PyTorch timings, gating nothing, of the AIVS
+     2048 + 4173 rows, with its launches from 4d (one a field_trim launch);
+     icp_update (the update of a lockstep ICP step) against its plain
+     version at the cells' step shapes, 2048 x 512 and 256 x 2048 lanes x
+     points against 64 clouds, 8192 x 512 against 16 trimmed with scale,
+     and 1 x 2000 (R and t within 2e-5, s and the MSE within rtol 2e-5,
+     inactive lanes bit for bit), timed against the bound of its bytes,
+     with its launches from 4b; plain PyTorch timings, gating nothing, of the AIVS
      resample (a remesh pair's two clouds; the remesh batch's 50 clouds at
      full_pad 8192, twice: the same picks both times, or the run fails) and
      of the PCA normals (1 and 25 resampled targets);
@@ -741,6 +747,7 @@ def phase_kernels(torch, dev) -> dict:
     out["field_trim"] = phase_field_trim(torch, dev, rng)
     out["field_trim"]["squared"] = phase_field_sq(torch, dev, rng)
     out["field_keys"] = phase_field_keys(torch, dev, rng)
+    out["icp_update"] = phase_icp_update(torch, dev, rng)
     phase_plain_knobs(torch, dev)
     return out
 
@@ -937,6 +944,95 @@ def phase_field_keys(torch, dev, rng) -> dict:
             f"ms on the device (graph replay), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
     return dict(cases[0], cases=cases, source="kss_icp_torch/csrc/field_trim.cu (kss_field_keys)",
                 replaces="none: the sort keys of field_trim's preparation (no TPU counterpart)")
+
+
+# The lockstep ICP step's update (csrc/icp_step.cu) at the cells' step shapes:
+# (lanes, points a lane, target clouds, trimmed with scale, label).
+ICP_UPDATE_CASES = ((2048, 512, 64, False, "remesh batch screen: 64 pairs x 32 lanes"),
+                    (256, 2048, 64, False, "remesh batch refine: 64 pairs x 4 lanes"),
+                    (8192, 512, 16, True, "overlap screen: 16 pairs x 512 lanes, trimmed with scale"),
+                    (1, 2000, 1, False, "one lane of 2000 points"))
+# Bytes a point: mask 1, d2 4, idx 4, cur 12 and its target row 12 read; the
+# source 12 read and cur 12 written.
+ICP_UPDATE_BYTES = 57
+
+
+def phase_icp_update(torch, dev, rng) -> dict:
+    """icp_update (the update of one lockstep ICP step) against
+    icp_update_plain at the cells' step shapes, on lanes near their padded
+    clouds with a tenth of them inactive: R and t within 2e-5, s and the MSE
+    within rtol 2e-5, iterations equal, the stop flag the lanes'
+    `active.any()`, each inactive lane's state and cur bit for bit. Then, with
+    every lane kept active (gates that cannot hold), ms a wrapper call back to
+    back, device ms (graph replay), the plain version's ms and the bound of
+    the bytes, ICP_UPDATE_BYTES a point over HBM."""
+    from kss_icp_torch.config import KSSICPConfig
+    from kss_icp_torch.core.transforms import euler_xyz_matrix
+    from kss_icp_torch.models.icp import ICPParams
+    from kss_icp_torch.ops.icp_cuda import ICPState, icp_update, icp_update_plain, positions
+    from kss_icp_torch.ops.nn import masked_quantile_threshold
+    from kss_icp_torch.ops.nn_cuda import nn1
+    from kss_icp_torch.timing import graph_ms, time_ms
+
+    def copy(state):
+        return ICPState(*(x.clone() for x in state))
+
+    params = ICPParams.from_config(KSSICPConfig())._replace(max_iterations=6)
+    busy = params._replace(max_iterations=2 ** 30, transformation_epsilon=-1.0, rotation_epsilon=-1.0,
+                           euclidean_fitness_epsilon=-1.0)
+    cases = []
+    for lanes, n, groups, trimmed, label in ICP_UPDATE_CASES:
+        t_n, valid = 2048, 2048 - 2048 // 40
+        tgt = torch.as_tensor(np.stack([cloud(rng, t_n) for _ in range(groups)]), device=dev)
+        tmask = torch.arange(t_n, device=dev)[None].expand(groups, t_n) < valid
+        ref = torch.arange(groups, dtype=torch.int32, device=dev).repeat_interleave(lanes // groups)
+        rows = torch.as_tensor(rng.integers(0, valid, size=(lanes, n)), device=dev)
+        base = tgt[ref.long()[:, None], rows] + torch.as_tensor(rng.normal(0, 0.005, (lanes, n, 3)), device=dev).float()
+        if trimmed:
+            base[:, : n // 10] += 0.3
+        turn = euler_xyz_matrix(torch.as_tensor(rng.uniform(-0.2, 0.2, (lanes, 3)), device=dev).float())
+        source = torch.einsum("lij,lnj->lni", turn, base).contiguous()
+        smask = torch.ones((lanes, n), dtype=torch.bool, device=dev)
+        smask[::3, n - n // 20:] = False
+        active = torch.as_tensor(rng.uniform(size=lanes) > 0.1, device=dev)
+        active[0] = True
+        state = ICPState(torch.eye(3, device=dev).expand(lanes, 3, 3).clone(), torch.zeros((lanes, 3), device=dev),
+                         torch.ones(lanes, device=dev), torch.full((lanes,), 1e30, device=dev),
+                         torch.ones(lanes, dtype=torch.int32, device=dev), ~active, active)
+        cur = positions(source, *state[:3])
+        d2, idx = nn1(cur, tgt, tmask.contiguous(), ref)
+        thr = masked_quantile_threshold(d2, smask, 0.7) if trimmed else None
+        args = dict(d2=d2, idx=idx, source=source, source_mask=smask, target=tgt, lane_ref=ref, threshold=thr,
+                    estimate_scale=trimmed)
+        want, _, want_flag = icp_update_plain(cur.clone(), state=copy(state), params=params, **args)
+        stop = torch.zeros(2, dtype=torch.int32, device=dev)
+        got, got_cur, flag = icp_update(cur.clone(), state=copy(state), params=params, stop=stop, step=0, **args)
+        torch.cuda.synchronize()
+        err = {"rotation": float((got.rotation - want.rotation).abs().max()),
+               "translation": float((got.translation - want.translation).abs().max()),
+               "scale_rel": float(((got.scale - want.scale) / want.scale).abs().max()),
+               "mse_rel": float(((got.corr_mse - want.corr_mse) / want.corr_mse).abs().max())}
+        require(max(err.values()) <= 2e-5, f"icp_update {label}: off the plain version beyond 2e-5: {err}")
+        require(torch.equal(got.iteration, want.iteration) and int(flag) == int(bool(want_flag)),
+                f"icp_update {label}: iterations or the stop flag differ from the plain version's")
+        frozen = ~active
+        require(all(torch.equal(x[frozen], y[frozen]) for x, y in zip(got, state))
+                and torch.equal(got_cur[frozen], cur[frozen]), f"icp_update {label}: an inactive lane moved")
+        live = ICPState(*(x.clone() for x in state[:5]), torch.zeros_like(active), torch.ones_like(active))
+        work = cur.clone()
+        ms = time_ms(lambda: icp_update(work, state=live, params=busy, stop=stop, step=0, **args), 20)
+        device_ms = graph_ms(lambda: icp_update(work, state=live, params=busy, stop=stop, step=0, **args), 20)
+        plain_ms = time_ms(lambda: icp_update_plain(work, state=live, params=busy, **args), 5)
+        b = bound(0.0, lanes * n * ICP_UPDATE_BYTES)
+        cases.append(dict({"shape": f"{lanes}x{n} G={groups}" + (" trimmed, scaled" if trimmed else ""),
+                           "label": label, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                           "max_abs_err": max(err["rotation"], err["translation"]), "errors": err}, **b))
+        log(f"  icp_update {lanes}x{n} G={groups}{' trimmed, scaled' if trimmed else ''} ({label}): {err}; "
+            f"{ms:.4f} ms a wrapper call back to back, {device_ms:.4f} ms on the device (graph replay), plain "
+            f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {ICP_UPDATE_BYTES} B a point)")
+    return dict(cases[0], cases=cases, source="kss_icp_torch/csrc/icp_step.cu (kss_icp_update)",
+                replaces="none: JAX's lockstep step is XLA (kss_icp_tpu/models/icp.py:191-300); the port's eager "
+                         "step, icp_update_plain")
 
 
 def field_case_inputs(torch, dev, rng, steps, n, s_kind, t_kind):
@@ -1231,6 +1327,7 @@ def escalation_counts(label, rows, exp_rows) -> dict:
 
 def check_launches(label, launches, method: str, overlap: bool = False) -> None:
     require(launches["nn1"] > 0 and launches["fps"] > 0, f"{label}: nn1 or fps never launched: {launches}")
+    require(launches.get("icp_update", 1) > 0, f"{label}: icp_update never launched: {launches}")
     if not overlap:
         require(launches["field_trim"] == 0, f"{label}: field_trim launched without the overlap tier: {launches}")
     if method == "dot":
@@ -1245,10 +1342,12 @@ def phase_end_to_end(torch, dev, kernels: dict) -> dict:
     from kss_icp_torch.challenge import BOARDS, transform_rmse
     from kss_icp_torch.config import DEFAULT_CONFIG
     from kss_icp_torch.ops.coarse_cuda import field_ave, field_dot, field_trim
+    from kss_icp_torch.ops.icp_cuda import icp_update
     from kss_icp_torch.ops.nn_cuda import nn1
     from kss_icp_torch.ops.resample_cuda import fps
 
-    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim}
+    counters = {"nn1": nn1, "fps": fps, "field_ave": field_ave, "field_dot": field_dot, "field_trim": field_trim,
+                "icp_update": icp_update}
     pairs = load_pairs()
     plain_exp = json.loads((FIXTURES / "torch_port_expected.json").read_text())
     esc_exp = json.loads((FIXTURES / "torch_port_expected_escalation.json").read_text())
@@ -1338,7 +1437,7 @@ def phase_end_to_end(torch, dev, kernels: dict) -> dict:
     out["passes"]["boards"] = {"pairs_per_s": len(rows) / total, "seconds": total, "launches": launches,
                                "escalation": counts, "passed": passed, "median_pose": float(np.median(poses))}
 
-    for name in ("nn1", "fps", "field_ave"):
+    for name in ("nn1", "fps", "field_ave", "icp_update"):
         kernels[name]["launches"] = out["passes"]["esc-default"]["launches"][name]
     kernels["nn1"]["launch_shapes"] = out["passes"]["esc-default"]["launches"]["nn1_shapes"]
     kernels["field_dot"]["launches"] = out["passes"]["esc-dot"]["launches"]["field_dot"]
@@ -3703,7 +3802,8 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "bruteforce_bound_ms", "library_ms", "yardstick", "yardstick_ms", "shape", "precision", "cases",
             "launch_shapes", "squared", "mesh_launches")
     line = {"kernels": [{k: v for k, v in dict(kernels[n], name=n, route="cuda", library_ms=None).items() if k in keys}
-                        for n in ("nn1", "fps", "field_ave", "field_dot", "field_trim", "field_keys")]}
+                        for n in ("nn1", "fps", "field_ave", "field_dot", "field_trim", "field_keys",
+                                  "icp_update")]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -42,6 +42,7 @@ SIGNATURES = {
     "kss_field_dot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "kss_field_cull": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),
     "kss_field_keys": (_P, _P, _P, _P, _I, _I, _P, _P),
+    "kss_icp_update": (_P,) * 16 + (_I,) * 4 + (_F,) * 4 + (_I,) * 4 + (_P,),
 }
 
 

@@ -4,16 +4,21 @@ Port of kss_icp_tpu/models/icp.py (pcl::IterativeClosestPoint as configured
 by KSS_ICP.hpp:155-162). JAX runs one `lax.while_loop` per lane under
 `vmap`, which executes in lockstep: the loop goes on while any lane is
 active, and a finished lane keeps its state. Here that is a Python loop over
-iterations with all lanes batched, `torch.where` freezing the finished lanes,
-and one host sync per iteration for the "any lane active" test. Per-lane
+iterations with all lanes batched, a finished lane's state frozen, and one
+host sync per iteration for the "any lane active" test. Per-lane
 `iterations` and `converged` equal the reference's. Each call is a "kss.icp"
 span and each pass of the loop a "kss.icp.step" span; inside it, the stop
-test's read is a "kss.sync.icp_stop" span and the Kabsch step's SVD, which
-waits on the device too, a "kss.sync.kabsch_svd" span
-(utils/profiling.py::span).
+test's read is a "kss.sync.icp_stop" span (utils/profiling.py::span).
 
-Correspondences come from the `nn1` kernel (one launch per iteration for all
-lanes). Each lane may have its own target cloud (`lane_ref`), so the lanes of
+A step is one `nn1` launch for all lanes (the correspondences), the trimmed
+path's quantile, then the update. On the card, for point-to-point lanes with
+the whole point axis here, the update is one `icp_update` launch
+(ops/icp_cuda.py, csrc/icp_step.cu): the Kabsch sums, a float64 3 x 3 SVD,
+the gates, the freeze, the next positions and the stop flag. Elsewhere it is
+the eager `icp_update_plain`, whose CUDA `torch.linalg.svd` in `kabsch` also
+waits on the device (a "kss.sync.kabsch_svd" span).
+
+Each lane may have its own target cloud (`lane_ref`), so the lanes of
 a batch of pairs run in one loop (models/kss_icp.py::register_batch): JAX
 vmaps the single-pair solve over pairs, which is the same lockstep. `trim_fraction` and `estimate_scale` give the overlap tier's trimmed
 similarity ICP (icp.py:226-232): a per-lane quantile gate on the
@@ -33,7 +38,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
-from kss_icp_torch.core.transforms import matmul3, matvec3, rotate_points
+from kss_icp_torch.core.transforms import matmul3, matvec3
+from kss_icp_torch.ops.icp_cuda import ICPState, icp_update, icp_update_plain, positions
 from kss_icp_torch.ops.nn import masked_quantile_threshold, trimmed_masked_mean
 from kss_icp_torch.ops.nn_cuda import lane_refs, nn1
 from kss_icp_torch.utils.profiling import span, spanned
@@ -147,22 +153,17 @@ def point_to_plane_step(source: torch.Tensor, target: torch.Tensor, target_norma
     return _rodrigues(x[:, :3]), x[:, 3:]
 
 
-def _any_active(active: torch.Tensor, group) -> bool:
-    """Whether any lane is still active: one host sync, the span
-    "sync.icp_stop"; with a group, on any rank (the flag all-reduced with
-    MAX)."""
+def _any_active(flag: torch.Tensor, group) -> bool:
+    """Whether any lane is still active, from the step's device flag: one
+    host sync, the span "sync.icp_stop"; with a group, on any rank (the flag
+    all-reduced with MAX)."""
     if group is None:
-        flag = active.any()
         with span("sync.icp_stop"):
             return bool(flag)
-    flag = active.any().to(torch.int32).reshape(1)
+    flag = flag.to(torch.int32).reshape(1)
     with span("sync.icp_stop"):
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
         return bool(flag)
-
-
-def _where(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
-    return torch.where(active.reshape(active.shape + (1,) * (new.dim() - 1)), new, old)
 
 
 @spanned("icp")
@@ -228,77 +229,52 @@ def icp(
         target_normals = None if target_normals is None else target_normals[None]
     tgt, tmask = target.contiguous(), target_mask.contiguous()
     # Each lane's correspondences are gathered from its own cloud.
-    ref_row = lane_refs(lane_ref, lanes, tgt.shape[0], device).long()[:, None]
+    ref = lane_refs(lane_ref, lanes, tgt.shape[0], device)
     big = torch.finfo(dtype).max / 4
-    max_d2 = torch.tensor(params.max_correspondence_distance, dtype=dtype) ** 2
-    tiny = torch.finfo(dtype).tiny
 
+    # The state is the call's own: the kernel updates it in place.
     rot = (torch.eye(3, dtype=dtype, device=device).expand(lanes, 3, 3).clone()
-           if init_rotation is None else init_rotation)
-    trans = torch.zeros((lanes, 3), dtype=dtype, device=device) if init_translation is None else init_translation
-    scale = torch.ones((lanes,), dtype=dtype, device=device) if init_scale is None else init_scale
-    corr_mse = torch.full((lanes,), big, dtype=dtype, device=device)
+           if init_rotation is None else init_rotation.clone(memory_format=torch.contiguous_format))
+    trans = (torch.zeros((lanes, 3), dtype=dtype, device=device) if init_translation is None
+             else init_translation.clone(memory_format=torch.contiguous_format))
+    scale = (torch.ones((lanes,), dtype=dtype, device=device) if init_scale is None
+             else init_scale.clone(memory_format=torch.contiguous_format))
     iteration = torch.zeros((lanes,), dtype=torch.int32, device=device)
     converged = torch.zeros((lanes,), dtype=torch.bool, device=device)
+    state = ICPState(rot, trans, scale, torch.full((lanes,), big, dtype=dtype, device=device), iteration, converged,
+                     (iteration < params.max_iterations) & ~converged)
 
-    def positions(r, t, s):
-        return (s[:, None, None] * rotate_points(r, source) + t[:, None, :]).contiguous()
-
-    # Each pass is one "icp.step": the lanes' step, the state update, then
-    # the stop test that decides the next pass. The first pass needs none:
-    # every lane starts active.
-    active = (iteration < params.max_iterations) & ~converged
+    # On the card, a point-to-point step with the whole point axis here is
+    # nn1 and one icp_update launch (ops/icp_cuda.py); the eager step,
+    # icp_update_plain, serves the CPU, point-to-plane and a sharded point
+    # axis, whose sums are all-reduced between the sums and the SVD.
+    fused = device.type == "cuda" and group is None and not plane
+    if fused:
+        source, smask = source.contiguous(), smask.contiguous()
+        stop = torch.zeros((2,), dtype=torch.int32, device=device)
+    cur = positions(source, rot, trans, scale)
+    # Each pass is one "icp.step": nn1, the lanes' step and state update,
+    # then the stop test that decides the next pass. The first pass needs
+    # none: every lane starts active.
     go = params.max_iterations > 0 and lanes > 0
+    step = 0
     while go:
         with span("icp.step"):
             icp.lockstep_iterations += 1
-            cur = positions(rot, trans, scale)
-            d2, idx = nn1(cur, tgt, tmask, lane_ref)
-            keep = smask & (d2 <= max_d2)
-            if trim_fraction:
-                keep = keep & (d2 <= masked_quantile_threshold(d2, smask, trim_fraction)[:, None])
-            w = keep.to(dtype)
-            corr = tgt[ref_row, idx.long()]
-            if plane:
-                dr, dt = point_to_plane_step(cur, corr, target_normals[ref_row, idx.long()], w, group)
-                ds = torch.ones_like(scale)
-            elif estimate_scale:
-                dr, dt, ds = kabsch(cur, corr, w, estimate_scale=True, group=group)
+            d2, idx = nn1(cur, tgt, tmask, ref if fused else lane_ref)
+            threshold = masked_quantile_threshold(d2, smask, trim_fraction) if trim_fraction else None
+            if fused:
+                icp.fused_steps += 1
+                state, cur, flag = icp_update(cur, d2, idx, source, smask, tgt, ref, state, params, threshold,
+                                              estimate_scale, stop=stop, step=step)
             else:
-                (dr, dt), ds = kabsch(cur, corr, w, group=group), torch.ones_like(scale)
-            # new(x) = ds·dr·(s·R·x + t) + dt
-            new_r = matmul3(dr, rot)
-            new_t = ds[:, None] * matvec3(dr, trans) + dt
-            new_s = ds * scale
+                state, cur, flag = icp_update_plain(cur, d2, idx, source, smask, tgt, ref, state, params, threshold,
+                                                    estimate_scale, target_normals if plane else None, group)
+            go = _any_active(flag, group)
+            step += 1
 
-            # Convergence MSE from the matched pairs in exact f32 (icp.py:293-301).
-            wsum = all_sum(w.sum(dim=-1), group).clamp_min(1.0)
-            diff = cur - corr
-            d2_exact = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
-            new_mse = all_sum((d2_exact * w).sum(dim=-1), group) / wsum
-
-            trans_delta2 = dt[:, 0] * dt[:, 0] + dt[:, 1] * dt[:, 1] + dt[:, 2] * dt[:, 2]
-            cos_angle = (dr[:, 0, 0] + dr[:, 1, 1] + dr[:, 2, 2] - 1.0) / 2.0
-            transform_small = (trans_delta2 < params.transformation_epsilon) & (
-                (1.0 - cos_angle) < params.rotation_epsilon)
-            if estimate_scale:
-                transform_small = transform_small & ((ds - 1.0) ** 2 < params.transformation_epsilon)
-            mse_delta = (new_mse - corr_mse).abs()
-            if params.relative_mse:
-                mse_delta = mse_delta / new_mse.clamp_min(tiny)
-            mse_small = mse_delta < params.euclidean_fitness_epsilon
-            new_conv = (iteration > 0) & (transform_small | mse_small)
-
-            rot = _where(active, new_r, rot)
-            trans = _where(active, new_t, trans)
-            scale = _where(active, new_s, scale)
-            corr_mse = _where(active, new_mse, corr_mse)
-            converged = _where(active, new_conv, converged)
-            iteration = _where(active, iteration + 1, iteration)
-            active = (iteration < params.max_iterations) & ~converged
-            go = _any_active(active, group)
-
-    d2, _ = nn1(positions(rot, trans, scale), tgt, tmask, lane_ref)
+    rot, trans, scale, _, iteration, converged, _ = state
+    d2, _ = nn1(cur, tgt, tmask, ref if fused else lane_ref)
     if trim_fraction:
         fitness = trimmed_masked_mean(d2, smask, trim_fraction)
     else:
@@ -309,3 +285,4 @@ def icp(
 
 
 icp.lockstep_iterations = 0  # loop passes of every call, a counter for measurement
+icp.fused_steps = 0  # the passes that ran the icp_update kernel: their share of lockstep_iterations

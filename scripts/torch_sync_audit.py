@@ -10,7 +10,8 @@ frame in kss_icp_torch, else in regbench), the innermost "kss.sync.*" span
 around it ("-" where no sync span names it) and the innermost other "kss."
 span, with how often the call reached it; then the syncs a lockstep ICP
 iteration (those inside "kss.icp.step" spans over the call's growth of
-`icp.lockstep_iterations`). The spans are tracked by standing in for the
+`icp.lockstep_iterations`) and how many of those iterations ran the
+`icp_update` kernel (`icp.fused_steps`). The spans are tracked by standing in for the
 profiler's ranges (utils/profiling.py), so no profiler runs. Needs a CUDA
 card; writes the table as JSON to FILE (default sync_audit.json).
 """
@@ -74,6 +75,7 @@ def audit(cell: str, seed: int):
         seen[_site(traceback.extract_stack()[:-1]), sync, where, "kss.icp.step" in stack] += 1
 
     counter = entries.counters()["icp.lockstep_iterations"]
+    icp = __import__("kss_icp_torch.models.icp", fromlist=["icp"]).icp
     saved = profiling._recording, profiling.trace_annotation
     profiling._recording, profiling.trace_annotation = (lambda: True), tracked
     try:
@@ -81,17 +83,17 @@ def audit(cell: str, seed: int):
             warnings.simplefilter("always")
             warnings.showwarning = show
             torch.cuda.set_sync_debug_mode("warn")
-            it0 = counter()
+            it0, fused0 = counter(), icp.fused_steps
             call(calls[1 % len(calls)], None)
             torch.cuda.set_sync_debug_mode("default")
-            iterations = counter() - it0
+            iterations, fused = counter() - it0, icp.fused_steps - fused0
     finally:
         profiling._recording, profiling.trace_annotation = saved
     torch.cuda.synchronize()
     rows = [{"site": s, "sync_span": sy, "span": w, "in_step": st, "count": n}
             for (s, sy, w, st), n in sorted(seen.items(), key=lambda kv: -kv[1])]
     in_step = sum(r["count"] for r in rows if r["in_step"])
-    return {"cell": cell, "pairs": len(calls[1 % len(calls)]), "lockstep_iterations": iterations,
+    return {"cell": cell, "pairs": len(calls[1 % len(calls)]), "lockstep_iterations": iterations, "fused_steps": fused,
             "syncs": sum(r["count"] for r in rows), "syncs_in_steps": in_step,
             "unnamed": sum(r["count"] for r in rows if r["sync_span"] == "-"),
             "syncs_per_iteration": in_step / iterations if iterations else None, "sites": rows}
@@ -113,8 +115,9 @@ def main(argv=None) -> int:
             traceback.print_exc()
             return 1
         out.append(r)
-        print(f"{cell}: {r['syncs']} syncs over {r['pairs']} pairs, {r['lockstep_iterations']} lockstep iterations, "
-              f"{r['syncs_per_iteration']} syncs an iteration, {r['unnamed']} in no sync span", flush=True)
+        print(f"{cell}: {r['syncs']} syncs over {r['pairs']} pairs, {r['lockstep_iterations']} lockstep iterations "
+              f"({r['fused_steps']} fused), {r['syncs_per_iteration']} syncs an iteration, {r['unnamed']} in no sync "
+              f"span", flush=True)
         for row in r["sites"]:
             print(f"  {row['count']:6d}  {row['sync_span']:22s} {row['span']:24s} "
                   f"{'step' if row['in_step'] else '    '}  {row['site']}", flush=True)

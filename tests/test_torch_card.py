@@ -1174,3 +1174,216 @@ def test_mesh_on_the_card_matches_the_unsharded_kernels(cuda_device, tmp_path, w
     assert np.array_equal(out["card/field"], out["card/field_unsharded"])
     np.testing.assert_allclose(float(out["card/metric"]), float(out["card/metric_unsharded"]), rtol=1e-5)
     assert out["card/launches"].tolist() == [1, 1]
+
+
+# --- the lockstep ICP step's update kernel (csrc/icp_step.cu, ops/icp_cuda.py) ---
+
+# (lanes, points a lane, target clouds, trimmed with scale): the cells' steps.
+ICP_UPDATE_SHAPES = [(2048, 512, 64, False),  # the remesh batch's screen: 64 pairs x 32 lanes
+                     (256, 2048, 64, False),  # its refine: 64 pairs x 4 lanes
+                     (8192, 512, 16, True),   # the overlap screen: 16 pairs x 512 lanes, trimmed with scale
+                     (1, 2000, 1, False)]     # one lane of 2000 points: a room's finisher
+# A gate quantity this close to its threshold may fall on either side of it
+# with the kernel's float64 sums and SVD.
+GATE_MARGIN = 1e-5
+BATCH_POSE_BAND = 1.75e-2  # chip_smoke.py: a batch's pose against another batch's (ROADMAP queue 3)
+
+
+def _icp_update_case(device, lanes, n, groups, trimmed, seed=0):
+    """A step's inputs: lanes against their pairs' padded clouds, sources that
+    the state maps near their clouds (a tenth of the points outliers when
+    trimmed), a tenth of the lanes inactive, mixed iterations."""
+    from kss_icp_torch.ops.icp_cuda import ICPState, positions
+    from kss_icp_torch.ops.nn import masked_quantile_threshold
+
+    rng = np.random.default_rng(seed + lanes + n)
+    t_n, valid = 2048, 2048 - 2048 // 40
+    tgt = np.stack([random_cloud(rng, t_n) for _ in range(groups)]).astype(np.float32)
+    tmask = np.zeros((groups, t_n), bool)
+    tmask[:, :valid] = True
+    ref = np.repeat(np.arange(groups), lanes // groups).astype(np.int32)
+    base = tgt[ref[:, None], rng.integers(0, valid, size=(lanes, n))] + rng.normal(0, 0.005, (lanes, n, 3))
+    if trimmed:
+        base[:, : n // 10] += 0.3
+    turn = euler_xyz_matrix(_t(rng.uniform(-0.2, 0.2, size=(lanes, 3)).astype(np.float32))).numpy()
+    src = np.einsum("lij,lnj->lni", turn, base) + rng.uniform(-0.05, 0.05, size=(lanes, 1, 3))
+    smask = np.ones((lanes, n), bool)
+    smask[::3, n - n // 20:] = False
+    active = rng.uniform(size=lanes) > 0.1
+    active[0] = True
+    state = ICPState(
+        _t(euler_xyz_matrix(_t(rng.uniform(-0.05, 0.05, size=(lanes, 3)).astype(np.float32))).numpy(), device),
+        _t(rng.uniform(-0.02, 0.02, size=(lanes, 3)).astype(np.float32), device),
+        _t((rng.uniform(0.9, 1.1, size=lanes) if trimmed else np.ones(lanes)).astype(np.float32), device),
+        _t(np.full(lanes, np.finfo(np.float32).max / 4, np.float32), device),
+        _t(rng.choice([0, 1, 2, 5], size=lanes).astype(np.int32), device),
+        _t(~active, device), _t(active, device))
+    source = _t(src.astype(np.float32), device)
+    smask_t, tgt_t, tmask_t, ref_t = _t(smask, device), _t(tgt, device), _t(tmask, device), _t(ref, device)
+    cur = positions(source, *state[:3])
+    d2, idx = nn1(cur, tgt_t, tmask_t, ref_t)
+    thr = masked_quantile_threshold(d2, smask_t, 0.7) if trimmed else None
+    return dict(cur=cur, d2=d2, idx=idx, source=source, source_mask=smask_t, target=tgt_t, lane_ref=ref_t,
+                state=state, threshold=thr, estimate_scale=trimmed)
+
+
+def _copy_state(state):
+    return type(state)(*(x.clone() for x in state))
+
+
+def _gates_near(case, params):
+    """Each lane: whether a gate quantity of the plain step (translation,
+    rotation, scale and MSE) lies within GATE_MARGIN of its threshold."""
+    from kss_icp_torch.models.icp import kabsch
+
+    keep = case["source_mask"] & (case["d2"] <= np.float32(params.max_correspondence_distance) ** 2)
+    if case["threshold"] is not None:
+        keep = keep & (case["d2"] <= case["threshold"][:, None])
+    w = keep.float()
+    corr = case["target"][case["lane_ref"].long()[:, None], case["idx"].long()]
+    dr, dt, *ds = kabsch(case["cur"], corr, w, estimate_scale=case["estimate_scale"])
+    diff = case["cur"] - corr
+    mse = ((diff * diff).sum(-1) * w).sum(-1) / w.sum(-1).clamp_min(1.0)
+    rel = (mse - case["state"].corr_mse).abs() / mse.clamp_min(torch.finfo(torch.float32).tiny)
+    pairs = [((dt * dt).sum(-1), params.transformation_epsilon),
+             (1.0 - (dr.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0) / 2.0, params.rotation_epsilon),
+             (rel, params.euclidean_fitness_epsilon)]
+    if ds:
+        pairs.append(((ds[0] - 1.0) ** 2, params.transformation_epsilon))
+    return torch.stack([(q - thr).abs() <= GATE_MARGIN for q, thr in pairs]).any(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes, n, groups, trimmed", ICP_UPDATE_SHAPES)
+def test_icp_update_kernel_matches_plain_at_the_cells_shapes(cuda_device, lanes, n, groups, trimmed):
+    """icp_update against icp_update_plain on one step: R and t within 2e-5,
+    s and the MSE within rtol 2e-5, iterations equal, the gate flags equal
+    but where a plain gate quantity lies within GATE_MARGIN of its threshold;
+    inactive lanes' state and cur bit for bit; the next cur the plain
+    positions of the kernel's own state, bit for bit; the stop flag the
+    lanes' `active.any()`, the other parity's flag zeroed."""
+    from kss_icp_torch.ops.icp_cuda import icp_update, icp_update_plain, positions
+
+    case = _icp_update_case(cuda_device, lanes, n, groups, trimmed)
+    params = ICPParams.from_config(KSSICPConfig())._replace(max_iterations=6)
+    # Half the lanes' last MSE 5e-4 relative above this step's: their MSE gate holds.
+    first, _, _ = icp_update_plain(**dict(case, cur=case["cur"].clone(), state=_copy_state(case["state"])),
+                                   params=params)
+    half = torch.arange(lanes, device=cuda_device) % 2 == 0
+    case["state"] = case["state"]._replace(corr_mse=torch.where(half, first.corr_mse * (1 + 5e-4),
+                                                                 case["state"].corr_mse))
+    old = _copy_state(case["state"])
+    want, want_cur, want_flag = icp_update_plain(**dict(case, cur=case["cur"].clone(), state=_copy_state(old)),
+                                                 params=params)
+    # The call's first step finds its own flag zeroed; the other parity's is the kernel's to zero.
+    stop = torch.tensor([0, 7], dtype=torch.int32, device=cuda_device)
+    before = icp_update.launches
+    got, got_cur, flag = icp_update(**dict(case, cur=case["cur"].clone(), state=_copy_state(old)), params=params,
+                                    stop=stop, step=0)
+    torch.cuda.synchronize()
+    assert icp_update.launches == before + 1
+    frozen = ~old.active
+    for name, x, y in zip(old._fields, got, old):
+        assert torch.equal(x[frozen], y[frozen]), name
+    assert torch.equal(got_cur[frozen], case["cur"][frozen])
+    assert torch.equal(got_cur, positions(case["source"], got.rotation, got.translation, got.scale))
+    assert float((got.rotation - want.rotation).abs().max()) <= 2e-5
+    assert float((got.translation - want.translation).abs().max()) <= 2e-5
+    torch.testing.assert_close(got.scale, want.scale, rtol=2e-5, atol=0.0)
+    torch.testing.assert_close(got.corr_mse, want.corr_mse, rtol=2e-5, atol=0.0)
+    assert torch.equal(got.iteration, want.iteration)
+    far = ~_gates_near(dict(case, state=old), params)
+    assert torch.equal(got.converged[far], want.converged[far]) and torch.equal(got.active[far], want.active[far])
+    assert bool((got.converged & old.active & far).any()), "no lane converged: the MSE gate was not exercised"
+    assert int(flag) == int(got.active.any()) == int(bool(want_flag)) and int(stop[1]) == 0
+    # The next step takes the other parity and zeroes this one.
+    d2, idx = nn1(got_cur, case["target"], torch.ones_like(case["target"][..., 0], dtype=torch.bool),
+                  case["lane_ref"])
+    again, _, flag = icp_update(**dict(case, cur=got_cur, d2=d2, idx=idx, state=got), params=params, stop=stop,
+                                step=1)
+    assert int(stop[0]) == 0 and int(flag) == int(stop[1]) == int(again.active.any())
+
+
+def _icp_batch_case(device, lanes=64, groups=8, n=512):
+    rng = np.random.default_rng(21)
+    tgt = np.stack([random_cloud(rng, 2048) for _ in range(groups)]).astype(np.float32)
+    ref = np.repeat(np.arange(groups), lanes // groups).astype(np.int32)
+    base = tgt[ref[:, None], rng.integers(0, 2048, size=(lanes, n))] + rng.normal(0, 0.01, (lanes, n, 3))
+    base[:, : n // 8] += 0.3
+    turn = euler_xyz_matrix(_t(rng.uniform(-0.4, 0.4, size=(lanes, 3)).astype(np.float32))).numpy()
+    src = (1.1 * np.einsum("lij,lnj->lni", turn, base) + 0.05).astype(np.float32)
+    smask = np.ones((lanes, n), bool)
+    smask[::5, n - 40:] = False
+    return _t(src, device), _t(smask, device), _t(tgt, device), torch.ones((groups, 2048), dtype=torch.bool,
+                                                                          device=device), _t(ref, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trimmed", [False, True])
+def test_icp_lane_alone_and_in_a_batch_of_64_give_the_same_bits(cuda_device, trimmed):
+    """The card's ICP is lane-invariant: a lane solved alone against its cloud
+    ends with the bits it ends with among 64 lanes of 8 clouds (its pose,
+    scale, iterations and flags; the fitness, an eager sum over the lanes,
+    within 1e-6)."""
+    src, smask, tgt, tmask, ref = _icp_batch_case(cuda_device)
+    params = ICPParams.from_config(KSSICPConfig())._replace(max_iterations=30)
+    kw = dict(trim_fraction=0.7, estimate_scale=True) if trimmed else {}
+    steps, fused = icp.lockstep_iterations, icp.fused_steps
+    full = icp(src, smask, tgt, tmask, params, lane_ref=ref, **kw)
+    assert icp.fused_steps - fused == icp.lockstep_iterations - steps > 0
+    for k in (0, 17, 63):
+        g = int(ref[k])
+        one = icp(src[k:k + 1], smask[k:k + 1], tgt[g], tmask[g], params, **kw)
+        for f in ("rotation", "translation", "scale", "iterations", "converged"):
+            assert torch.equal(getattr(one, f)[0], getattr(full, f)[k]), (k, f)
+        torch.testing.assert_close(one.fitness[0], full.fitness[k], rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus", ["remesh", "partial"])
+def test_register_many_fused_step_within_the_batch_band_of_the_eager_step(cuda_device, monkeypatch, corpus):
+    """register_many at DEFAULT_CONFIG with the fused step against the same
+    call through the eager step (icp_update_plain on the card): every pair's
+    transform within BATCH_POSE_BAND and its RMSE within 0.006."""
+    import importlib
+
+    from kss_icp_torch.challenge import partial_corpus
+    from kss_icp_torch.ops.icp_cuda import icp_update_plain
+
+    icp_module = importlib.import_module("kss_icp_torch.models.icp")  # the package re-exports `icp` over it
+
+    if corpus == "remesh":
+        meta = json.loads((FIXTURES / "remesh_transfer.json").read_text())
+        with np.load(FIXTURES / "remesh_transfer.npz") as z:
+            pairs = [(z[r["name"] + "_src"], z[r["name"] + "_tgt"]) for r in meta]
+    else:
+        pairs = [(s, t) for _, s, t, _ in partial_corpus()[:8]]
+    runs = []
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setattr(icp_module, "icp_update", icp_update_plain)
+        res, metrics = kt.register_many(pairs, KSSICPConfig(), full_pad=8192, device=cuda_device)
+        runs.append((res.transform, np.asarray(metrics["rmse"])))
+    (fused, rmse_f), (eager, rmse_e) = runs
+    pose = torch.stack([(getattr(fused, f) - getattr(eager, f)).abs().reshape(len(pairs), -1).amax(-1)
+                        for f in ("scale", "rotation", "translation")]).amax(0)
+    assert float(pose.max()) <= BATCH_POSE_BAND, pose.tolist()
+    assert float(np.abs(rmse_f - rmse_e).max()) <= 0.006
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["objects.full-overlap.b64", "room.scan-pair", "objects.partial-overlap.b64"])
+def test_every_lockstep_step_of_each_cells_entry_is_fused(cuda_device, cell):
+    """One call of each benchmark cell's entry (regbench/entries): every
+    lockstep ICP step ran the update kernel."""
+    import importlib
+
+    from regbench import generate, harness
+
+    spec = harness.load_cell(cell)
+    calls = generate.make_calls(spec["config"], spec["mix"], 2718281828)
+    call = importlib.import_module(f"regbench.entries.{spec['mix']['entry']}").prepare(spec["config"], spec["mix"],
+                                                                                       cuda_device)
+    steps, fused = icp.lockstep_iterations, icp.fused_steps
+    call(calls[0], None)
+    assert icp.fused_steps - fused == icp.lockstep_iterations - steps > 0

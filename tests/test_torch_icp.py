@@ -197,3 +197,84 @@ def test_point_to_plane_lanes_match_jax(rng, scale):
     with pytest.raises(ValueError, match="target_normals"):
         ti.icp(*(torch.as_tensor(x) for x in (src, smask, tgt, tmask)), ti.ICPParams.from_config(from_reference(cfg)),
                variant="point_to_plane")
+
+
+# --- the card's Kabsch solve (ops/icp_cuda.py::svd3_jacobi) and the CPU dispatch ---
+
+def _rotation(rng):
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    return q * np.sign(np.linalg.det(q))
+
+
+def _svd_case(case, rng, n=64):
+    """(n, 3, 3) float64 H of one kind, and whether Kabsch's R is unique there."""
+    if case == "random":
+        return rng.normal(size=(n, 3, 3)), True
+    if case == "reflected":  # det(H) < 0: the sign fix flips the smallest singular direction
+        h = rng.normal(size=(n, 3, 3))
+        return np.where(np.linalg.det(h)[:, None, None] < 0, h, h * np.array([1.0, 1.0, -1.0])), True
+    if case == "planar":  # rank 2: coplanar points; u3 and v3 come from the cross products
+        return np.einsum("nik,njk->nij", rng.normal(size=(n, 3, 2)), rng.normal(size=(n, 3, 2))), True
+    if case == "collinear":  # rank 1: any proper rotation that aligns the one direction is optimal
+        return np.einsum("ni,nj->nij", rng.normal(size=(n, 3)), rng.normal(size=(n, 3))), False
+    if case == "zero":
+        return np.zeros((n, 3, 3)), False
+    if case == "repeated":  # sigma (2, 1, 1) and (1, 1, 1), det > 0: the polar factor is unique
+        sig = np.where(np.arange(n)[:, None] % 2 == 0, [2.0, 1.0, 1.0], [1.0, 1.0, 1.0])
+        u, v = (np.stack([_rotation(rng) for _ in range(n)]) for _ in range(2))
+        return np.einsum("nij,nj,nkj->nik", u, sig, v), True
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["random", "reflected", "planar", "collinear", "zero", "repeated"])
+def test_svd3_jacobi_matches_torch_svd_kabsch(rng, case):
+    """The kernel's float64 Jacobi solve: R proper and orthonormal to 1e-12
+    everywhere, within 1e-10 of torch.linalg.svd's Kabsch rotation and its
+    Umeyama trace wherever the SVD decides R, and R = I at H = 0."""
+    from kss_icp_torch.ops.icp_cuda import svd3_jacobi
+
+    h, unique = _svd_case(case, rng)
+    h = torch.as_tensor(h, dtype=torch.float64)
+    r, trace_ds = svd3_jacobi(h)
+    eye = torch.eye(3, dtype=torch.float64)
+    assert float((r @ r.transpose(-1, -2) - eye).abs().max()) <= 1e-12
+    assert float((torch.linalg.det(r) - 1.0).abs().max()) <= 1e-12
+    u, sv, vh = torch.linalg.svd(h)
+    det = torch.linalg.det(vh.transpose(-1, -2) @ u.transpose(-1, -2))
+    d = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+    want = (vh.transpose(-1, -2) * d[..., None, :]) @ u.transpose(-1, -2)
+    if case == "zero":
+        assert torch.equal(r, eye.expand_as(r)) and not trace_ds.any()
+    if unique:
+        assert float((r - want).abs().max()) <= 1e-10
+        np.testing.assert_allclose(trace_ds.numpy(), (sv * d).sum(-1).numpy(), rtol=1e-10, atol=1e-12)
+    if case == "collinear":  # R still turns the source's one direction onto the target's
+        np.testing.assert_allclose((r @ u[..., :, 0, None])[..., 0].numpy(), vh[..., 0, :].numpy(), atol=1e-10)
+
+
+def test_icp_on_the_cpu_runs_the_plain_step(rng):
+    """On CPU tensors icp steps through icp_update_plain: no fused step is
+    counted, and icp_update routes CPU tensors to the plain version, whose
+    answer it returns unchanged."""
+    from kss_icp_torch.ops.icp_cuda import ICPState, icp_update, icp_update_plain, positions
+    from kss_icp_torch.ops.nn_cuda import nn1
+
+    src, smask, tgt, tmask = _lanes(rng, lanes=3)
+    cfg = KSSICPConfig()
+    before, steps = ti.icp.fused_steps, ti.icp.lockstep_iterations
+    got = _torch_icp(src, smask, tgt, tmask, cfg, 10)
+    assert ti.icp.fused_steps == before and ti.icp.lockstep_iterations > steps
+    assert int(got.iterations.max()) > 0
+    params = ti.ICPParams.from_config(from_reference(cfg))._replace(max_iterations=10)
+    source = torch.as_tensor(src)
+    lanes = source.shape[0]
+    state = ICPState(torch.eye(3).expand(lanes, 3, 3).clone(), torch.zeros(lanes, 3), torch.ones(lanes),
+                     torch.full((lanes,), 1e30), torch.zeros(lanes, dtype=torch.int32),
+                     torch.zeros(lanes, dtype=torch.bool), torch.ones(lanes, dtype=torch.bool))
+    cur = positions(source, *state[:3])
+    d2, idx = nn1(cur, torch.as_tensor(tgt)[None], torch.as_tensor(tmask)[None])
+    args = (cur, d2, idx, source, torch.as_tensor(smask).expand(lanes, -1), torch.as_tensor(tgt)[None],
+            torch.zeros(lanes, dtype=torch.int32), state, params)
+    a, b = icp_update(*args), icp_update_plain(*args)
+    for x, y in zip(a[0] + a[1:], b[0] + b[1:]):
+        assert torch.equal(x, y)
