@@ -3192,6 +3192,7 @@ def mesh_rank_run(torch, rank, world, store, backend, dev, full: bool) -> dict:
     from kss_icp_torch.ops.resample_cuda import fps
     from kss_icp_torch.parallel import (distributed_init, icp_point_sharded, make_mesh, mean_nn_distance_sharded,
                                         score_rotation_field_sharded)
+    from kss_icp_torch.parallel.mesh import all_gather_rows
 
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host's cores
     distributed_init(f"file://{store}", world, rank, backend, timeout=MESH_TIMEOUT)
@@ -3213,6 +3214,7 @@ def mesh_rank_run(torch, rank, world, store, backend, dev, full: bool) -> dict:
     for fn in counters.values():
         fn.launches = 0
     nn1.launch_shapes.clear()
+    all_gather_rows.collectives = 0
     # The first register_many is also the rank's warm-up: the dot field's, or the gated default call.
     if full:
         out["dot"] = many_answer(*mesh_many(torch, dev, dataclasses.replace(DEFAULT_CONFIG, coarse_method="dot"),
@@ -3246,6 +3248,7 @@ def mesh_rank_run(torch, rank, world, store, backend, dev, full: bool) -> dict:
         out["forced"] = many_answer(*answer)
     torch.cuda.synchronize()
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["collectives"] = all_gather_rows.collectives
     out["nn1_shapes"] = {shape_key(*k): n for k, n in nn1.launch_shapes.items()}
     # Each rank recorded the ladder of its own slice: gather the rows in rank order.
     for key in [k for k in ("dot", "many", "forced") if k in out]:
@@ -3392,7 +3395,8 @@ def mesh_world(torch, dev, label: str, world: int, backend: str, devices: list, 
     outs = run_mesh_world(world, backend, devices, full, label)
     gaps = check_mesh_world(label, outs, ctx["ref"], ctx["exp"], ctx["names"], full)
     launches, shapes = mesh_launches(outs)
-    log(f"  [{label}] kernel launches, every rank's summed: {launches}")
+    log(f"  [{label}] kernel launches, every rank's summed: {launches}; all_gather_rows collectives, summed: "
+        f"{sum(o['collectives'] for o in outs)}")
     log(f"  [{label}] nn1 launches by shape, summed: " + ", ".join(f"{k} {v}" for k, v in
                                                                     sorted(shapes.items(), key=lambda kv: -kv[1])))
     if ctx["held"] is not None and world == MESH_WORLD:  # phase 3 holds the shapes of MESH_WORLD ranks

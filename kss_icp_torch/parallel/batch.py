@@ -41,17 +41,21 @@ from kss_icp_torch.parallel.mesh import all_gather_rows, axis_rank
 from kss_icp_torch.utils.profiling import span, spanned
 
 
-def _over_pairs(mesh, b: int, run):
+def _over_pairs(mesh, b: int, run, timer: Optional[Timer] = None):
     """run(rows) on this rank's contiguous slice of b pairs along the mesh's
     "pairs" axis, `rows` their indices (the batch padded by repeating its
     last pair to a multiple of the axis size), then every rank's result tree
     all-gathered in rank order and the pads dropped: each rank returns the
-    whole batch's."""
+    whole batch's. The slice runs in the span "mesh.slice" (and in
+    `timer("mesh.slice")` where a timer is given), the gathers in
+    "mesh.gather"."""
     size, rank = axis_rank(mesh, "pairs")
     per = -(-b // size)
-    out = run([min(i, b - 1) for i in range(rank * per, (rank + 1) * per)])
+    with span("mesh.slice", timer):
+        out = run([min(i, b - 1) for i in range(rank * per, (rank + 1) * per)])
     group = mesh.get_group("pairs")
-    return tree_map(lambda x: all_gather_rows(x, group)[:b], out)
+    with span("mesh.gather"):
+        return tree_map(lambda x: all_gather_rows(x, group)[:b], out)
 
 
 def register_batch(
@@ -133,7 +137,8 @@ def register_many(
 
     `timer` is entered around each stage: "resample", "coarse", "screen",
     "refine", then "two_stage", "escalate", "finish", "overlap8",
-    "overlap16" and "overlap_screen" when they run, and "metric".
+    "overlap16" and "overlap_screen" when they run, and "metric"; with a
+    mesh, "mesh.slice" around all of these on the rank's own slice.
 
     With a mesh, each rank runs all of the above on its contiguous slice of
     the pairs along the mesh's "pairs" axis (its own ladder too), and every
@@ -150,7 +155,7 @@ def register_many(
         return _register_many([pairs[i] for i in rows], cfg, full_pad, escalate, escalate_threshold, escalate_cfg,
                               device, timer)
 
-    res, metrics = run(range(len(pairs))) if mesh is None else _over_pairs(mesh, len(pairs), run)
+    res, metrics = run(range(len(pairs))) if mesh is None else _over_pairs(mesh, len(pairs), run, timer)
     with span("sync.result"):
         return res, {k: v.cpu().numpy() for k, v in metrics.items()}
 

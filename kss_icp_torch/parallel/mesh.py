@@ -74,8 +74,13 @@ def axis_rank(mesh, name: str) -> tuple[int, int]:
 
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's x concatenated along dim 0 in rank order (a shard_map
-    out-spec over the axis)."""
+    out-spec over the axis). Counts the collective in
+    `all_gather_rows.collectives`."""
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
+    all_gather_rows.collectives += 1
     return torch.cat(parts)
+
+
+all_gather_rows.collectives = 0  # collectives issued, a counter for measurement

@@ -1372,6 +1372,40 @@ def test_register_many_fused_step_within_the_batch_band_of_the_eager_step(cuda_d
 
 
 @pytest.mark.cuda
+def test_register_many_over_four_nccl_cards_within_the_batch_band_of_one_card(cuda_device):
+    """256 remesh pairs (a call of the cell objects.full-overlap.b256-mesh4)
+    through register_many over a "pairs" mesh of 4 NCCL ranks, one a card
+    (regbench/entries/register_many_mesh.py), against the same 256 pairs as
+    one batch on one card: every rank's rows are rank 0's bit for bit (their
+    digests), and every pair's transform is within BATCH_POSE_BAND and its
+    RMSE within 0.006 of the one-card batch's."""
+    import gc
+
+    from regbench import generate, harness
+    from regbench.entries import register_many_mesh
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices (the mesh puts a rank on each card)")
+    spec = harness.load_cell("objects.full-overlap.b256-mesh4")
+    pairs = generate.make_calls(spec["config"], spec["mix"], 2718281828)[0]
+    call = register_many_mesh.prepare(spec["config"], spec["mix"], cuda_device)
+    mesh = call(pairs, None)
+    digests = dict(call.digests)
+    del call
+    gc.collect()
+    assert sorted(digests) == [0, 1, 2, 3] and len(set(digests.values())) == 1
+    res, metrics = kt.register_many([(p.src, p.tgt) for p in pairs], KSSICPConfig(),
+                                    full_pad=spec["config"]["full_pad"], device=cuda_device)
+    tr = res.transform
+    scale, rot, trans = (x.cpu().numpy() for x in (tr.scale, tr.rotation, tr.translation))
+    pose = [max(abs(a.scale - scale[b]), float(np.abs(a.rotation - rot[b]).max()),
+                float(np.abs(a.translation - trans[b]).max())) for b, a in enumerate(mesh)]
+    assert len(mesh) == len(pairs) == 256
+    assert max(pose) <= BATCH_POSE_BAND, max(pose)
+    assert max(abs(a.rmse - float(metrics["rmse"][b])) for b, a in enumerate(mesh)) <= 0.006
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cell", ["objects.full-overlap.b64", "room.scan-pair", "objects.partial-overlap.b64"])
 def test_every_lockstep_step_of_each_cells_entry_is_fused(cuda_device, cell):
     """One call of each benchmark cell's entry (regbench/entries): every

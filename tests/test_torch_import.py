@@ -50,6 +50,7 @@ def test_imports_with_jax_blocked():
             "import kss_icp_torch.native.oracle_hot, kss_icp_torch.utils\n"
             "sys.path.insert(0, 'tests')\n"
             "import torch_parallel_worker\n"
+            "import regbench.entries.register_many_mesh, regbench.mesh_spans\n"
             "assert kss_icp_torch.register_many and kss_icp_torch.parallel.register_many\n"
             "print(sorted(kss_icp_torch.__all__))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -65,7 +66,8 @@ def test_no_source_file_imports_jax():
     files = sorted((REPO / "kss_icp_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
                                                                   REPO / "scripts" / "torch_kernel_ab.py",
                                                                   REPO / "scripts" / "torch_tree_ab.py",
-                                                                  REPO / "tests" / "torch_parallel_worker.py"]
+                                                                  REPO / "tests" / "torch_parallel_worker.py",
+                                                                  REPO / "regbench" / "entries" / "register_many_mesh.py"]
     names = {str(f.relative_to(REPO)) for f in files}
     for new in ("viz/__init__.py", "viz/render.py", "viz/trackball.py", "viz/interactive.py", "utils/fileproc.py",
                 "native/__init__.py", "ops/vcm.py", "ops/voronoi2d.py", "measure_mesh.py", "parallel/mesh.py",

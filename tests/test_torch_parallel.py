@@ -233,6 +233,49 @@ def test_register_many_over_pairs_equals_the_unsharded_port_and_jax(ranks, jax_s
         assert all(ladder["escalated"]) and all(r[1] for rows in ladder["rungs"] for r in rows)
 
 
+MANY_LABELS = ["variable sizes", "forced ladder"]
+
+
+@pytest.mark.parametrize("label", MANY_LABELS)
+def test_register_many_over_pairs_opens_one_slice_and_one_gather_span_a_rank_under_a_profiler(ranks, label):
+    """Under a profiler each rank's register_many over the "pairs" mesh opens
+    "kss.mesh.slice" (its own pairs, ladder included) once and
+    "kss.mesh.gather" once."""
+    world, out = ranks
+    rows = json.loads(str(out["mesh_spans"]))[label]
+    assert [(r["slice"], r["gather"]) for r in rows] == [(1, 1)] * world
+
+
+@pytest.mark.parametrize("label", MANY_LABELS)
+def test_register_many_over_pairs_hands_the_timer_its_slice_once(ranks, label):
+    """With a timer, each rank's register_many over the "pairs" mesh enters
+    timer("mesh.slice") once, around the stages of its own slice."""
+    world, out = ranks
+    timed = [r["timed"] for r in json.loads(str(out["mesh_spans"]))[label]]
+    assert all(n == 1 and stages > 1 for n, stages in timed), timed
+
+
+@pytest.mark.parametrize("label", MANY_LABELS)
+def test_all_gather_rows_counts_a_collective_a_gathered_leaf(ranks, label):
+    """all_gather_rows.collectives grows by one a tensor leaf of the result
+    and of the metrics on every rank."""
+    _, out = ranks
+    rows = json.loads(str(out["mesh_spans"]))[label]
+    assert all(r["collectives"] == r["leaves"] > 0 for r in rows), rows
+
+
+@pytest.mark.parametrize("label", MANY_LABELS)
+def test_register_many_over_pairs_opens_no_span_without_a_profiler(ranks, label):
+    _, out = ranks
+    assert [r["unprofiled"] for r in json.loads(str(out["mesh_spans"]))[label]] == [0] * ranks[0]
+
+
+@pytest.mark.parametrize("label", MANY_LABELS)
+def test_register_many_over_pairs_keeps_its_bits_under_a_profiler(ranks, label):
+    _, out = ranks
+    _same_bits(_leaves(out, f"many_profiled/{label}/"), _leaves(out, f"many/{label}/"))
+
+
 # --- models/icp.py without a group ---
 
 def _icp_cases() -> dict:

@@ -15,6 +15,7 @@ tests/test_torch_card.py spawn it too (`spawn`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -220,16 +221,42 @@ def run(rank: int, world: int, store: str, out: str, cases=CASES, backend: str =
                                           solver=solver), f"overlap/{solver}"))
 
     if "many" in cases:
-        ladders = {}
+        from torch.profiler import ProfilerActivity, profile
+
+        from kss_icp_torch.parallel.mesh import all_gather_rows
+        from kss_icp_torch.utils import profiling
+
+        ladders, spans = {}, {}
         for label, (pairs, cfg, kw) in many_settings().items():
-            with LadderLog(te, -(-len(pairs) // world)) as ladder:  # this rank's pairs, padded
-                got, metrics = register_many(pairs, cfg, mesh=pairs_mesh, device="cpu", **kw)
+            annotate, opened = profiling.trace_annotation, []
+            profiling.trace_annotation = lambda name: opened.append(name) or annotate(name)
+            try:
+                with LadderLog(te, -(-len(pairs) // world)) as ladder:  # this rank's pairs, padded
+                    got, metrics = register_many(pairs, cfg, mesh=pairs_mesh, device="cpu", **kw)
+            finally:
+                profiling.trace_annotation = annotate
             res.update(flat(got, f"many/{label}/res"))
             res.update(flat(metrics, f"many/{label}/metrics"))
             rows = [None] * world
             dist.all_gather_object(rows, ladder_rows(ladder))
             ladders[label] = {k: [x for r in rows for x in r[k]][:len(pairs)] for k in rows[0]}
+            # The same call under a profiler and with a timer: its mesh spans, the stages it
+            # hands the timer and its collectives on this rank.
+            before, stages = all_gather_rows.collectives, []
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                got, metrics = register_many(pairs, cfg, mesh=pairs_mesh, device="cpu",
+                                             timer=lambda name: stages.append(name) or contextlib.nullcontext(), **kw)
+            res.update(flat(got, f"many_profiled/{label}/res"))
+            res.update(flat(metrics, f"many_profiled/{label}/metrics"))
+            names = [e.name for e in prof.events()]
+            counts = {"slice": names.count("kss.mesh.slice"), "gather": names.count("kss.mesh.gather"),
+                      "collectives": all_gather_rows.collectives - before,
+                      "leaves": len(flat(got, "res")) + len(flat(metrics, "metrics")), "unprofiled": len(opened),
+                      "timed": [stages.count("mesh.slice"), len(stages)]}
+            dist.all_gather_object(rows, counts)
+            spans[label] = rows
         res["ladders"] = json.dumps(ladders)
+        res["mesh_spans"] = json.dumps(spans)
     if "card" in cases:
         from kss_icp_torch.metrics import registration_measure_padded
         from kss_icp_torch.models.coarse import score_rotation_field
