@@ -528,11 +528,11 @@ def phase_kernels(torch, dev) -> dict:
         plan = nn1_plan(lanes, q_n, r_n, sm_count(dev.index or 0))
         cases.append(dict({"shape": shape_key(lanes, q_n, r_n, groups), "label": label, "batch_pass": batch,
                            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "max_abs_err": err,
-                           "yardstick_ms": yard_ms, "plan": {"cluster": plan.cluster, "slice": plan.slice}}, **b))
+                           "yardstick_ms": yard_ms, "plan": plan._asdict()}, **b))
         log(f"  nn1 {lanes}x{q_n}x{r_n} G={groups} ({label}): indices and d2 identical; kernel {ms:.4f} ms a wrapper "
             f"call back to back, {device_ms:.4f} ms on the device (graph replay), plain {plain_ms:.4f} ms, "
             f"cdist+min {yard_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); plan: a cluster of "
-            f"{plan.cluster} splits R into slices of {plan.slice} rows")
+            f"{plan.cluster} splits R into slices of {plan.slice} rows, {plan.queries} queries a thread")
     out["nn1"] = dict(cases[0], cases=cases, source="kss_icp_torch/csrc/nn.cu",
                       replaces="kss_icp_tpu/ops/nn_pallas.py:118",
                       also_replaces="kss_icp_tpu/ops/nn_pallas.py:183",
@@ -1232,10 +1232,13 @@ class StageTimer:
 
 
 def nn1_histogram(nn1, label: str) -> dict:
-    """nn1's launches since its counts were zeroed, by shape_key: logged, and returned."""
+    """nn1's launches since its counts were zeroed, by shape_key: logged, and
+    returned; and by plan (queries a thread, cluster), logged."""
     shapes = sorted(nn1.launch_shapes.items(), key=lambda kv: -kv[1])
     log(f"  [{label}] nn1 launches by shape (L x Q x R, G reference clouds): " +
         ", ".join(f"{shape_key(*k)} {n}" for k, n in shapes))
+    log(f"  [{label}] nn1 launches by plan (queries a thread, cluster): " +
+        ", ".join(f"{k} {n}" for k, n in sorted(nn1.plan_launches.items())))
     return {shape_key(*k): n for k, n in shapes}
 
 
@@ -1253,7 +1256,7 @@ def zero_counts(counters) -> None:
     """Every kernel's launch count, and nn1's and the fields' histograms, to 0."""
     for fn in counters.values():
         fn.launches = 0
-        for hist in ("launch_shapes", "launch_grids"):
+        for hist in ("launch_shapes", "plan_launches", "launch_grids"):
             if hasattr(fn, hist):
                 getattr(fn, hist).clear()
 
@@ -1731,6 +1734,7 @@ def phase_largescan(torch, dev, e2e: dict, card: str) -> None:
         for fn in counters.values():
             fn.launches = 0
         nn1.launch_shapes.clear()
+        nn1.plan_launches.clear()
         torch.cuda.reset_peak_memory_stats(dev)
         out = run_largescan(record["n_points"], record["pre_downsample"], cfg, seed, repeats=repeats, device=dev)
         torch.cuda.synchronize()
@@ -1964,6 +1968,7 @@ def phase_cli(torch, dev, e2e: dict, card: str) -> None:
         for fn in counters.values():
             fn.launches = 0
         counters["nn1"].launch_shapes.clear()
+        counters["nn1"].plan_launches.clear()
         with contextlib.redirect_stdout(io.StringIO()) as out:
             rc = cli.main([str(a) for a in args])
         require(rc == 0, f"cli.main {label}: exit {rc}\n{out.getvalue()[-2000:]}")
@@ -2864,6 +2869,7 @@ def phase_analysis(torch, dev, e2e: dict, card: str) -> None:
         after: (result, ms, peak MiB, launches, launches by shape)."""
         nn1.launches = 0
         nn1.launch_shapes.clear()
+        nn1.plan_launches.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -3214,6 +3220,7 @@ def mesh_rank_run(torch, rank, world, store, backend, dev, full: bool) -> dict:
     for fn in counters.values():
         fn.launches = 0
     nn1.launch_shapes.clear()
+    nn1.plan_launches.clear()
     all_gather_rows.collectives = 0
     # The first register_many is also the rank's warm-up: the dot field's, or the gated default call.
     if full:

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (pointers, ints, then the stream).
 SIGNATURES = {
-    "kss_nn1": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "kss_nn1": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "kss_fps": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "kss_field_dot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "kss_field_cull": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P),

@@ -19,13 +19,20 @@ from kss_icp_torch.ops import nn as nn_plain
 SMS = 132  # streaming multiprocessors of an H100 SXM: the plan's default where no card is asked
 MIN_SLICE = 256  # reference rows a cluster block scans at the least
 MAX_CLUSTER = 8  # the portable cluster size
-TILE_QUERIES = 256  # queries a block: 128 threads x 2 (csrc/nn.cu)
+THREADS = 128  # threads a block (csrc/nn.cu)
+QUERIES = (2, 4)  # queries a thread the kernel is built for
 MAX_LANES = 65535  # lanes a launch: the grid's y extent (csrc/nn.cu)
 
 
 class NN1Plan(NamedTuple):
     cluster: int  # blocks of a cluster, each scanning one slice of R
     slice: int    # reference rows a block scans; cluster * slice >= R
+    queries: int  # queries a thread: a block holds THREADS x queries
+
+    @property
+    def tile_queries(self) -> int:
+        """Queries a block."""
+        return THREADS * self.queries
 
 
 @functools.lru_cache(maxsize=256)  # the ICP loop asks for a few shapes thousands of times
@@ -33,16 +40,20 @@ def nn1_plan(lanes: int, q_n: int, r_n: int, sms: int = SMS) -> NN1Plan:
     """The launch plan of `nn1` for L lanes of Q queries against R rows on a
     card of `sms` streaming multiprocessors.
 
-    R is split over a cluster only as far as it takes to give every SM two
-    blocks: the smallest power-of-two cluster (up to 8, with slices of at
-    least 256 rows) for which the launch has 2 x `sms` blocks. At every
-    main-path shape this was the fastest cluster size on an H100
-    (scripts/torch_kernel_ab.py --sweep, PERF.md)."""
-    tiles = lanes * -(-q_n // TILE_QUERIES)
-    cluster = 1
+    4 queries a thread where the launch, R unsplit, still gives every SM two
+    blocks: one staged row then feeds 4 queries. Otherwise 2. R is then
+    split over a cluster of at least 2 blocks where it holds two slices of
+    256 rows, and further only as far as it takes to give every SM two
+    blocks: the smallest such power-of-two cluster, up to 8, with slices of
+    at least 256 rows. At the main path's shapes on an H100 this was the
+    fastest plan or within 6% of it, but for the 8192-row metrics of 25 and
+    7 clouds, 7% and 10% off (scripts/torch_kernel_ab.py --sweep, PERF.md)."""
+    queries = 4 if lanes * -(-q_n // (THREADS * 4)) >= 2 * sms else 2
+    tiles = lanes * -(-q_n // (THREADS * queries))
+    cluster = 2 if r_n >= 2 * MIN_SLICE else 1
     while cluster < MAX_CLUSTER and r_n >= 2 * cluster * MIN_SLICE and tiles * cluster < 2 * sms:
         cluster *= 2
-    return NN1Plan(cluster, -(-r_n // cluster))
+    return NN1Plan(cluster, -(-r_n // cluster), queries)
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,15 +131,18 @@ def nn1(
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.kss_nn1(query.data_ptr(), ref.data_ptr(), ref_mask.data_ptr(), lane_ref.data_ptr(),
-                           lanes, q_n, groups, r_n, plan.cluster, plan.slice, d2.data_ptr(), idx.data_ptr(), stream)
+                           lanes, q_n, groups, r_n, plan.cluster, plan.slice, plan.queries, d2.data_ptr(),
+                           idx.data_ptr(), stream)
     _build.check(code, "nn1")
     nn1.launches += 1
     nn1.launch_shapes[(lanes, q_n, r_n, groups)] += 1
+    nn1.plan_launches[(plan.queries, plan.cluster)] += 1
     return d2, idx
 
 
 nn1.launches = 0
 nn1.launch_shapes = Counter()  # (L, Q, R, G) -> launches, counted beside `launches`
+nn1.plan_launches = Counter()  # (queries a thread, cluster) -> launches, counted beside `launches`
 
 
 def _require(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:

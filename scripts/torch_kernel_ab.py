@@ -4,7 +4,9 @@
     python3 scripts/torch_kernel_ab.py --old DIR [--reps N] [--sass] [--sweep] [--out DIR]
 
 DIR holds older kernel sources, any of: `nn.cu` with the C interface it
-had before its launch plan (kss_nn1 without the plan arguments); `fps.cu`
+had before its queries-a-thread argument (kss_nn1 with the cluster and the
+slice, the running argmin a pair: `git show 30784b8:kss_icp_torch/csrc/nn.cu`;
+the old plan is `old_nn1_plan`, the parent's rule); `fps.cu`
 with the one-block interface it had before clusters (kss_fps with steps,
 points a thread, threads and a workspace; the old plan is the one-block
 plan, points in registers up to 8192 and the workspace above); `field.cu` and `field_dot.cu`
@@ -27,10 +29,11 @@ new, old: each turn is the mean device time of --reps launches replayed
 from one CUDA graph (the kernel's own time; a launch of the small shapes
 takes less than the host's cost of a call). It also times the new wrapper
 called back to back, which is what the main path pays, and prints one line
-per shape. The fields run at chip_smoke.py phase 3's shapes: the 8³ grid's
-padded clouds (512 x 2048 x 2048) mostly valid, all valid and with both
-clouds suffix-masked to the largest, median and smallest remesh pair's
-pnumber (1534, 1070, 378), the 16³ grid (4096 x 512 x 512), mostly valid,
+per shape; nn1 runs at the shapes of PERF.md's K3 and K4 rows. The fields
+run at chip_smoke.py phase 3's shapes: the 8³ grid's padded clouds (512 x
+2048 x 2048) mostly valid, all valid and with both clouds suffix-masked
+to the largest, median and smallest remesh pair's pnumber (1534, 1070,
+378), the 16³ grid (4096 x 512 x 512), mostly valid,
 the bench config's 512-point prefixes on the 8³ grid (512 x 512 x 512),
 all valid and with the smallest pair's 378, and (field_ave) a mesh rank's
 quarter of the 16³ grid at 1534 rows (1024 x 2048 x 2048); field_dot at
@@ -55,8 +58,10 @@ object with every number is the last line, and is also written to
 torch_kernel_ab.json in --out (default _scratch/kernel_ab/, gitignored).
 --sass also writes the new library's SASS (cuobjdump) there as
 torch_kernels.sass and prints each field_dot instantiation's tensor-core
-instructions (HMMA). --sweep also times every launch plan the new C entry
-points take at those shapes (nn1: each cluster size; fps: each cluster
+instructions (HMMA) and, for the old and the new nn1 kernels, the
+instructions a (query, row) pair of the scan's inner loop, by opcode.
+--sweep also times every launch plan the new C entry points take at those
+shapes (nn1: each cluster size at 2 and 4 queries a thread; fps: each cluster
 size whose slices fit a block, with the slice in registers and in shared
 memory where both hold it, each beside its empty step, the same cluster and
 threads with one point a block), beside the plan the wrappers pick, and
@@ -87,7 +92,7 @@ from kss_icp_torch.core.transforms import euler_xyz_matrix  # noqa: E402
 from kss_icp_torch.models.coarse import rotation_grid  # noqa: E402
 from kss_icp_torch.ops import coarse_cuda as cc  # noqa: E402
 from kss_icp_torch.ops.coarse_cuda import dot_operands, dot_plan, field_dot  # noqa: E402
-from kss_icp_torch.ops.nn_cuda import nn1, nn1_plan, sm_count  # noqa: E402
+from kss_icp_torch.ops.nn_cuda import MAX_CLUSTER, MIN_SLICE, QUERIES, NN1Plan, nn1, nn1_plan, sm_count  # noqa: E402
 from kss_icp_torch.ops.resample import fps_centroid  # noqa: E402
 from kss_icp_torch.ops.resample_cuda import (CLUSTERS, MAX_THREADS, REGISTER_POINTS, SHARED_K,  # noqa: E402
                                              SHARED_SLICE, FPSPlan, empty_step_plan, fps, fps_plan)
@@ -96,7 +101,7 @@ from kss_icp_torch.timing import graph_ms, time_ms  # noqa: E402
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # old source -> (C entry point, its argtypes)
 OLD_SIGNATURES = {
-    "nn.cu": ("kss_nn1", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
+    "nn.cu": ("kss_nn1", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),
     "fps.cu": ("kss_fps", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),
     "field.cu": ("kss_field_ave", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
     "field_dot.cu": ("kss_field_dot", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
@@ -104,13 +109,35 @@ OLD_SIGNATURES = {
 }
 # Further entry points of an old source: the per-point field_trim.cu's squared mode.
 OLD_EXTRA = {"field_trim.cu": [("kss_field_sq", (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P))]}
-# (L, Q, R, label): the ICP screen, the escalation screen, the refine lanes
-# (4, the two-tier 2 and the final 1), the metric at the largest and the
-# smallest remesh pair's padded shape, and the K4 regime.
-NN1_SHAPES = [(32, 512, 2048, "screen"), (16, 512, 2048, "escalation screen"), (4, 2048, 2048, "refine"),
-              (2, 2048, 2048, "two-tier refine"), (1, 2048, 2048, "final converge"),
-              (1, 3072, 8192, "metric, largest pair"), (1, 768, 4096, "metric, smallest pair"),
-              (1, 65536, 65536, "K4 regime")]
+# (L, Q, R, G reference clouds, valid rows of one cloud or None, label): the
+# shapes of PERF.md's K3 rows (ICP, the ladder, the overlap screen, the batch
+# and mesh passes, the tools) and K4 rows (the metrics).
+NN1_SHAPES = [
+    (32, 512, 2048, 1, None, "K3 screen"), (16, 512, 2048, 1, None, "K3 escalation screen"),
+    (4, 2048, 2048, 1, None, "K3 refine"), (2, 2048, 2048, 1, None, "K3 two-tier refine"),
+    (1, 2048, 2048, 1, None, "K3 final converge"),
+    (800, 512, 2048, 25, None, "K3 many: screen, 25 clouds"), (2048, 512, 2048, 64, None, "K3 many boards: screen"),
+    (100, 2048, 2048, 25, None, "K3 many: refine"), (256, 2048, 2048, 64, None, "K3 many boards: refine"),
+    (512, 512, 2048, 1, None, "K3 overlap screen ICP"), (8192, 512, 2048, 16, None, "K3 many boards: screen rung"),
+    (512, 2048, 2048, 1, None, "K3 overlap fitness, forward"),
+    (512, 2048, 2048, 512, None, "K3 overlap fitness, reverse"),
+    (8192, 2048, 2048, 16, None, "K3 many boards: fitness, forward"),
+    (8192, 2048, 2048, 8192, None, "K3 many boards: fitness, reverse"),
+    (12, 2048, 2048, 1, None, "K3 precision polish"), (300, 2048, 2048, 25, None, "K3 precise many: polish"),
+    (1, 1310720, 40960, 1, None, "K3 VCM sample owners"), (1, 1048576, 4096, 1, None, "K3 Voronoi labels"),
+    (1, 512, 2048, 1, None, "K3 point-sharded ICP"), (224, 512, 2048, 7, None, "K3 mesh rank: screen"),
+    (28, 2048, 2048, 7, None, "K3 mesh rank: refine"), (21, 2048, 2048, 7, None, "K3 mesh rank: 3 lanes"),
+    (7, 2048, 2048, 7, None, "K3 mesh rank: 1 lane"), (112, 512, 2048, 7, None, "K3 mesh rank: escalation screen"),
+    (3584, 512, 2048, 7, None, "K3 mesh rank: overlap screen ICP"),
+    (3584, 2048, 2048, 7, None, "K3 mesh rank: overlap fitness, forward"),
+    (3584, 2048, 2048, 3584, None, "K3 mesh rank: overlap fitness, reverse"),
+    (48, 512, 2048, 3, None, "K3 mesh rank: escalated screen"), (12, 2048, 2048, 3, None, "K3 mesh rank: escalated"),
+    (3, 2048, 2048, 3, None, "K3 mesh rank: escalated, 1 lane"),
+    (1, 3072, 8192, 1, None, "K4 metric, largest remesh pair"), (1, 768, 4096, 1, None, "K4 metric, smallest pair"),
+    (25, 8192, 8192, 25, None, "K4 many: metric"), (64, 8192, 8192, 64, None, "K4 many boards: metric"),
+    (1, 65536, 65536, 1, None, "K4 regime"), (1, 200704, 200704, 1, 200000, "K4 large-scan metric"),
+    (1, 50176, 200704, 1, 200000, "K4 sharded large-scan metric"), (7, 8192, 8192, 7, None, "K4 mesh rank: metric"),
+]
 # (B, P, S, steps, label): register_pair's two launches at the largest pair's
 # padded source and target (pnumber 1534 of 2048 slots), the PERF.md table's
 # shape, register_many's batches (a mesh rank's 14 clouds, the remesh 25's 50,
@@ -165,7 +192,7 @@ def load_old(old_dir: Path) -> tuple:
         for name, argtypes in [OLD_SIGNATURES[src]] + OLD_EXTRA.get(src, []):
             getattr(lib, name).argtypes = list(argtypes)
             getattr(lib, name).restype = ctypes.c_int
-    return lib, present
+    return lib, present, path
 
 
 def _stream() -> int:
@@ -177,23 +204,68 @@ def _check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code}")
 
 
+def nn1_inputs(rng, dev, lanes: int, q_n: int, r_n: int, groups: int, valid):
+    """(query, ref, mask, lane_ref) of one nn1 shape: lane l against cloud
+    l // (L / G); one cloud with `valid` rows (default a tail of R // 40
+    padded rows); G clouds each with a valid prefix of R/5..R rows, and
+    where G == L each lane's own ~70% inlier mask, as the overlap screen's
+    reverse fitness has."""
+    query = torch.as_tensor(np.stack([cloud(rng, q_n) for _ in range(lanes)]), device=dev)
+    ref = torch.as_tensor(np.stack([cloud(rng, r_n) for _ in range(groups)]), device=dev)
+    rows = torch.arange(r_n, device=dev)[None]
+    if groups == 1:
+        mask = rows < (r_n - r_n // 40 if valid is None else valid)
+    else:
+        mask = rows < torch.as_tensor(rng.integers(r_n // 5, r_n + 1, size=(groups, 1)), device=dev)
+        if groups == lanes:
+            mask &= torch.as_tensor(rng.uniform(size=(groups, r_n)) < 0.7, device=dev)
+    lane_ref = torch.arange(groups, dtype=torch.int32, device=dev).repeat_interleave(lanes // groups)
+    return query, ref, mask.contiguous(), lane_ref
+
+
+def nn1_launch(lib, query, ref, mask, lane_ref, plan, out) -> None:
+    """The new C entry point at `plan`."""
+    lanes, q_n = query.shape[:2]
+    groups, r_n = ref.shape[:2]
+    _check(lib.kss_nn1(query.data_ptr(), ref.data_ptr(), mask.data_ptr(), lane_ref.data_ptr(), lanes, q_n, groups,
+                       r_n, plan.cluster, plan.slice, plan.queries, out[0].data_ptr(), out[1].data_ptr(), _stream()),
+           "kss_nn1")
+
+
+def old_nn1_plan(lanes: int, q_n: int, r_n: int, sms: int) -> NN1Plan:
+    """The old nn.cu's plan: 256 queries a block (2 a thread), R split over
+    the smallest power-of-two cluster (up to 8, slices of at least 256 rows)
+    that gives the launch 2 x `sms` blocks."""
+    tiles = lanes * -(-q_n // 256)
+    cluster = 1
+    while cluster < MAX_CLUSTER and r_n >= 2 * cluster * MIN_SLICE and tiles * cluster < 2 * sms:
+        cluster *= 2
+    return NN1Plan(cluster, -(-r_n // cluster), 2)
+
+
 def nn1_calls(old, query, ref, mask, lane_ref):
-    """(old call, new call, outputs): both C entry points on preallocated outputs."""
+    """(old call, new call, outputs): both C entry points on preallocated
+    outputs, the old one at its own plan (old_nn1_plan)."""
     lanes, q_n = query.shape[:2]
     groups, r_n = ref.shape[:2]
     outs = [(torch.empty((lanes, q_n), dtype=torch.float32, device=query.device),
              torch.empty((lanes, q_n), dtype=torch.int32, device=query.device)) for _ in range(2)]
-    head = (query.data_ptr(), ref.data_ptr(), mask.data_ptr(), lane_ref.data_ptr(), lanes, q_n, groups, r_n)
-    plan = nn1_plan(lanes, q_n, r_n, sm_count(query.device.index))
+    sms = sm_count(query.device.index)
+    plan, old_plan = nn1_plan(lanes, q_n, r_n, sms), old_nn1_plan(lanes, q_n, r_n, sms)
     new = _build.library()
 
     def run_old():
-        _check(old.kss_nn1(*head, outs[0][0].data_ptr(), outs[0][1].data_ptr(), _stream()), "old kss_nn1")
+        _check(old.kss_nn1(query.data_ptr(), ref.data_ptr(), mask.data_ptr(), lane_ref.data_ptr(), lanes, q_n,
+                           groups, r_n, old_plan.cluster, old_plan.slice, outs[0][0].data_ptr(),
+                           outs[0][1].data_ptr(), _stream()), "old kss_nn1")
 
     def run_new():
-        _check(new.kss_nn1(*head, plan.cluster, plan.slice, outs[1][0].data_ptr(), outs[1][1].data_ptr(),
-                           _stream()), "kss_nn1")
+        nn1_launch(new, query, ref, mask, lane_ref, plan, outs[1])
     return run_old, run_new, outs
+
+
+def nn1_reps(reps: int, lanes: int, q_n: int, r_n: int) -> int:
+    return max(3, min(reps, int(2e10 // (lanes * q_n * r_n))))
 
 
 def old_fps_plan(p_n: int) -> tuple:
@@ -316,25 +388,32 @@ def sweep(dev, reps: int) -> dict:
     rng = np.random.default_rng(1)
     lib = _build.library()
     result = {"nn1": [], "fps": []}
-    for lanes, q_n, r_n, label in NN1_SHAPES:
-        query = torch.as_tensor(np.stack([cloud(rng, q_n) for _ in range(lanes)]), device=dev)
-        ref = torch.as_tensor(cloud(rng, r_n)[None], device=dev)
-        mask = torch.ones((1, r_n), dtype=torch.bool, device=dev)
-        lane_ref = torch.zeros((lanes,), dtype=torch.int32, device=dev)
-        d2 = torch.empty((lanes, q_n), dtype=torch.float32, device=dev)
-        idx = torch.empty((lanes, q_n), dtype=torch.int32, device=dev)
-        n = max(3, min(reps, int(2e10 // (lanes * q_n * r_n))))
-        rows = []
-        for cluster in (1, 2, 4, 8):
-            def run(cluster=cluster):
-                _check(lib.kss_nn1(query.data_ptr(), ref.data_ptr(), mask.data_ptr(), lane_ref.data_ptr(), lanes,
-                                   q_n, 1, r_n, cluster, -(-r_n // cluster), d2.data_ptr(), idx.data_ptr(),
-                                   _stream()), "kss_nn1")
-            rows.append({"cluster": cluster, "ms": graph_ms(run, n)})
-        chosen = nn1_plan(lanes, q_n, r_n, sm_count(dev.index)).cluster
-        result["nn1"].append({"shape": f"{lanes}x{q_n}x{r_n}", "label": label, "chosen": chosen, "plans": rows})
-        print(f"sweep nn1 {lanes}x{q_n}x{r_n} ({label}): chosen cluster {chosen}; " +
-              "; ".join(f"cluster {r['cluster']} {r['ms']:.4f} ms" for r in rows), flush=True)
+    for lanes, q_n, r_n, groups, valid, label in NN1_SHAPES:
+        query, ref, mask, lane_ref = nn1_inputs(rng, dev, lanes, q_n, r_n, groups, valid)
+        out = (torch.empty((lanes, q_n), dtype=torch.float32, device=dev),
+               torch.empty((lanes, q_n), dtype=torch.int32, device=dev))
+        n = nn1_reps(reps, lanes, q_n, r_n)
+        rows, want = [], None
+        for queries in QUERIES:
+            for cluster in (1, 2, 4, 8):
+                plan = NN1Plan(cluster, -(-r_n // cluster), queries)
+                nn1_launch(lib, query, ref, mask, lane_ref, plan, out)
+                torch.cuda.synchronize()
+                want = (out[0].clone(), out[1].clone()) if want is None else want
+                same = bool(torch.equal(out[0], want[0]) and torch.equal(out[1], want[1]))
+                ms = graph_ms(lambda plan=plan: nn1_launch(lib, query, ref, mask, lane_ref, plan, out), n)
+                rows.append(dict(plan._asdict(), ms=ms, same_bits=same))
+        chosen = nn1_plan(lanes, q_n, r_n, sm_count(dev.index))
+        best = min(rows, key=lambda r: r["ms"])
+        result["nn1"].append({"shape": f"{lanes}x{q_n}x{r_n}", "groups": groups, "label": label,
+                              "chosen": chosen._asdict(), "plans": rows})
+        print(f"sweep nn1 {lanes}x{q_n}x{r_n} G={groups} ({label}): chosen {tuple(chosen)} "
+              f"{next(r['ms'] for r in rows if (r['queries'], r['cluster']) == (chosen.queries, chosen.cluster)):.4f}"
+              f" ms, fastest q{best['queries']} C{best['cluster']} {best['ms']:.4f} ms; " +
+              "; ".join(f"q{r['queries']} C{r['cluster']} {r['ms']:.4f}{'' if r['same_bits'] else ' BITS DIFFER'}"
+                        for r in rows), flush=True)
+        if not all(r["same_bits"] for r in rows):
+            raise RuntimeError(f"nn1 sweep {lanes}x{q_n}x{r_n}: a plan's answers differ from another's")
     sms = sm_count(dev.index)
     for b_n, p_n, s, steps, label in FPS_SHAPES:
         pts = torch.as_tensor(np.stack([cloud(rng, p_n) for _ in range(b_n)]), device=dev)
@@ -466,26 +545,25 @@ def ab_cull(old, dev, rng, reps: int) -> list:
 
 def ab_nn1(old, dev, rng, reps: int) -> list:
     rows = []
-    for lanes, q_n, r_n, label in NN1_SHAPES:
-        query = torch.as_tensor(np.stack([cloud(rng, q_n) for _ in range(lanes)]), device=dev)
-        ref = torch.as_tensor(cloud(rng, r_n)[None], device=dev)
-        mask = torch.ones((1, r_n), dtype=torch.bool, device=dev)
-        mask[0, r_n - r_n // 40:] = False
-        lane_ref = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    sms = sm_count(dev.index)
+    for lanes, q_n, r_n, groups, valid, label in NN1_SHAPES:
+        query, ref, mask, lane_ref = nn1_inputs(rng, dev, lanes, q_n, r_n, groups, valid)
         run_old, run_new, outs = nn1_calls(old, query, ref, mask, lane_ref)
         run_old()
         run_new()
         wrapped = nn1(query, ref, mask, lane_ref)
         torch.cuda.synchronize()
         same = all(torch.equal(o, n) and torch.equal(o, w) for o, n, w in zip(outs[0], outs[1], wrapped))
-        n = max(3, min(reps, int(2e10 // (lanes * q_n * r_n))))
-        row = dict(in_turns(run_old, run_new, n), shape=f"{lanes}x{q_n}x{r_n}", label=label, same_bits=same,
-                   reps=n, plan=nn1_plan(lanes, q_n, r_n, sm_count(dev.index))._asdict())
+        n = nn1_reps(reps, lanes, q_n, r_n)
+        row = dict(in_turns(run_old, run_new, n), shape=f"{lanes}x{q_n}x{r_n}", groups=groups, label=label,
+                   same_bits=same, reps=n, plan=nn1_plan(lanes, q_n, r_n, sms)._asdict(),
+                   old_plan=old_nn1_plan(lanes, q_n, r_n, sms)._asdict())
         row["wrapper_ms"] = time_ms(lambda: nn1(query, ref, mask, lane_ref), n)
         rows.append(row)
-        print(f"nn1 {row['shape']} ({label}): device old {row['old_ms']:.4f} ms, new {row['new_ms']:.4f} ms "
-              f"({row['old_ms'] / row['new_ms']:.2f}x); new wrapper back to back {row['wrapper_ms']:.4f} ms; "
-              f"same bits {same}, plan {row['plan']}", flush=True)
+        print(f"nn1 {row['shape']} G={groups} ({label}): device old {row['old_ms']:.4f} ms, new {row['new_ms']:.4f} "
+              f"ms ({row['old_ms'] / row['new_ms']:.3f}x; turns {row['turns_ms']}); new wrapper back to back "
+              f"{row['wrapper_ms']:.4f} ms; same bits {same}, plan {tuple(row['plan'].values())}, old plan "
+              f"{tuple(row['old_plan'].values())}", flush=True)
     return rows
 
 
@@ -522,6 +600,55 @@ def ab_fps(old, dev, rng, reps: int) -> list:
               f"{row['wrapper_ms']:.4f} ms; same bits {same}, plan {tuple(plan)}, old plan {row['old_plan']}",
               flush=True)
     return rows
+
+
+_SASS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+
+
+def inner_loop_mix(func: str) -> dict:
+    """The instructions a (query, row) pair of a kernel's scan: of the
+    innermost loops (a backward branch with no other inside its span), the
+    one with the most FMULs, whose pairs are its FMULs over 3; its
+    instructions (NOPs left out) over its pairs, in all and by opcode."""
+    ins = []
+    for m in _SASS.finditer(func):
+        words = m.group(2).split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words:
+            ins.append((int(m.group(1), 16), words[0], m.group(2)))
+    loops = []
+    for addr, op, text in ins:
+        target = re.search(r"0x([0-9a-f]+)", text) if op.startswith("BRA") else None
+        if target and int(target.group(1), 16) <= addr:
+            loops.append((int(target.group(1), 16), addr))
+    inner = [(a, z) for a, z in loops if not any(a <= a2 and z2 <= z and (a2, z2) != (a, z) for a2, z2 in loops)]
+    best = None
+    for a, z in inner:
+        body = [op for addr, op, _ in ins if a <= addr <= z and not op.startswith("NOP")]
+        fmul = sum(op.split(".")[0] == "FMUL" for op in body)
+        if fmul and (best is None or fmul > best[0]):
+            best = (fmul, body)
+    if best is None:
+        return {}
+    pairs = best[0] / 3
+    mix = {}
+    for op in best[1]:
+        mix[op.split(".")[0]] = mix.get(op.split(".")[0], 0) + 1
+    return {"pairs_a_pass": pairs, "instructions_a_pair": len(best[1]) / pairs,
+            "by_opcode": {k: v / pairs for k, v in sorted(mix.items(), key=lambda kv: -kv[1])}}
+
+
+def nn1_loop_mixes(sass: str) -> dict:
+    """{nn1 kernel instantiation (its mangled name): inner_loop_mix}."""
+    return {func.split()[0]: inner_loop_mix(func) for func in sass.split("Function : ")[1:]
+            if "nn1_kernel" in func.split()[0]}
+
+
+def sass_of(path: Path) -> str:
+    out = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(path)],
+                         capture_output=True, text=True, timeout=300)
+    return out.stdout + out.stderr
 
 
 def dot_tensor_instructions(sass: str) -> dict:
@@ -585,7 +712,7 @@ def main() -> int:
     clock = smi("clocks.max.sm")
     print(card, f"max SM clock {clock}", flush=True)
     dev = torch.device("cuda", 0)
-    old, present = load_old(args.old)
+    old, present, old_path = load_old(args.old)
     path, nvcc_out, seconds = _build.build()
     print(f"new library {path.name} built in {seconds:.2f} s", flush=True)
     for line in nvcc_out.splitlines():
@@ -593,13 +720,21 @@ def main() -> int:
             print("  " + line.strip(), flush=True)
     out_dir = args.out
     out_dir.mkdir(parents=True, exist_ok=True)
+    mixes = {}
     if args.sass:
-        sass = subprocess.run([str(Path(_build.find_nvcc()).parent / "cuobjdump"), "-sass", str(path)],
-                              capture_output=True, text=True, timeout=300)
-        (out_dir / "torch_kernels.sass").write_text(sass.stdout + sass.stderr)
-        print(f"field_dot's tensor-core instructions: {dot_tensor_instructions(sass.stdout)}", flush=True)
+        sass = sass_of(path)
+        (out_dir / "torch_kernels.sass").write_text(sass)
+        print(f"field_dot's tensor-core instructions: {dot_tensor_instructions(sass)}", flush=True)
+        mixes = {"new": nn1_loop_mixes(sass)}
+        if "nn.cu" in present:
+            mixes["old"] = nn1_loop_mixes(sass_of(old_path))
+        for side, kernels in mixes.items():
+            for name, mix in kernels.items():
+                print(f"nn1 inner loop, {side} {name}: {mix.get('instructions_a_pair', float('nan')):.3f} "
+                      f"instructions a pair ({mix.get('pairs_a_pass')} pairs a pass): {mix.get('by_opcode')}",
+                      flush=True)
     rng = np.random.default_rng(0)
-    result = {"card": card, "nn1": [], "fps": [], "field_ave": [], "field_dot": [], "field_trim": []}
+    result = {"card": card, "nn1_inner_loop": mixes, "nn1": [], "fps": [], "field_ave": [], "field_dot": [], "field_trim": []}
     if "nn.cu" in present:
         result["nn1"] = ab_nn1(old, dev, rng, args.reps)
     if "fps.cu" in present:

@@ -11,9 +11,11 @@ around it ("-" where no sync span names it) and the innermost other "kss."
 span, with how often the call reached it; then the syncs a lockstep ICP
 iteration (those inside "kss.icp.step" spans over the call's growth of
 `icp.lockstep_iterations`) and how many of those iterations ran the
-`icp_update` kernel (`icp.fused_steps`). The spans are tracked by standing in for the
-profiler's ranges (utils/profiling.py), so no profiler runs. Needs a CUDA
-card; writes the table as JSON to FILE (default sync_audit.json).
+`icp_update` kernel (`icp.fused_steps`), and the call's `nn1` launches by
+plan (`nn1.plan_launches`: queries a thread, cluster). The spans are
+tracked by standing in for the profiler's ranges (utils/profiling.py), so
+no profiler runs. Needs a CUDA card; writes the table as JSON to FILE
+(default sync_audit.json).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ def _site(frames) -> str:
 def audit(cell: str, seed: int):
     import torch
 
+    from kss_icp_torch.ops.nn_cuda import nn1
     from kss_icp_torch.utils import profiling
     from regbench import entries, generate, harness
 
@@ -84,6 +87,7 @@ def audit(cell: str, seed: int):
             warnings.showwarning = show
             torch.cuda.set_sync_debug_mode("warn")
             it0, fused0 = counter(), icp.fused_steps
+            nn1.plan_launches.clear()
             call(calls[1 % len(calls)], None)
             torch.cuda.set_sync_debug_mode("default")
             iterations, fused = counter() - it0, icp.fused_steps - fused0
@@ -94,6 +98,7 @@ def audit(cell: str, seed: int):
             for (s, sy, w, st), n in sorted(seen.items(), key=lambda kv: -kv[1])]
     in_step = sum(r["count"] for r in rows if r["in_step"])
     return {"cell": cell, "pairs": len(calls[1 % len(calls)]), "lockstep_iterations": iterations, "fused_steps": fused,
+            "nn1_plans": {f"{q}x{c}": n for (q, c), n in sorted(nn1.plan_launches.items())},
             "syncs": sum(r["count"] for r in rows), "syncs_in_steps": in_step,
             "unnamed": sum(r["count"] for r in rows if r["sync_span"] == "-"),
             "syncs_per_iteration": in_step / iterations if iterations else None, "sites": rows}
@@ -117,7 +122,7 @@ def main(argv=None) -> int:
         out.append(r)
         print(f"{cell}: {r['syncs']} syncs over {r['pairs']} pairs, {r['lockstep_iterations']} lockstep iterations "
               f"({r['fused_steps']} fused), {r['syncs_per_iteration']} syncs an iteration, {r['unnamed']} in no sync "
-              f"span", flush=True)
+              f"span; nn1 launches by plan (queries a thread x cluster): {r['nn1_plans']}", flush=True)
         for row in r["sites"]:
             print(f"  {row['count']:6d}  {row['sync_span']:22s} {row['span']:24s} "
                   f"{'step' if row['in_step'] else '    '}  {row['site']}", flush=True)

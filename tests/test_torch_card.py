@@ -171,6 +171,75 @@ def test_nn1_kernel_fully_masked_reference_and_foreign_lane_ref(cuda_device):
     assert bool(torch.isnan(d2[2:]).all()) and bool((idx[2:] == -1).all())
 
 
+# (L, Q, R, G, valid rows of one cloud, label, the plan nn1_plan picks on an
+# H100's 132 SMs: (queries a thread, cluster)): every plan the rule can
+# choose, the room's metric with its 704 padded rows, the overlap screen's
+# ICP and the refine among them.
+NN1_PLAN_CASES = [
+    (1, 200704, 200704, 1, 200000, "room metric, 704 padded rows", (4, 2)),
+    (8192, 512, 2048, 16, None, "overlap screen ICP, 16 clouds", (4, 2)),
+    (300, 512, 300, 3, None, "4 queries a thread, R unsplit", (4, 1)),
+    (4, 2048, 2048, 1, None, "refine", (2, 8)),
+    (6, 700, 1500, 3, None, "a cluster of 4", (2, 4)),
+    (1, 65536, 65536, 1, None, "K4 regime", (2, 2)),
+    (3, 97, 300, 3, None, "2 queries a thread, R unsplit", (2, 1)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes, q_n, r_n, groups, valid, label, chosen", NN1_PLAN_CASES,
+                         ids=[c[5] for c in NN1_PLAN_CASES])
+def test_nn1_kernel_matches_plain_at_every_plan(cuda_device, lanes, q_n, r_n, groups, valid, label, chosen):
+    """The min-only scan at each plan the rule chooses, bit for bit against
+    the plain version, and one launch a call counted under its plan."""
+    rng = np.random.default_rng(lanes + q_n + r_n)
+    q = _t(np.stack([random_cloud(rng, q_n) for _ in range(lanes)]).astype(np.float32), cuda_device)
+    r = _t(np.stack([random_cloud(rng, r_n) for _ in range(groups)]).astype(np.float32), cuda_device)
+    rows = torch.arange(r_n, device=cuda_device)[None]
+    m = rows < (valid if valid is not None else _t(rng.integers(r_n // 2, r_n + 1, size=(groups, 1)), cuda_device))
+    m = m.expand(groups, r_n).contiguous()
+    lane_ref = torch.arange(groups, dtype=torch.int32, device=cuda_device).repeat_interleave(lanes // groups)
+    plan = nn1_plan(lanes, q_n, r_n, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    if torch.cuda.get_device_properties(cuda_device).multi_processor_count == 132:
+        assert (plan.queries, plan.cluster) == chosen
+    nn1.plan_launches.clear()
+    got = nn1(q, r, m, lane_ref)
+    assert nn1.plan_launches == {(plan.queries, plan.cluster): 1}
+    _same_nn(got, nn1_plain(q, r, m, lane_ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 600])
+def test_nn1_kernel_ties_and_masks_at_chunk_and_tile_borders(cuda_device, lanes):
+    """Exact ties across the 32-row chunks, the 1024-row tiles and the
+    slices, masked rows at a chunk's first and last row (their twins win),
+    duplicate rows and a fully masked lane, at 2 queries a thread on a
+    cluster of 8 and 4 on a cluster of 2: the first index wins as in the
+    plain version."""
+    r_n = 3000
+    rng = np.random.default_rng(lanes)
+    r = random_cloud(rng, 2 * r_n).astype(np.float32).reshape(2, r_n, 3)
+    for a, b in ((31, 32), (63, 95), (1023, 1024), (5, 1500), (2047, 2048), (2990, 2999)):
+        r[0, b] = r[0, a]  # the later row must lose
+    r[0, 640:672] = r[0, 640]  # a whole chunk of duplicates
+    m = np.ones((2, r_n), bool)
+    m[1] = False  # a fully masked cloud
+    for row in (64, 127, 1055, 2016):  # a chunk's first or last row, masked; its twin later in the cloud
+        m[0, row] = False
+        r[0, row + 7] = r[0, row]
+    picks = [31, 32, 63, 95, 1023, 1024, 5, 1500, 2047, 2990, 640, 650, 64, 127, 1055, 2016]
+    q = np.concatenate([r[0, picks], random_cloud(rng, 512 - len(picks)).astype(np.float32)])
+    q = _t(np.broadcast_to(q, (lanes, 512, 3)).copy(), cuda_device)
+    lane_ref = _t((np.arange(lanes) % 2).astype(np.int32), cuda_device)
+    rt, mt = _t(r, cuda_device), _t(m, cuda_device)
+    plan = nn1_plan(lanes, 512, r_n)
+    assert plan.queries == (4 if lanes == 600 else 2)
+    d2, idx = nn1(q, rt, mt, lane_ref)
+    _same_nn((d2, idx), nn1_plain(q, rt, mt, lane_ref))
+    assert idx[0, :12].tolist() == [31, 31, 63, 63, 1023, 1023, 5, 5, 2047, 2990, 640, 640]
+    assert idx[0, 12:16].tolist() == [71, 134, 1062, 2023] and bool((d2[1] == 1e30).all())
+
+
 @pytest.mark.cuda
 def test_fps_kernel_matches_plain_and_jax(cuda_device):
     pts, mask = _fps_case(cuda_device)

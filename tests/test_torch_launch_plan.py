@@ -5,8 +5,9 @@ ops/coarse_cuda.py::dot_plan), at the shapes the main path gives them.
 The kernels run only on the card; their plans are plain Python, so the
 partition of work they imply is checked here: every reference row falls in
 exactly one cluster slice, the cluster size is one the card takes, every
-query has a thread, and R is split until every SM has two blocks or the
-cluster is at its cap; every (rotation, source point) pair of a field_dot
+query has one thread and one merge share, 4 queries a thread exactly where
+the launch still gives every SM two blocks, and R is split until every SM
+has two blocks or the cluster is at its cap; every (rotation, source point) pair of a field_dot
 launch is finished by exactly one warp, and the staged target fits the
 block's shared memory; every point of an `fps` cloud lies in
 exactly one block's contiguous slice, within what a block holds."""
@@ -15,30 +16,39 @@ import pytest
 
 from kss_icp_torch.ops.coarse_cuda import (DOT_MAX_POINTS, DOT_POINTS, DOT_SM_SMEM, DOT_STATIC_SMEM, DOT_TILE,
                                            dot_plan, dot_stage_bytes)
-from kss_icp_torch.ops.nn_cuda import MAX_CLUSTER, MIN_SLICE, SMS, TILE_QUERIES, nn1_plan
+from kss_icp_torch.ops.nn_cuda import MAX_CLUSTER, MIN_SLICE, QUERIES, SMS, THREADS, nn1_plan
 from kss_icp_torch.ops.resample_cuda import (CLUSTER_MIN_POINTS, CLUSTER_POINTS, CLUSTER_THREADS, CLUSTERS,
                                              MAX_POINTS, MAX_THREADS, MIN_CLUSTER, REGISTER_POINTS, REGISTER_SLICE,
                                              SHARED_K, SHARED_SLICE, SHARED_THREADS, FPSPlan, block_plan,
                                              empty_step_plan, fps_plan)
 from kss_icp_torch.ops.resample_cuda import MIN_SLICE as FPS_MIN_SLICE
 
-# (L, Q, R, label, cluster): the ICP screen, refine and escalation screen,
-# the metric at the smallest and largest remesh pair's padded shape, the K4
-# regime, and small shapes of the tests.
+# (L, Q, R, label, (queries a thread, cluster)): the ICP screen, refine and
+# escalation screen, the metric at the smallest and largest remesh pair's
+# padded shape, the K4 regime, the batches' screen, the overlap screen's rung
+# and metric, the room's metric and a mesh rank's quarter of it, and small
+# shapes of the tests.
 NN1_SHAPES = [
-    (32, 512, 2048, "screen", 8),
-    (4, 2048, 2048, "refine", 8),
-    (2, 2048, 2048, "two-tier refine", 8),
-    (1, 2048, 2048, "final converge", 8),
-    (16, 512, 2048, "escalation screen", 8),
-    (3, 2048, 2048, "escalation refine", 8),
-    (1, 3072, 8192, "metric, largest remesh pair", 8),
-    (1, 768, 4096, "metric, smallest remesh pair", 8),
-    (1, 65536, 65536, "K4 regime", 2),
-    (1, 40, 300, "tiny", 1),
-    (6, 700, 1500, "lanes", 4),
-    (1, 1001, 2037, "ragged", 4),
-    (1, 1, 1, "one row", 1),
+    (32, 512, 2048, "screen", (2, 8)),
+    (4, 2048, 2048, "refine", (2, 8)),
+    (2, 2048, 2048, "two-tier refine", (2, 8)),
+    (1, 2048, 2048, "final converge", (2, 8)),
+    (16, 512, 2048, "escalation screen", (2, 8)),
+    (3, 2048, 2048, "escalation refine", (2, 8)),
+    (1, 3072, 8192, "metric, largest remesh pair", (2, 8)),
+    (1, 768, 4096, "metric, smallest remesh pair", (2, 8)),
+    (1, 65536, 65536, "K4 regime", (2, 2)),
+    (2048, 512, 2048, "boards batch screen", (4, 2)),
+    (8192, 512, 2048, "overlap screen rung", (4, 2)),
+    (64, 8192, 8192, "boards batch metric", (4, 2)),
+    (1, 200704, 200704, "room metric", (4, 2)),
+    (1, 50176, 200704, "a mesh rank's room metric", (2, 2)),
+    (224, 512, 2048, "a mesh rank's screen", (2, 2)),
+    (300, 512, 300, "4 queries a thread, R unsplit", (4, 1)),
+    (1, 40, 300, "tiny", (2, 1)),
+    (6, 700, 1500, "lanes", (2, 4)),
+    (1, 1001, 2037, "ragged", (2, 4)),
+    (1, 1, 1, "one row", (2, 1)),
 ]
 
 
@@ -51,33 +61,56 @@ def _slices(plan, r_n):
     return out
 
 
-@pytest.mark.parametrize("lanes, q_n, r_n, label, cluster", NN1_SHAPES, ids=[s[3] for s in NN1_SHAPES])
-def test_nn1_plan_partitions_the_work(lanes, q_n, r_n, label, cluster):
+@pytest.mark.parametrize("lanes, q_n, r_n, label, chosen", NN1_SHAPES, ids=[s[3] for s in NN1_SHAPES])
+def test_nn1_plan_partitions_the_work(lanes, q_n, r_n, label, chosen):
     plan = nn1_plan(lanes, q_n, r_n)
-    assert plan.cluster == cluster and plan.cluster in (1, 2, 4, 8) and plan.cluster <= MAX_CLUSTER
+    assert (plan.queries, plan.cluster) == chosen
+    assert plan.queries in QUERIES and plan.cluster in (1, 2, 4, 8) and plan.cluster <= MAX_CLUSTER
     rows = [r for s in _slices(plan, r_n) for r in s]
     assert rows == list(range(r_n))  # every row in exactly one slice, in rank order
     assert plan.cluster == 1 or plan.slice >= MIN_SLICE
-    # The merge: rank c writes queries [c * 256 // C, (c + 1) * 256 // C) of the tile.
-    shares = [range(c * TILE_QUERIES // plan.cluster, (c + 1) * TILE_QUERIES // plan.cluster)
-              for c in range(plan.cluster)]
-    assert [q for s in shares for q in s] == list(range(TILE_QUERIES))
+    # The merge: rank c writes queries [c * QT // C, (c + 1) * QT // C) of the tile of QT queries.
+    tile = plan.tile_queries
+    shares = [range(c * tile // plan.cluster, (c + 1) * tile // plan.cluster) for c in range(plan.cluster)]
+    assert [q for s in shares for q in s] == list(range(tile))
     _assert_two_blocks_an_sm(plan, lanes, q_n, r_n, SMS)
 
 
 def _assert_two_blocks_an_sm(plan, lanes, q_n, r_n, sms):
-    """R is split no further than two blocks an SM, and as far as that while it can."""
-    blocks = lanes * -(-q_n // TILE_QUERIES) * plan.cluster
-    assert plan.cluster == 1 or blocks // 2 < 2 * sms
+    """4 queries a thread exactly where the launch, R unsplit, gives every
+    SM two blocks; R split over 2 blocks where it holds two slices of 256
+    rows, further no more than two blocks an SM need, and as far as that
+    while it can."""
+    assert (plan.queries == 4) == (lanes * -(-q_n // (THREADS * 4)) >= 2 * sms)
+    assert (plan.cluster >= 2) == (r_n >= 2 * MIN_SLICE)
+    blocks = lanes * -(-q_n // plan.tile_queries) * plan.cluster
+    assert plan.cluster <= 2 or blocks // 2 < 2 * sms
     assert blocks >= 2 * sms or plan.cluster == MAX_CLUSTER or r_n < 2 * plan.cluster * MIN_SLICE
 
 
-@pytest.mark.parametrize("sms, cluster", [(132, 8), (114, 4), (48, 2), (16, 1)])
+@pytest.mark.parametrize("sms, cluster", [(132, 8), (114, 4), (48, 2), (16, 2)])
 def test_nn1_plan_follows_the_sm_count(sms, cluster):
     """The card's SM count sets the split: the screen's 32 lanes x 512 queries are 64 tiles."""
     plan = nn1_plan(32, 512, 8192, sms)
     assert plan.cluster == cluster and plan.cluster * plan.slice >= 8192
     _assert_two_blocks_an_sm(plan, 32, 512, 8192, sms)
+
+
+@pytest.mark.parametrize("lanes, q_n, sms", [(1, 200704, 132), (1, 135168, 132), (1, 134656, 132), (263, 512, 132),
+                                             (264, 512, 132), (8, 8192, 8), (7, 8192, 8), (32, 512, 16),
+                                             (2048, 512, 132), (1, 1, 1)])
+def test_nn1_plan_queries_a_thread_give_every_query_one_thread(lanes, q_n, sms):
+    """4 queries a thread where the launch of 512-query tiles still gives
+    every SM two blocks, else 2; every query of a tile has exactly one
+    (thread, slot): query q0 + tid + u * 128 of csrc/nn.cu, and the tiles
+    cover Q."""
+    plan = nn1_plan(lanes, q_n, 2048, sms)
+    tiles4 = lanes * -(-q_n // 512)
+    assert plan.queries == (4 if tiles4 >= 2 * sms else 2)
+    tile = plan.tile_queries
+    assert sorted(tid + u * THREADS for tid in range(THREADS) for u in range(plan.queries)) == list(range(tile))
+    assert -(-q_n // tile) * tile >= q_n > (-(-q_n // tile) - 1) * tile
+    _assert_two_blocks_an_sm(plan, lanes, q_n, 2048, sms)
 
 
 def _assert_block_holds_its_slice(plan, p_n):
